@@ -1,0 +1,339 @@
+#!/usr/bin/env python3
+"""Smoke run of climt_tpu_torch, the PyTorch + CUDA port, on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails loudly (no exception is turned into exit 0):
+  1. require a CUDA device; print the card's name and power limit; check
+     that float32 matmuls run in full float32 (TF32 off);
+  2. build the CUDA kernels of climt_tpu_torch/csrc/ with nvcc;
+  3. kernel B (table-row gather-sum) against its plain version at a
+     taumol-sized case;
+  4. kernel A (LW flux integration) against its plain version, with
+     clouds, at nz=28 and nz=60, ncol=8192;
+  5. the moist GCM at 32x16x10, float32, 7 steps on the GPU against the
+     same model on the CPU (plain versions);
+  6. the moist GCM at T85 (256x128x28, dt 600 s, rad_every=6,
+     rad_col_chunk=8192), 12 steps through build_moist_gcm's step_fn,
+     with both kernels' launch counts read around that run;
+  7. standalone LW+SW radiation at nz=60, ncol=8192, in columns/s.
+The line before the last is a JSON object with each kernel's launches,
+error and time; the last line is {"ok": true, "device": {...}}.
+It imports neither jax nor climt_tpu.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+T85 = dict(nlon=256, nlat=128, nz=28, timestep=600.0, rad_every=6,
+           rad_col_chunk=8192)
+T85_STEPS = 12
+# phase 5 bounds, GPU float32 vs CPU float32 after 7 steps at 32x16x10.
+# The port's own float32-vs-float64 gap there is 2e-4 K, 4e-4 m/s,
+# 1.1e-7 kg/kg and 0.32 Pa; the bounds leave 50x room for the other
+# summation order and transcendental roundoff of the card.
+SMALL_TOL = dict(T=0.01, u=0.02, v=0.02, q=5e-6, ps=15.0)
+
+
+def phase(n, msg):
+    print('[phase %d] %s' % (n, msg), flush=True)
+
+
+def fail(msg):
+    print('chip_smoke FAILED: ' + msg, file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def cuda_ms(fn, reps, torch):
+    """Mean device milliseconds of fn() over reps launches (warmed up)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def max_rel_err(a, b):
+    """max |a - b| and the scale max |b| of two tensors."""
+    return float((a - b).abs().max()), float(b.abs().max())
+
+
+def main():
+    import numpy as np
+    import torch
+
+    # ---- phase 1: device ---------------------------------------------
+    if not torch.cuda.is_available():
+        fail('torch.cuda.is_available() is False: this needs a CUDA GPU')
+    if not os.path.isdir(os.path.join(HERE, 'climt_tpu_torch')):
+        fail('climt_tpu_torch/ is not beside chip_smoke.py')
+    sys.path.insert(0, HERE)
+    card = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    phase(1, 'card: %s' % card)
+    print(card, flush=True)
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail('TF32 matmul is on; the SHT needs full float32 matmuls')
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device('cuda:0')
+    f32 = torch.float32
+
+    from climt_tpu_torch import _build
+    from climt_tpu_torch.components.rrtmg import fused_mix, rtrn_kernel
+    from climt_tpu_torch.components.rrtmg import lw_spectral as LW
+    from climt_tpu_torch.components.rrtmg import sw_spectral as SW
+    from climt_tpu_torch.convert import carry_to_numpy
+    from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
+
+    # ---- phase 2: build ----------------------------------------------
+    t0 = time.perf_counter()
+    _build.library()
+    phase(2, 'kernels built in %.1f s (nvcc %.1f s) -> %s' % (
+        time.perf_counter() - t0, _build.BUILD_INFO['seconds'],
+        os.path.relpath(_build.BUILD_INFO['path'], HERE)))
+    for line in _build.BUILD_INFO['log'].splitlines():
+        if 'registers' in line or 'spill' in line:
+            print('    ptxas: ' + line.strip(), flush=True)
+
+    rng = torch.Generator(device='cpu').manual_seed(0)
+    report = {}
+
+    # ---- phase 3: kernel B -------------------------------------------
+    R, ng, T, S = 1175, 16, 8, (28, 8192)
+    table = torch.rand(R, ng, generator=rng).to(dev)
+    idx = torch.randint(-3, R + 3, (T,) + S, generator=rng,
+                        dtype=torch.int32).to(dev)   # some clip at both ends
+    w = torch.randn((T,) + S, generator=rng).to(dev)
+    out = fused_mix.mix_rows_cuda(table, idx, w)
+    ref = fused_mix.mix_rows_plain(table, idx.long(), w)
+    torch.cuda.synchronize()
+    err, scale = max_rel_err(out, ref)
+    if not err <= 1e-6 * scale:
+        fail('kernel B disagrees: max abs err %g > 1e-6 * %g' % (err, scale))
+    ms = cuda_ms(lambda: fused_mix.mix_rows_cuda(table, idx, w), 20, torch)
+    plain_ms = cuda_ms(lambda: fused_mix.mix_rows_plain(table, idx.long(), w),
+                       20, torch)
+    report['B'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    phase(3, 'kernel B R=%d ng=%d T=%d S=%s: max abs err %.3g (max %.3g)'
+          ', %.4f ms vs plain %.4f ms' % (R, ng, T, S, err, scale, ms,
+                                         plain_ms))
+
+    # ---- phase 4: kernel A -------------------------------------------
+    sup = LW.load_support(f32, dev)
+    rec_6 = LW._support_scalar('rec_6')
+    ngb = torch.as_tensor(rtrn_kernel.NGB, device=dev)
+    dwave_g = (sup['delwave'][ngb] * LW._support_scalar('wtdiff')
+               * (3.141592653589793 * 2.0e4))
+
+    def rtrn_inputs(nz, ncol):
+        def r(*shape):
+            return torch.rand(*shape, generator=rng).to(dev)
+        cld = r(nz, ncol)
+        return (r(nz, ncol, 140) * 2.0, r(nz, ncol, 140),
+                r(nz, ncol, 16) * 0.2, r(nz + 1, ncol, 16) * 0.2,
+                r(ncol, 16) * 0.2, 0.9 + 0.1 * r(16, ncol),
+                1.5 + 0.3 * r(16, ncol), (cld > 0.5) * r(nz, ncol),
+                r(nz, ncol, 16) * 3.0, dwave_g)
+
+    for nz in (28, 60):
+        args = rtrn_inputs(nz, 8192)
+        outs = rtrn_kernel.rtrn_lw_cuda(*args, rec_6)
+        refs = rtrn_kernel.rtrn_lw_plain(*args, rec_6)
+        torch.cuda.synchronize()
+        worst = worst_rel = 0.0
+        for o, rf, nm in zip(outs, refs, ('up', 'dn', 'up_clr', 'dn_clr')):
+            err, scale = max_rel_err(o, rf)
+            if not err <= 2e-6 * scale:
+                fail('kernel A disagrees at nz=%d (%s): %g > 2e-6 * %g'
+                     % (nz, nm, err, scale))
+            worst = max(worst, err)
+            worst_rel = max(worst_rel, err / scale)
+        msg = ('kernel A nz=%d ncol=8192: max abs err %.3g W/m^2 (%.3g of '
+               'max)' % (nz, worst, worst_rel))
+        if nz == 28:            # the main path's shape
+            ms = cuda_ms(lambda: rtrn_kernel.rtrn_lw_cuda(*args, rec_6), 10,
+                         torch)
+            plain_ms = cuda_ms(
+                lambda: rtrn_kernel.rtrn_lw_plain(*args, rec_6), 3, torch)
+            report['A'] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+            msg += ', %.3f ms vs plain %.3f ms' % (ms, plain_ms)
+        else:
+            report['A']['max_abs_err'] = max(report['A']['max_abs_err'],
+                                             worst)
+        phase(4, msg)
+        del args, outs, refs
+
+    # ---- phase 5: small model, GPU vs CPU ------------------------------
+    small = dict(nlon=32, nlat=16, nz=10, rad_every=6, rad_col_chunk=128,
+                 dtype=f32)
+    finals = {}
+    for where in ('cpu', 'cuda'):
+        _, init_fn, _, run_fn = build_moist_gcm(device=where, **small)
+        carry, _ = run_fn(init_fn(0), 7)
+        finals[where] = carry_to_numpy(carry)[2]
+    diffs = {}
+    for key, tol in SMALL_TOL.items():
+        a, b = finals['cuda'][key], finals['cpu'][key]
+        if not np.isfinite(a).all():
+            fail('phase 5: non-finite %s on the GPU' % key)
+        diffs[key] = float(np.abs(a - b).max())
+        if not diffs[key] <= tol:
+            fail('phase 5: %s differs by %g > %g' % (key, diffs[key], tol))
+    phase(5, '32x16x10 f32, 7 steps, GPU vs CPU max abs diff: %s' % (
+        ', '.join('%s %.3g' % kv for kv in diffs.items())))
+
+    # ---- phase 6: T85 moist GCM through the entry point ----------------
+    dycore, init_fn, step_fn, run_fn = build_moist_gcm(
+        dtype=f32, device=dev, **T85)
+    carry = init_fn(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_mix.mix_rows_cuda.launches = 0
+    rtrn_kernel.rtrn_lw_cuda.launches = 0
+    step_s = []
+    diag = None
+    for _ in range(T85_STEPS):
+        t0 = time.perf_counter()
+        carry, diag = step_fn(carry, None)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = {'B': fused_mix.mix_rows_cuda.launches,
+                'A': rtrn_kernel.rtrn_lw_cuda.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    T_grid = dycore.sht.synthesize(carry[1]['T'])
+    for key, val in [('T', T_grid)] + list(diag.items()):
+        if not bool(torch.isfinite(val).all()):
+            fail('T85: NaN or inf in %s' % key)
+    if not (T_grid.shape == (28, 128, 256)
+            and 150.0 < float(T_grid.min()) and float(T_grid.max()) < 350.0):
+        fail('T85: temperature out of range [%g, %g]' % (
+            float(T_grid.min()), float(T_grid.max())))
+    if not (launches['A'] > 0 and launches['B'] > 0):
+        fail('T85 run did not go through both kernels: %s' % launches)
+    # 12 steps hold 2 radiation refreshes (steps 0 and 6): the mean over
+    # all of them is the model's cost at its 1-in-6 radiation cadence
+    rad_steps = [s for i, s in enumerate(step_s) if i % 6 == 0]
+    other = [s for i, s in enumerate(step_s) if i % 6 != 0]
+    mean_s = sum(step_s) / len(step_s)
+    gps = 256 * 128 * 28 / mean_s
+    phase(6, 'T85 %d steps on %s: step s %s' % (
+        T85_STEPS, card, ' '.join('%.4f' % s for s in step_s)))
+    phase(6, 'T85: %.4f s/step, %.4g gridpoint-steps/s; radiation steps '
+          '%s s, others %.4f s; peak memory %.2f GB; launches A=%d B=%d; '
+          'T in [%.1f, %.1f] K; on %s' % (
+              mean_s, gps, ' '.join('%.4f' % s for s in rad_steps),
+              sum(other) / len(other), peak_gb, launches['A'],
+              launches['B'], float(T_grid.min()), float(T_grid.max()), card))
+
+    # breakdown of one radiation step (outside the counted run)
+    model = step_fn.__self__
+    prev, now, grids, aux, k = carry
+    t_ph = time.perf_counter()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    cols = model._to_cols
+    T_c = cols(grids['T'])
+    q_c = torch.clamp(cols(grids['q']), min=0.0)
+    ph_c = cols(grids['p_half'])
+    pm_c = 0.5 * (ph_c[1:] + ph_c[:-1])
+    _, rad_s = timed(lambda: model.radiation(
+        T_c, q_c, pm_c, ph_c, aux['Ts'].reshape(-1),
+        torch.tensor(0.0, device=dev)))
+    (phys, _, _), phys_s = timed(lambda: model.physics(grids, aux, 1))
+    _, dyn_s = timed(lambda: model._fix_water(
+        model.dycore.step(prev, now, phys=phys)[1], prev, phys))
+    phase(6, 'T85 breakdown: radiation %.4f s, physics without radiation '
+          '%.4f s, dynamics + water fixer %.4f s (%.1f s to measure)' % (
+              rad_s, phys_s, dyn_s, time.perf_counter() - t_ph))
+    del carry, model, grids, aux, prev, now, phys
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: standalone radiation ---------------------------------
+    nz, ncol = 60, 8192
+    p_sfc = 1013.0
+    plev1 = np.linspace(p_sfc, 0.3, nz + 1)
+    play1 = 0.5 * (plev1[:-1] + plev1[1:])
+    tlay1 = np.maximum(300.0 - 60.0 * (1 - play1 / p_sfc) / 0.8, 205.0)
+    tlev1 = np.concatenate([[302.0], 0.5 * (tlay1[:-1] + tlay1[1:]),
+                            [tlay1[-1]]])
+
+    def cols_of(x):
+        return torch.as_tensor(np.repeat(np.asarray(x)[:, None], ncol, 1),
+                               dtype=f32, device=dev)
+
+    play, plev = cols_of(play1), cols_of(plev1)
+    tlay, tlev = cols_of(tlay1), cols_of(tlev1)
+    tsfc = torch.full((ncol,), 300.0, dtype=f32, device=dev)
+    h2o = cols_of(0.016 * (play1 / p_sfc) ** 3)
+    o3 = cols_of(5e-6 * np.exp(-0.5 * ((np.log(play1) - np.log(20.0))
+                                       / 1.2) ** 2))
+    co2 = torch.full_like(play, 355e-6)
+    o2 = torch.full_like(play, 0.21)
+    zero = torch.zeros_like(play)
+    emis = torch.ones((16, ncol), dtype=f32, device=dev)
+    mu0 = torch.full((ncol,), 0.6, dtype=f32, device=dev)
+    alb = torch.full((ncol,), 0.2, dtype=f32, device=dev)
+    solar = SW.solar_variability(-1, 0.0)
+    z16 = torch.zeros((nz, ncol, 16), dtype=f32, device=dev)
+    z14 = torch.zeros((nz, ncol, 14), dtype=f32, device=dev)
+
+    def rad():
+        lw = LW.rrtmg_lw_fluxes(
+            play, plev, tlay, tlev, tsfc, h2o, o3, co2, zero, zero, o2,
+            zero, zero, zero, zero, emis, zero, z16, zero, zero,
+            torch.full_like(play, 25.0), torch.full_like(play, 10.0), z16,
+            9.80665, 6.022140857e23, 1004.64)
+        sw = SW.rrtmg_sw_fluxes(
+            play, plev, tlay, h2o, o3, co2, zero, zero, o2, alb, alb, alb,
+            alb, mu0, zero, (z14,) * 4, (z14,) * 3, 1.0, -1, 0.0, -1, solar,
+            9.80665, 6.022140857e23, 1004.64, icld=0)
+        return lw[2] + sw[4]
+
+    hr = rad()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(hr).all()):
+        fail('standalone radiation: non-finite heating rate')
+    t0 = time.perf_counter()
+    for _ in range(3):
+        hr = rad()
+    torch.cuda.synchronize()
+    rad_cols = ncol / ((time.perf_counter() - t0) / 3)
+    phase(7, 'standalone LW+SW radiation nz=%d ncol=%d: %.4g columns/s '
+          'on %s' % (nz, ncol, rad_cols, card))
+
+    kernels = [
+        dict(name='mix_rows_cuda', route='cuda',
+             source='climt_tpu_torch/csrc/mix_rows.cu',
+             replaces='climt_tpu/components/rrtmg/fused_mix.py:76',
+             launches=launches['B'], **report['B']),
+        dict(name='rtrn_lw_cuda', route='cuda',
+             source='climt_tpu_torch/csrc/rtrn_lw.cu',
+             replaces='climt_tpu/components/rrtmg/pallas_rtrn.py:195',
+             launches=launches['A'], **report['A']),
+    ]
+    print(json.dumps({'kernels': kernels}), flush=True)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': name,
+        'count': torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == '__main__':
+    main()

@@ -1,0 +1,554 @@
+"""RRTMG-LW 140-g-point correlated-k radiative transfer in PyTorch
+(climt_tpu/components/rrtmg/lw_spectral.py).
+
+Ported for the moist GCM's configuration: analytic transmittance
+(``use_tables=False``), band clouds through ``cldprop_lw`` with
+inflag 2 / iceflag 1 / liqflag 1 (what the GCM passes), no dF/dTs, no
+McICA.  Every table interpolation of taumol goes through
+kernel B (``interp.mix_rows``, a direct gather over the merged
+[absa; absb] table, the JAX package's f64 path); the flux integration
+goes through kernel A (``rtrn_kernel.rtrn_lw_fused``).
+
+Layout as in the JAX module: layers bottom-up, columns trailing, g-points
+innermost, taug (nz, ncol, 140).  The tables are the same surrogate
+k-distribution files (docs/RRTMG_LW_STATUS.md).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ... import data
+from .interp import lin_rows, mix_rows
+from .rtrn_kernel import NG, NGB, rtrn_lw_fused
+
+ONEMINUS = 1.0 - 1.0e-6
+AMD, AMW = 28.9660, 18.0160      # molecular weights (g/mol), inatm
+
+# Cloud band mapping icb for ncbands 1/5/16 (lw_spectral.py:85-87)
+ICB = np.array([[1] * 16,
+                [1, 2, 3, 3, 3, 4, 4, 4, 5, 5, 5, 5, 5, 5, 5, 5],
+                list(range(1, 17))]) - 1
+
+# Band definitions, copied from lw_spectral.py:99 (BANDS_LW); keys as
+# documented there.
+BANDS_LW = [
+    dict(num=1, lo=('h2o',), up=('h2o',), self_lo=True, for_lo=True,
+         for_up=True, minors_lo=[('n2', 'n2')], minors_up=[('n2', 'n2')],
+         corradj='b1'),
+    dict(num=2, lo=('h2o',), up=('h2o',), self_lo=True, for_lo=True,
+         for_up=True, corradj='b2'),
+    dict(num=3, lo=('h2o', 'co2', 'h2oco2'), up=('h2o', 'co2', 'h2oco2'),
+         self_lo=True, for_lo=True, for_up=True,
+         planck_lo=('h2o', 'co2', (1, 2, 9)),
+         planck_up=('h2o', 'co2', (1, 2, 13)),
+         minors_lo=[('n2o', 'adjn2o')], minors_up=[('n2o', 'adjn2o')]),
+    dict(num=4, lo=('h2o', 'co2', 'h2oco2'), up=('o3', 'co2', 'o3co2'),
+         self_lo=True, for_lo=True, for_up=False,
+         planck_lo=('h2o', 'co2', (1, 2, 11)),
+         planck_up=('o3', 'co2', (3, 2, 13))),
+    dict(num=5, lo=('h2o', 'co2', 'h2oco2'), up=('o3', 'co2', 'o3co2'),
+         self_lo=True, for_lo=True, for_up=False,
+         planck_lo=('h2o', 'co2', (1, 2, 5)),
+         planck_up=('o3', 'co2', (3, 2, 43)),
+         minors_lo=[('o3', 'plain')], wx_lo=[('ccl4', 'ccl4')],
+         wx_up=[('ccl4', 'ccl4')]),
+    dict(num=6, lo=('h2o',), up=None, self_lo=True, for_lo=True,
+         for_up=False,
+         minors_lo=[('co2', ('adjco2', 2.0, 2.0, 0.77))],
+         wx_lo=[('cfc11', 'cfc11adj'), ('cfc12', 'cfc12')],
+         wx_up=[('cfc11', 'cfc11adj'), ('cfc12', 'cfc12')]),
+    dict(num=7, lo=('h2o', 'o3', 'h2oo3'), up=('o3',),
+         self_lo=True, for_lo=True, for_up=False,
+         planck_lo=('h2o', 'o3', (1, 3, 3)),
+         minors_lo=[('co2', ('adjco2', 3.0, 2.0, 0.79))],
+         minors_up=[('co2', ('adjco2', 3.0, 2.0, 0.79))]),
+    dict(num=8, lo=('h2o',), up=('o3',), self_lo=True, for_lo=True,
+         for_up=False,
+         minors_lo=[('co2', ('adjco2', 3.0, 2.0, 0.65)),
+                    ('o3', 'plain'), ('n2o', 'plain')],
+         minors_up=[('co2', ('adjco2', 3.0, 2.0, 0.65)),
+                    ('n2o', 'plain')],
+         wx_lo=[('cfc12', 'cfc12'), ('cfc22', 'cfc22adj')],
+         wx_up=[('cfc12', 'cfc12'), ('cfc22', 'cfc22adj')]),
+    dict(num=9, lo=('h2o', 'ch4', 'h2och4'), up=('ch4',),
+         self_lo=True, for_lo=True, for_up=False,
+         planck_lo=('h2o', 'ch4', (1, 6, 9)),
+         minors_lo=[('n2o', 'adjn2o')], minors_up=[('n2o', 'adjn2o')]),
+    dict(num=10, lo=('h2o',), up=('h2o',), self_lo=True, for_lo=True,
+         for_up=True),
+    dict(num=11, lo=('h2o',), up=('h2o',), self_lo=True, for_lo=True,
+         for_up=True,
+         minors_lo=[('o2', 'plain')], minors_up=[('o2', 'plain')]),
+    dict(num=12, lo=('h2o', 'co2', 'h2oco2'), up=None,
+         self_lo=True, for_lo=True, for_up=False,
+         planck_lo=('h2o', 'co2', (1, 2, 10))),
+    dict(num=13, lo=('h2o', 'n2o', 'h2on2o'), up=None,
+         self_lo=True, for_lo=True, for_up=False,
+         planck_lo=('h2o', 'n2o', (1, 4, 5)),
+         minors_lo=[('co2', ('adjco2', 3.0, 2.0, 0.68)), ('co', 'plain')],
+         minors_up=[('o3', 'plain')]),
+    dict(num=14, lo=('co2',), up=('co2',), self_lo=True, for_lo=True,
+         for_up=False),
+    dict(num=15, lo=('n2o', 'co2', 'n2oco2'), up=None,
+         self_lo=True, for_lo=True, for_up=False,
+         planck_lo=('n2o', 'co2', (4, 2, 1)),
+         minors_lo=[('n2', 'n2')]),
+    dict(num=16, lo=('h2o', 'ch4', 'h2och4'), up=('ch4',),
+         self_lo=True, for_lo=True, for_up=False,
+         planck_lo=('h2o', 'ch4', (1, 6, 6))),
+]
+
+# chi_mls row (1-based) per species and the key-species ratio pairs
+# (lw_spectral.py:167-171)
+CHI_ROW = dict(h2o=1, co2=2, o3=3, n2o=4, co=5, ch4=6, o2=7)
+RAT_PAIRS = dict(h2oco2=('h2o', 'co2'), o3co2=('o3', 'co2'),
+                 h2oo3=('h2o', 'o3'), h2och4=('h2o', 'ch4'),
+                 h2on2o=('h2o', 'n2o'), n2oco2=('n2o', 'co2'))
+
+
+def load_support(dtype, device):
+    """rrtmg_lw_support.npz as tensors of the working dtype."""
+    return data.load_tensors(data.LW_SUPPORT, dtype, device)
+
+
+def load_kdist(dtype, device):
+    """The surrogate gas k-distribution tables as working-dtype tensors."""
+    return data.load_tensors(data.LW_KDIST, dtype, device)
+
+
+def _support_scalar(name):
+    return float(data.load_numpy(data.LW_SUPPORT)[name].reshape(-1)[0])
+
+
+def _trunc_int(x):
+    """Truncate toward zero, then cast (lw_spectral.py:220): selects rows."""
+    return torch.trunc(x).to(torch.int64)
+
+
+def inatm_lw(play, plev, tlay, vmr, grav, avogad):
+    """Column amounts (molec/cm^2) and precipitable water (:224)."""
+    h2o = vmr['h2o']
+    amm = (1.0 - h2o) * AMD + h2o * AMW
+    dp = plev[:-1] - plev[1:]
+    coldry = dp * 1.0e3 * avogad / (1.0e2 * grav * amm * (1.0 + h2o))
+    wkl = {gas: coldry * vmr[gas] for gas in vmr}
+    summol = sum(vmr[g] for g in ('co2', 'o3', 'n2o', 'co', 'ch4', 'o2'))
+    wbroad = coldry * (1.0 - summol)
+    amttl = torch.sum(coldry + wkl['h2o'], dim=0)
+    wvttl = torch.sum(wkl['h2o'], dim=0)
+    wvsh = (AMW * wvttl) / (AMD * amttl)
+    pwvcm = wvsh * (1.0e3 * plev[0]) / (1.0e2 * grav)
+    return coldry, wkl, wbroad, pwvcm
+
+
+def setcoef_lw(pavel, tavel, tz, tbound, semiss, coldry, wkl, wbroad,
+               idrv=False):
+    """Interpolation indices/factors and Planck values (:246)."""
+    if idrv:
+        raise NotImplementedError('idrv (dF/dTs) is not ported')
+    t = load_support(pavel.dtype, pavel.device)
+    preflog, tref, chi = t['preflog'], t['tref'], t['chi_mls']
+    totplnk = t['totplnk']                           # (181, 16)
+    stpfac = 296.0 / 1013.0
+
+    plog = torch.log(pavel)
+    jp = torch.clamp(_trunc_int(36.0 - 5.0 * (plog + 0.04)), 1, 58)
+    jp0 = jp - 1
+    fp = 5.0 * (preflog[jp0] - plog)
+
+    def t_index(jpx):
+        jt = torch.clamp(_trunc_int(3.0 + (tavel - tref[jpx]) / 15.0), 1, 4)
+        ft = (tavel - tref[jpx]) / 15.0 - (jt - 3)
+        return jt - 1, ft
+
+    jt0, ft = t_index(jp0)
+    jt10, ft1 = t_index(jp0 + 1)
+    compfp = 1.0 - fp
+
+    trop = plog > 4.56
+    water = wkl['h2o'] / coldry
+    scalefac = pavel * stpfac / tavel
+    forfac_lo = scalefac / (1.0 + water)
+    fac_lo = (332.0 - tavel) / 36.0
+    indfor_lo = torch.clamp(_trunc_int(fac_lo), 1, 2)
+    forfrac_lo = fac_lo - indfor_lo
+    fac_up = (tavel - 188.0) / 36.0
+    indfor = torch.where(trop, indfor_lo, 3) - 1
+    forfrac = torch.where(trop, forfrac_lo, fac_up - 1.0)
+    forfac = forfac_lo
+
+    fac_s = (tavel - 188.0) / 7.2
+    indself = torch.clamp(_trunc_int(fac_s) - 7, 1, 9) - 1
+    selffrac = fac_s - (indself + 1 + 7)
+    selffac = torch.where(trop, water * forfac, 0.0)
+    selffrac = torch.where(trop, selffrac, 0.0)
+    indself = torch.where(trop, indself, 0)
+
+    scaleminor = pavel / tavel
+    scaleminorn2 = scaleminor * (wbroad / (coldry + wkl['h2o']))
+    fac_m = (tavel - 180.8) / 7.2
+    indminor = torch.clamp(_trunc_int(fac_m), 1, 18) - 1
+    minorfrac = fac_m - (indminor + 1)
+
+    cols = {'col' + g: 1.0e-20 * wkl[g] for g in wkl}
+    for g in ('co2', 'o3', 'n2o', 'ch4', 'o2', 'co'):
+        c = cols['col' + g]
+        cols['col' + g] = torch.where(c == 0.0, 1.0e-32 * coldry, c)
+    cols['colbrd'] = 1.0e-20 * wbroad
+
+    rats = {}
+    for pair, (s1, s2) in RAT_PAIRS.items():
+        r1, r2 = CHI_ROW[s1] - 1, CHI_ROW[s2] - 1
+        rats['rat_' + pair] = chi[r1][jp0] / chi[r2][jp0]
+        rats['rat_' + pair + '_1'] = chi[r1][jp0 + 1] / chi[r2][jp0 + 1]
+
+    def plnk_interp(temp):
+        ind = torch.clamp(_trunc_int(temp - 159.0), 1, 180)
+        frac = temp - 159.0 - ind
+        return lin_rows(totplnk, ind - 1, frac)
+
+    planklay = plnk_interp(tavel)                    # (nz, ncol, 16)
+    planklev = plnk_interp(tz)                       # (nz+1, ncol, 16)
+    plankbnd = semiss.T * plnk_interp(tbound)        # (ncol, 16)
+
+    return dict(
+        trop=trop, jp=jp, jp0=jp0, jt0=jt0, jt10=jt10,
+        fac00=compfp * (1.0 - ft), fac10=compfp * ft,
+        fac01=fp * (1.0 - ft1), fac11=fp * ft1,
+        selffac=selffac, selffrac=selffrac, indself=indself,
+        forfac=forfac, forfrac=forfrac, indfor=indfor,
+        scaleminor=scaleminor, scaleminorn2=scaleminorn2,
+        indminor=indminor, minorfrac=minorfrac,
+        coldry=coldry, chi=chi,
+        planklay=planklay, planklev=planklev, plankbnd=plankbnd,
+        **cols, **rats)
+
+
+def _eta(specparm, n_eta):
+    specmult = n_eta * torch.clamp(specparm, max=ONEMINUS)
+    js0 = _trunc_int(specmult)
+    return js0, specmult - js0
+
+
+def _key_spec(spec, cs, suffix=''):
+    """(speccomb, specparm) for a key-species tuple (:357)."""
+    if spec is None:
+        return None, None
+    c1 = cs['col' + spec[0]]
+    if len(spec) == 1:
+        return c1, None
+    speccomb = c1 + cs['rat_' + spec[2] + suffix] * cs['col' + spec[1]]
+    return speccomb, c1 / speccomb
+
+
+def _adjusted_column(gas, mode, cs):
+    """Empirically adjusted minor-gas column (:369)."""
+    if mode == 'n2':
+        return cs['colbrd'] * cs['scaleminorn2']
+    col = cs['col' + gas]
+    if mode == 'plain':
+        return col * cs['scaleminor']
+    chi, jp0 = cs['chi'], cs['jp0']
+    if mode == 'adjn2o':
+        chi_ref = chi[CHI_ROW['n2o'] - 1][jp0 + 1]
+        rat = col / (1.0e-20 * cs['coldry']) / chi_ref
+        adjfac = 0.5 + torch.clamp(rat - 0.5, min=1e-30) ** 0.65
+        adj = adjfac * chi_ref * cs['coldry'] * 1.0e-20
+        return torch.where(rat > 1.5, adj, col)
+    tag, thresh, base, expo = mode
+    assert tag == 'adjco2'
+    chi_ref = chi[CHI_ROW['co2'] - 1][jp0 + 1]
+    rat = col / (1.0e-20 * cs['coldry']) / chi_ref
+    adjfac = base + torch.clamp(rat - base, min=1e-30) ** expo
+    adj = adjfac * chi_ref * cs['coldry'] * 1.0e-20
+    return torch.where(rat > thresh, adj, col)
+
+
+def taumol_lw(cs, wx, dtype):
+    """Gaseous optical depth and Planck fractions per g-point (:396).
+
+    Returns taug, fracs: (nz, ncol, 140).  The key-species 2x2x2
+    interpolation is one gather-sum over the merged [absa; absb] table
+    (the JAX f64 path, lw_spectral.py:517-535)."""
+    trop = cs['trop']
+    nz, ncol = trop.shape
+    device = trop.device
+    t = load_kdist(dtype, device)
+    sup = data.load_numpy(data.LW_SUPPORT)
+    jp, jt0, jt10 = cs['jp'], cs['jt0'], cs['jt10']
+    pavel = cs['pavel']
+    zero_i = torch.zeros_like(jp)
+    zero_f = torch.zeros(trop.shape, dtype=dtype, device=device)
+
+    taug_parts, fracs_parts = [], []
+    for bi, bd in enumerate(BANDS_LW):
+        num, ng = bd['num'], NG[bi]
+
+        def tab(name, b=num):
+            return t.get('b%d_%s' % (b, name))
+
+        absa, absb = tab('absa'), tab('absb')
+        have_lo = bd['lo'] is not None
+        have_up = bd['up'] is not None
+        nspa = 9 if (have_lo and len(bd['lo']) == 3) else (
+            1 if have_lo else 0)
+        nspb = 5 if (have_up and len(bd['up']) == 3) else (
+            1 if have_up else 0)
+        speccomb_l, specparm_l = _key_spec(bd['lo'], cs)
+        speccomb_l1, specparm_l1 = _key_spec(bd['lo'], cs, '_1')
+        speccomb_u, specparm_u = _key_spec(bd['up'], cs)
+        speccomb_u1, specparm_u1 = _key_spec(bd['up'], cs, '_1')
+
+        taug = torch.zeros((nz, ncol, ng), dtype=dtype, device=device)
+
+        if have_lo or have_up:
+            if have_lo:
+                if specparm_l is not None:
+                    jsl, fsl = _eta(specparm_l, 8)
+                    jsl1, fsl1 = _eta(specparm_l1, 8)
+                else:
+                    jsl = jsl1 = zero_i
+                    fsl = fsl1 = zero_f
+                ind0a = (cs['jp0'] * 5 + jt0) * nspa + jsl
+                ind1a = ((cs['jp0'] + 1) * 5 + jt10) * nspa + jsl1
+            if have_up:
+                if specparm_u is not None:
+                    jsu, fsu = _eta(specparm_u, 4)
+                    jsu1, fsu1 = _eta(specparm_u1, 4)
+                else:
+                    jsu = jsu1 = zero_i
+                    fsu = fsu1 = zero_f
+                ind0b = ((jp - 13) * 5 + jt0) * nspb + jsu
+                ind1b = ((jp - 12) * 5 + jt10) * nspb + jsu1
+
+            if have_lo and have_up:
+                table = torch.cat([absa, absb], dim=0)
+                rows_a = absa.shape[0]
+                sc0 = torch.where(trop, speccomb_l, speccomb_u)
+                sc1 = torch.where(trop, speccomb_l1, speccomb_u1)
+            elif have_lo:
+                table, rows_a = absa, absa.shape[0]
+                sc0 = torch.where(trop, speccomb_l, 0.0)
+                sc1 = torch.where(trop, speccomb_l1, 0.0)
+            else:
+                table, rows_a = absb, 0
+                sc0 = torch.where(trop, 0.0, speccomb_u)
+                sc1 = torch.where(trop, 0.0, speccomb_u1)
+
+            terms = []
+            for side, (f0name, f1name) in (
+                    ('i0', ('fac00', 'fac10')), ('i1', ('fac01', 'fac11'))):
+                sc = sc0 if side == 'i0' else sc1
+                for fac_name, nsp_off in ((f0name, 0), (f1name, 1)):
+                    fac = cs[fac_name]
+                    for eta_off in (0, 1):
+                        if nspa != 9 and nspb != 5 and eta_off:
+                            continue        # eta term absent on both sides
+                        if have_lo:
+                            fse = ((fsl if side == 'i0' else fsl1)
+                                   if nspa == 9 else zero_f)
+                            wl = fac * (fse if eta_off else (1.0 - fse))
+                            il = ((ind0a if side == 'i0' else ind1a)
+                                  + nsp_off * nspa
+                                  + (eta_off if nspa == 9 else 0))
+                        if have_up:
+                            fse = ((fsu if side == 'i0' else fsu1)
+                                   if nspb == 5 else zero_f)
+                            wu = fac * (fse if eta_off else (1.0 - fse))
+                            iu = ((ind0b if side == 'i0' else ind1b)
+                                  + nsp_off * nspb
+                                  + (eta_off if nspb == 5 else 0))
+                        if have_lo and have_up:
+                            w = torch.where(trop, wl, wu)
+                            idx = torch.where(trop, il, rows_a + iu)
+                        elif have_lo:
+                            w = torch.where(trop, wl, 0.0)
+                            idx = il
+                        else:
+                            w = torch.where(trop, 0.0, wu)
+                            idx = iu
+                        terms.append((idx, w * sc))
+            taug = taug + mix_rows(table, terms)
+
+        # water-vapour self/foreign continuum
+        selfref, forref = tab('selfref'), tab('forref')
+        if bd.get('self_lo') and selfref is not None:
+            taug = taug + lin_rows(selfref, cs['indself'], cs['selffrac'],
+                                   torch.where(trop, cs['selffac'], 0.0))
+        if (bd.get('for_lo') or bd.get('for_up')) and forref is not None:
+            if bd.get('for_lo') and bd.get('for_up'):
+                fmask = torch.ones_like(trop)
+            elif bd.get('for_lo'):
+                fmask = trop
+            else:
+                fmask = ~trop
+            taug = taug + lin_rows(forref, cs['indfor'], cs['forfrac'],
+                                   torch.where(fmask, cs['forfac'], 0.0))
+
+        # minor absorbers
+        for region, key in (('lo', 'minors_lo'), ('up', 'minors_up')):
+            for gas, mode in bd.get(key, ()):
+                ktab = tab('k%s_m%s' % ('a' if region == 'lo' else 'b', gas))
+                if ktab is None:
+                    continue
+                amount = _adjusted_column(gas, mode, cs)
+                mask = trop if region == 'lo' else ~trop
+                taug = taug + lin_rows(ktab, cs['indminor'], cs['minorfrac'],
+                                       torch.where(mask, amount, 0.0))
+
+        # CFC/CCL4 cross-sections
+        for region, key in (('lo', 'wx_lo'), ('up', 'wx_up')):
+            for gas, tname in bd.get(key, ()):
+                xs = tab(tname)
+                if xs is None or gas not in wx:
+                    continue
+                mask = trop if region == 'lo' else ~trop
+                taug = taug + torch.where(mask, wx[gas], 0.0)[..., None] * xs
+
+        # band-specific pressure corrections (taugb1/taugb2)
+        if bd.get('corradj') == 'b1':
+            corr_lo = torch.where(pavel < 250.0,
+                                  1.0 - 0.15 * (250.0 - pavel) / 154.4, 1.0)
+            corr_up = 1.0 - 0.15 * (pavel / 95.6)
+            taug = taug * torch.where(trop, corr_lo, corr_up)[..., None]
+        elif bd.get('corradj') == 'b2':
+            corr = 1.0 - 0.05 * (pavel - 100.0) / 900.0
+            taug = taug * torch.where(trop, corr, 1.0)[..., None]
+
+        # Planck fractions
+        fraca, fracb = tab('fracrefa'), tab('fracrefb')
+
+        def frac_interp(frtab, planck_spec, n_eta):
+            if frtab.dim() == 1:
+                return frtab.expand(nz, ncol, ng)
+            s1, s2, (r1, r2, lev) = planck_spec
+            refrat = float(sup['chi_mls'][r1 - 1, lev - 1]
+                           / sup['chi_mls'][r2 - 1, lev - 1])
+            comb = cs['col' + s1] + refrat * cs['col' + s2]
+            parm = torch.clamp(cs['col' + s1] / comb, max=ONEMINUS)
+            mult = n_eta * parm
+            jpl = _trunc_int(mult)
+            return lin_rows(frtab.T, jpl, mult - jpl)
+
+        f_lo = (frac_interp(fraca, bd.get('planck_lo'), 8)
+                if fraca is not None else zero_f[..., None].expand(
+                    nz, ncol, ng))
+        f_up = (frac_interp(fracb, bd.get('planck_up'), 4)
+                if fracb is not None else f_lo)
+        fracs_parts.append(torch.where(trop[..., None], f_lo, f_up))
+        taug_parts.append(taug)
+
+    return torch.cat(taug_parts, dim=-1), torch.cat(fracs_parts, dim=-1)
+
+
+def _cloud_abs_coeffs(ciwp, clwp, rei, rel):
+    """Per-band ice/liquid absorption coefficients for iceflag 1 and
+    liqflag 1, mapped through icb onto the 16 bands (:615)."""
+    t = load_support(ciwp.dtype, ciwp.device)
+    rei_safe = torch.clamp(rei, min=1.0e-20)
+    a = t['absice1']                                 # (2, 5)
+    absice = a[0] + a[1] / rei_safe[..., None]       # (nz, ncol, 5)
+    absice = torch.where((ciwp > 0.0)[..., None], absice, 0.0)
+    table = t['absliq1']                             # (58, 16)
+    index = torch.clamp(_trunc_int(rel - 1.5), 1, 57)
+    fint = rel - 1.5 - index
+    lo = table[index - 1]
+    hi = table[index]
+    absliq = lo + fint[..., None] * (hi - lo)
+    absliq = torch.where((clwp > 0.0)[..., None], absliq, 0.0)
+    dev = ciwp.device
+    absice16 = absice[..., torch.as_tensor(ICB[1], device=dev)]
+    absliq16 = absliq[..., torch.as_tensor(ICB[2], device=dev)]
+    return absice16, absliq16
+
+
+def cldprop_lw(inflag, iceflag, liqflag, cldfrac, tauc, ciwp, clwp,
+               rei, rel):
+    """Cloud optical depth per LW band, (nz, ncol, 16) (:672), for the
+    GCM's inflag=2, iceflag=1, liqflag=1."""
+    if (inflag, iceflag, liqflag) != (2, 1, 1):
+        raise NotImplementedError(
+            'cldprop_lw: only inflag=2, iceflag=1, liqflag=1 are ported')
+    cldmin = 1.0e-6
+    cwp = ciwp + clwp
+    tauctot = torch.sum(tauc, dim=-1)
+    cloudy = (cldfrac >= cldmin) & ((cwp >= cldmin) | (tauctot >= cldmin))
+    absice16, absliq16 = _cloud_abs_coeffs(ciwp, clwp, rei, rel)
+    tau = ciwp[..., None] * absice16 + clwp[..., None] * absliq16
+    return torch.where(cloudy[..., None], tau, 0.0)
+
+
+def rtrn_lw(taug, fracs, planklay, planklev, plankbnd, semiss, pwvcm,
+            cldfrac, taucld_band, pz, heatfac):
+    """Random-overlap radiative transfer (:732) with analytic
+    transmittance and band clouds (``use_tables=False``, no idrv), through
+    kernel A.  Returns (totuflux, totdflux, htr, totuclfl, totdclfl,
+    htrc)."""
+    dtype, device = taug.dtype, taug.device
+    t = load_support(dtype, device)
+    ngb = torch.as_tensor(NGB, dtype=torch.int64, device=device)
+
+    # diffusivity angle per band (rtrn.f90:260-268)
+    fixed = np.zeros(16, bool)
+    fixed[[0, 3]] = True
+    fixed[9:] = True
+    sec = (t['secdiff_a0'][:, None] + t['secdiff_a1'][:, None]
+           * torch.exp(t['secdiff_a2'][:, None] * pwvcm[None]))
+    sec = torch.clamp(sec, 1.5, 1.8)
+    secdiff = torch.where(torch.as_tensor(fixed, device=device)[:, None],
+                          1.66, sec)                 # (16, ncol)
+
+    wtdiff = _support_scalar('wtdiff')
+    rec_6 = _support_scalar('rec_6')
+    fluxfac = np.pi * 2.0e4
+    dwave_g = t['delwave'][ngb] * wtdiff * fluxfac
+
+    totuflux, totdflux, totuclfl, totdclfl = rtrn_lw_fused(
+        taug, fracs, planklay, planklev, plankbnd, semiss, secdiff,
+        cldfrac, taucld_band, dwave_g, rec_6)
+    fnet = totuflux - totdflux
+    fnetc = totuclfl - totdclfl
+    dpz = pz[:-1] - pz[1:]
+    htr = heatfac * (fnet[:-1] - fnet[1:]) / dpz
+    htrc = heatfac * (fnetc[:-1] - fnetc[1:]) / dpz
+    return totuflux, totdflux, htr, totuclfl, totdclfl, htrc
+
+
+def rrtmg_lw_fluxes(play, plev, tlay, tlev, tsfc, h2ovmr, o3vmr, co2vmr,
+                    ch4vmr, n2ovmr, o2vmr, cfc11vmr, cfc12vmr, cfc22vmr,
+                    ccl4vmr, emis, cldfrac, taucld, ciwp, clwp, rei, rel,
+                    tauaer, grav, avogad, cpdair, inflag=2, iceflag=1,
+                    liqflag=1, idrv=False, per_g_cloud=False,
+                    use_tables=False):
+    """Full LW pipeline inatm -> setcoef -> taumol -> cldprop -> rtrn
+    (:959).  Profiles (nz, ncol) bottom-up, plev/tlev (nz+1, ncol), tsfc
+    (ncol,), emis (16, ncol), taucld/tauaer (nz, ncol, 16).
+
+    Returns (uflx, dflx, hr, uflxc, dflxc, hrc): fluxes (nz+1, ncol)
+    W/m^2, heating rates (nz, ncol) K/day."""
+    if use_tables or idrv or per_g_cloud:
+        raise NotImplementedError(
+            'rrtmg_lw_fluxes: only use_tables=False, idrv=False, band '
+            'clouds are ported')
+    dtype = play.dtype
+    vmr = dict(h2o=h2ovmr, co2=co2vmr, o3=o3vmr, n2o=n2ovmr,
+               co=torch.zeros_like(play), ch4=ch4vmr, o2=o2vmr)
+    coldry, wkl, wbroad, pwvcm = inatm_lw(play, plev, tlay, vmr, grav,
+                                          avogad)
+    wx = {name: coldry * v * 1.0e-20
+          for name, v in (('ccl4', ccl4vmr), ('cfc11', cfc11vmr),
+                          ('cfc12', cfc12vmr), ('cfc22', cfc22vmr))}
+    cs = setcoef_lw(play, tlay, tlev, tsfc, emis, coldry, wkl, wbroad)
+    cs['pavel'] = play
+    taug, fracs = taumol_lw(cs, wx, dtype)
+    ngb = torch.as_tensor(NGB, dtype=torch.int64, device=play.device)
+    taug = taug + tauaer[..., ngb]
+    heatfac = grav * 8.64e4 / (cpdair * 1.0e2)
+    taucld_band = cldprop_lw(inflag, iceflag, liqflag, cldfrac, taucld,
+                             ciwp, clwp, rei, rel)
+    return rtrn_lw(taug, fracs, cs['planklay'], cs['planklev'],
+                   cs['plankbnd'], emis, pwvcm, cldfrac, taucld_band,
+                   plev, heatfac)
+

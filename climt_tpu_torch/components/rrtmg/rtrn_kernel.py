@@ -1,0 +1,187 @@
+"""Fused LW flux integration (rtrn): kernel A and its plain version.
+
+TPU kernel replaced: climt_tpu/components/rrtmg/pallas_rtrn.py:195
+(``rtrn_lw_fused``, Pallas body ``_rtrn_kernel`` :73).  Both versions
+here compute what ``lw_spectral.rtrn_lw``'s XLA path computes
+(lw_spectral.py:787-906) for the GCM's configuration: analytic
+transmittance, band-level clouds, no dF/dTs.
+
+Bound on the card: the Pallas kernel's reason to exist is that the XLA
+form materialises ~20 (140, nz, ncol) intermediates; on Hopper the same
+holds, so the bytes of taug and fracs (8 per (g, layer, column)) are the
+floor.  ``csrc/rtrn_lw.cu`` runs one thread per (g, column), a block per
+column (140 g padded to 160), the z recurrences in registers, and a
+deterministic block reduction for the g-sums; nothing per-g is written
+back.  The upward sweep recomputes the layer terms (two ``exp`` per
+(g, layer, column) in all) rather than storing four of them.  The band
+cloud prologue (odclb, expb, efclb) stays in torch here, as it sat
+outside the Pallas body (pallas_rtrn.py:243-250).
+
+The gas small-od test is ``od <= 0.06`` and the total one
+``odtot < 0.06`` (pallas_rtrn.py:102, :114), as in the reference.  The
+source factor uses the table's rec_6 = 0.166667 like the XLA path; the
+Pallas body divides by 6 (a 2e-6 relative difference in that branch).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ... import _build
+
+NBANDS = 16
+NGPT = 140
+# band of each g-point (lw_spectral.py:62-64)
+NG = [10, 12, 16, 14, 16, 8, 12, 8, 12, 6, 8, 8, 4, 2, 2, 2]
+NGB = [b for b, n in enumerate(NG) for _ in range(n)]
+
+
+def _ngb(device):
+    return torch.as_tensor(NGB, dtype=torch.int64, device=device)
+
+
+def _absorptance_and_source(od, small, rec_6):
+    """Layer absorptance and linear-in-tau source factor with analytic
+    transmittance, Taylor forms where ``small`` (lw_spectral.py:712-723,
+    :808-819)."""
+    od_safe = torch.clamp(od, min=1.0e-12)
+    expo = torch.exp(-od_safe)
+    tfn = 1.0 - 2.0 * (1.0 / od_safe - expo / (1.0 - expo))
+    return (torch.where(small, od - 0.5 * od * od, 1.0 - expo),
+            torch.where(small, rec_6 * od, tfn))
+
+
+def rtrn_lw_plain(taug, fracs, planklay, planklev, plankbnd, semiss,
+                  secdiff, cldfrac, taucld_band, dwave_g, rec_6):
+    """Plain PyTorch version: the XLA path of rtrn_lw, lw_spectral.py:
+    787-906, with Python loops over z.  Layout (nz, ncol, 140) throughout.
+
+    Returns (totuflux, totdflux, totuclfl, totdclfl), each (nz+1, ncol).
+    """
+    nz, ncol, _ = taug.shape
+    ngb = _ngb(taug.device)
+    sec_g = secdiff.T[:, ngb]                          # (ncol, 140)
+    odepth = torch.clamp(sec_g * taug, min=0.0)        # (nz, ncol, 140)
+    blay = planklay[..., ngb]
+    bup = planklev[1:][..., ngb] - blay
+    bdn = planklev[:-1][..., ngb] - blay
+
+    odcld = (taucld_band * secdiff.T)[..., ngb]
+    cldf = cldfrac[..., None].expand_as(odcld)
+    cloudy = cldf >= 1.0e-6
+    odcld = torch.where(cloudy, odcld, 0.0)
+
+    odtot = odepth + odcld
+    atrans, tfacgas = _absorptance_and_source(odepth, odepth <= 0.06, rec_6)
+    atot, tfactot = _absorptance_and_source(odtot, odtot < 0.06, rec_6)
+
+    bbdgas = fracs * (blay + tfacgas * bdn)
+    bbugas = fracs * (blay + tfacgas * bup)
+    bbdtot = fracs * (blay + tfactot * bdn)
+    bbutot = fracs * (blay + tfactot * bup)
+    gassrc_dn = bbdgas * atrans
+    gassrc_up = bbugas * atrans
+    efclfrac = torch.where(cloudy, (1.0 - torch.exp(-odcld)) * cldf, 0.0)
+
+    zero = torch.zeros((ncol, NGPT), dtype=taug.dtype, device=taug.device)
+    drad = [None] * (nz + 1)
+    cdrad = [None] * (nz + 1)
+    drad[nz] = zero
+    cdrad[nz] = zero
+    rad, radc = zero, zero
+    for z in range(nz - 1, -1, -1):
+        rad_cloudy = (rad - rad * (atrans[z] + efclfrac[z]
+                                   * (1.0 - atrans[z]))
+                      + gassrc_dn[z] + cldf[z] * (bbdtot[z] * atot[z]
+                                                  - gassrc_dn[z]))
+        rad_clear = rad + (bbdgas[z] - rad) * atrans[z]
+        rad = torch.where(cloudy[z], rad_cloudy, rad_clear)
+        radc = radc + (bbdgas[z] - radc) * atrans[z]
+        drad[z] = rad
+        cdrad[z] = radc
+
+    # surface source + reflection (rtrn.f90:460-476)
+    rad0 = fracs[0] * plankbnd[:, ngb]
+    reflect = 1.0 - semiss.T[:, ngb]
+    radu = rad0 + reflect * rad
+    raduc = rad0 + reflect * radc
+    urad = [radu]
+    curad = [raduc]
+    for z in range(nz):
+        rad_cloudy = (radu - radu * (atrans[z] + efclfrac[z]
+                                     * (1.0 - atrans[z]))
+                      + gassrc_up[z] + cldf[z] * (bbutot[z] * atot[z]
+                                                  - gassrc_up[z]))
+        rad_clear = radu + (bbugas[z] - radu) * atrans[z]
+        radu = torch.where(cloudy[z], rad_cloudy, rad_clear)
+        raduc = raduc + (bbugas[z] - raduc) * atrans[z]
+        urad.append(radu)
+        curad.append(raduc)
+
+    def to_flux(levels):
+        return torch.einsum('lcg,g->lc', torch.stack(levels), dwave_g)
+
+    return to_flux(urad), to_flux(drad), to_flux(curad), to_flux(cdrad)
+
+
+def rtrn_lw_cuda(taug, fracs, planklay, planklev, plankbnd, semiss,
+                 secdiff, cldfrac, taucld_band, dwave_g, rec_6):
+    """Launch kernel A.  Shapes as ``rtrn_lw_plain``; float32, contiguous,
+    on one CUDA device."""
+    args = (taug, fracs, planklay, planklev, plankbnd, semiss, secdiff,
+            cldfrac, taucld_band, dwave_g)
+    dev = taug.device
+    if not all(a.is_cuda and a.device == dev for a in args):
+        raise ValueError('rtrn_lw_cuda: all tensors must be on one CUDA '
+                         'device')
+    if any(a.dtype != torch.float32 for a in args):
+        raise TypeError('rtrn_lw_cuda takes float32 tensors')
+    if not all(a.is_contiguous() for a in args):
+        raise ValueError('rtrn_lw_cuda takes contiguous tensors')
+    nz, ncol = taug.shape[:2]
+    expected = {
+        'taug': (nz, ncol, NGPT), 'fracs': (nz, ncol, NGPT),
+        'planklay': (nz, ncol, NBANDS), 'planklev': (nz + 1, ncol, NBANDS),
+        'plankbnd': (ncol, NBANDS), 'semiss': (NBANDS, ncol),
+        'secdiff': (NBANDS, ncol), 'cldfrac': (nz, ncol),
+        'taucld_band': (nz, ncol, NBANDS), 'dwave_g': (NGPT,)}
+    for name, a in zip(expected, args):
+        if tuple(a.shape) != expected[name]:
+            raise ValueError('rtrn_lw_cuda: %s has shape %s, expected %s'
+                             % (name, tuple(a.shape), expected[name]))
+
+    # band-space cloud optics (pallas_rtrn.py:243-250), 16/140 of g-space
+    cloudy_b = (cldfrac >= 1.0e-6)[..., None]
+    odclb = torch.where(cloudy_b, taucld_band * secdiff.T, 0.0).contiguous()
+    expb = torch.exp(-odclb)
+    efclb = torch.where(cloudy_b, (1.0 - expb) * cldfrac[..., None],
+                        0.0).contiguous()
+
+    outs = [torch.empty((nz + 1, ncol), dtype=torch.float32, device=dev)
+            for _ in range(4)]
+    lib = _build.library()
+    rc = lib.climt_rtrn_lw_f32(
+        taug.data_ptr(), fracs.data_ptr(), planklay.data_ptr(),
+        planklev.data_ptr(), plankbnd.data_ptr(), semiss.data_ptr(),
+        secdiff.data_ptr(), cldfrac.data_ptr(), odclb.data_ptr(),
+        expb.data_ptr(), efclb.data_ptr(), dwave_g.data_ptr(), nz, ncol,
+        float(rec_6), *[o.data_ptr() for o in outs],
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(rc, 'rtrn_lw_cuda')
+    rtrn_lw_cuda.launches += 1
+    return tuple(outs)
+
+
+rtrn_lw_cuda.launches = 0
+
+
+def rtrn_lw_fused(taug, fracs, planklay, planklev, plankbnd, semiss,
+                  secdiff, cldfrac, taucld_band, dwave_g, rec_6):
+    """Flux integration: the plain version for CPU tensors, kernel A for
+    CUDA tensors (float32).  Returns (totuflux, totdflux, totuclfl,
+    totdclfl), (nz+1, ncol) each, quadrature-weighted by dwave_g."""
+    args = (taug, fracs, planklay, planklev, plankbnd, semiss, secdiff,
+            cldfrac, taucld_band, dwave_g)
+    if taug.device.type == 'cpu':
+        return rtrn_lw_plain(*args, rec_6)
+    return rtrn_lw_cuda(*[a.contiguous() for a in args], rec_6)

@@ -1,0 +1,354 @@
+"""Fused moist GCM: spectral dynamics + full physics
+(climt_tpu/dycore/moist_gcm.py).
+
+The flagship model: the spectral primitive-equation core with RRTMG
+radiation (112-g-point SW, 140-g-point LW) on a lagged cadence,
+simple-physics surface fluxes and boundary layer, Emanuel convection, a
+slab ocean and the global water fixer.  Grid fields are (nz, nlat, nlon)
+top-down; column physics sees (nz, ncol) bottom-up.
+
+Where the JAX model is traced into one ``lax.scan``, this one runs
+eagerly: the radiation cadence is a Python ``if`` on the step index, and
+the radiation column chunks are a Python loop.  ``MoistGCM`` is an
+``nn.Module`` whose buffers (the dycore's Legendre tensors and level
+matrices, the radiation geometry, the ozone profile) follow ``.to()``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from .. import data
+from ..components.emanuel_convection import emanuel_convect
+from ..components.rrtmg.lw_spectral import rrtmg_lw_fluxes
+from ..components.rrtmg.sw_spectral import rrtmg_sw_fluxes, solar_variability
+from ..components.simple_physics import simple_physics_step
+from ..core.grid import hybrid_sigma_pressure_coefficients
+from ..core.util import bolton_q_sat, get_interface_values
+from .spectral_dynamics import SpectralDycore
+
+_G = 9.80665
+_CPD = 1004.64
+_LV = 2.5e6
+_RD = 287.0
+_RV = 461.5
+_AVOGADRO = 6.022140857e23
+# radiation settings of _make_radiation's defaults (moist_gcm.py:56-57)
+_SOLAR_CONSTANT = 1367.0
+_ALBEDO = 0.27
+_CO2_PPM = 330.0
+
+# Emanuel parameters of build_moist_gcm (moist_gcm.py:321-326)
+EMANUEL_PARAMS = dict(
+    minorig=0, elcrit=0.0011, tlcrit=-55.0, entp=1.5, sigd=0.05,
+    sigs=0.12, omtrain=50.0, omtsnow=5.5, coeffr=1.0, coeffs=0.8,
+    cu=0.7, beta=10.0, dtmax=0.9, alpha=0.1, damp=0.1, delt0=300.0,
+    g=_G, cpd=_CPD, cpv=1846.0, rd=_RD, rv=_RV, lv0=_LV,
+    rowl=1000.0, cl=2500.0)
+
+
+def interp1d(x, xp, fp):
+    """``jnp.interp`` for ascending xp: linear inside, clamped to fp[0]
+    below xp[0] and to fp[-1] above xp[-1]."""
+    n = xp.shape[0]
+    i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True),
+                    1, n - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    f = fp[i - 1] + (delta / dx) * df
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+class MoistGCM(nn.Module):
+    """The moist GCM of ``build_moist_gcm``; see that function."""
+
+    def __init__(self, nlon, nlat, nz, timestep, number_of_damped_levels,
+                 ocean_depth, dtype, rad_every, rad_col_chunk,
+                 conserve_water, device):
+        super().__init__()
+        ak, bk = hybrid_sigma_pressure_coefficients(nz + 1, 1e5, 20.0)
+        self.dycore = SpectralDycore(
+            nlon, nlat, nz, ak, bk, timestep=timestep,
+            number_of_damped_levels=number_of_damped_levels, dtype=dtype,
+            device=device)
+        self.nlon, self.nlat, self.nz = nlon, nlat, nz
+        self.dt = timestep
+        self.dtype = dtype
+        self.ocean_depth = ocean_depth
+        self.rad_every = rad_every
+        self.conserve_water = conserve_water
+        self.em_params = dict(EMANUEL_PARAMS)
+
+        def buf(name, arr):
+            self.register_buffer(name, torch.as_tensor(
+                np.ascontiguousarray(arr), dtype=dtype, device=device))
+
+        # radiation geometry (moist_gcm.py:65-73): equinox diurnal cycle
+        mu = self.dycore.sht.mu
+        ncol = nlat * nlon
+        lat = np.arcsin(mu)
+        lon = 2.0 * np.pi * np.arange(nlon) / nlon
+        buf('rad_coslat', (np.cos(lat)[:, None]
+                           * np.ones((1, nlon))).reshape(-1))
+        buf('rad_lon', np.broadcast_to(lon[None, :], (nlat, nlon))
+            .reshape(-1))
+        self.solar_config = solar_variability(-1, 0.0)
+        self.sw_scale = _SOLAR_CONSTANT / 1368.22    # rrsw scon
+        # climatological ozone (mole/mole) on 30 reference pressures
+        buf('o3_logp', np.log(1e5 * np.linspace(0.998, 0.001, 30)[::-1]))
+        buf('o3_vals', data.load_numpy(data.OZONE)[::-1])
+        self.rad_chunks = (max(1, ncol // rad_col_chunk)
+                           if ncol % rad_col_chunk == 0 else 1)
+        # Gaussian-quadrature area weights for the water fixer
+        buf('wlat', np.asarray(self.dycore.sht.weights)[None, :, None])
+
+    # ------------------------------------------------------------------
+    def radiation(self, T, q, p_mid, p_half, Ts, t_seconds):
+        """Heating rate (K/s) and surface/TOA fluxes of (nz, ncol)
+        bottom-up columns, pressures in Pa (moist_gcm.py:83)."""
+        nz = self.nz
+        dtype = T.dtype
+        play = p_mid / 100.0
+        plev = p_half / 100.0
+        h2ovmr = q * (28.964 / 18.02)
+        o3vmr = interp1d(torch.log(p_mid), self.o3_logp, self.o3_vals)
+        co2 = torch.full_like(T, _CO2_PPM * 1e-6)
+        o2 = torch.full_like(T, 0.21)
+        tlev = get_interface_values(T, Ts, p_mid, p_half)
+
+        hour_angle = (2.0 * math.pi * (t_seconds / 86400.0) + self.rad_lon)
+        mu0 = self.rad_coslat * torch.cos(hour_angle)
+        day = mu0 > 0.0
+        mu0 = torch.clamp(mu0, min=1e-6)
+        emis = torch.ones((16,) + tuple(Ts.shape), dtype=dtype,
+                          device=T.device)
+
+        outs = []
+        for cols in torch.chunk(torch.arange(T.shape[1]), self.rad_chunks):
+            c = slice(int(cols[0]), int(cols[-1]) + 1)
+            outs.append(self._radiation_chunk(
+                play[:, c], plev[:, c], T[:, c], tlev[:, c], Ts[c],
+                h2ovmr[:, c], o3vmr[:, c], co2[:, c], o2[:, c], mu0[c],
+                day[c], emis[:, c]))
+        hr, sfc, olr, asr = (torch.cat([o[i] for o in outs], dim=-1)
+                             for i in range(4))
+        return {'hr_rad': hr, 'sfc_rad': sfc, 'olr': olr, 'asr': asr}
+
+    def _radiation_chunk(self, play, plev, T, tlev, Ts, h2o, o3, co2, o2,
+                         mu0, day, emis):
+        nz, nc = play.shape
+        dtype, dev = play.dtype, play.device
+        zero = torch.zeros_like(play)
+        lw = rrtmg_lw_fluxes(
+            play, plev, T, tlev, Ts, h2o, o3, co2, zero, zero, o2, zero,
+            zero, zero, zero, emis, zero,
+            torch.zeros((nz, nc, 16), dtype=dtype, device=dev), zero, zero,
+            torch.full_like(play, 25.0), torch.full_like(play, 10.0),
+            torch.zeros((nz, nc, 16), dtype=dtype, device=dev),
+            _G, _AVOGADRO, _CPD, use_tables=False)
+        lw_up, lw_dn, lw_hr = lw[0], lw[1], lw[2]
+
+        alb = torch.full((nc,), _ALBEDO, dtype=dtype, device=dev)
+        nocloud = (torch.zeros((nz, nc, 14), dtype=dtype, device=dev),) * 4
+        noaer = (torch.zeros((nz, nc, 14), dtype=dtype, device=dev),) * 3
+        sw_up, sw_dn, _, _, sw_hr, _ = rrtmg_sw_fluxes(
+            play, plev, T, h2o, o3, co2, zero, zero, o2, alb, alb, alb, alb,
+            mu0, zero, nocloud, noaer, self.sw_scale, -1, 0.0, -1,
+            self.solar_config, _G, _AVOGADRO, _CPD, icld=0, use_tables=False)
+        sw_up = torch.where(day[None, :], sw_up, 0.0)
+        sw_dn = torch.where(day[None, :], sw_dn, 0.0)
+        sw_hr = torch.where(day[None, :], sw_hr, 0.0)
+        hr = (lw_hr + sw_hr) / 86400.0                 # K/day -> K/s
+        return (hr, sw_dn[0] - sw_up[0] + lw_dn[0] - lw_up[0],
+                lw_up[-1], sw_dn[-1] - sw_up[-1])
+
+    # ------------------------------------------------------------------
+    def _to_cols(self, x):
+        """(nz, nlat, nlon) top-down -> (nz, ncol) bottom-up."""
+        return torch.flip(x.reshape(x.shape[0], -1), [0])
+
+    def _to_grid3(self, x):
+        return torch.flip(x, [0]).reshape(self.nz, self.nlat, self.nlon)
+
+    def physics(self, grids, aux, step_idx):
+        """(tendencies, aux, diagnostics) of one step (moist_gcm.py:192)."""
+        nz, nlat, nlon, dt = self.nz, self.nlat, self.nlon, self.dt
+        u = self._to_cols(grids['u'])
+        v = self._to_cols(grids['v'])
+        T = self._to_cols(grids['T'])
+        q = torch.clamp(self._to_cols(grids['q']), min=0.0)
+        ps = grids['ps'].reshape(-1)
+        p_half = self._to_cols(grids['p_half'])
+        p_mid = 0.5 * (p_half[1:] + p_half[:-1])
+        Ts = aux['Ts'].reshape(-1)
+        cbmf = aux['cbmf'].reshape(-1)
+
+        # radiation on a lagged cadence
+        if step_idx % self.rad_every == 0:
+            t_model = torch.tensor(step_idx, dtype=T.dtype,
+                                   device=T.device) * dt
+            rad = self.radiation(T, q, p_mid, p_half, Ts, t_model)
+        else:
+            rad = {'hr_rad': self._to_cols(aux['hr_rad']),
+                   'sfc_rad': aux['sfc_rad'].reshape(-1),
+                   'olr': aux['olr'].reshape(-1),
+                   'asr': aux['asr'].reshape(-1)}
+        hr_rad = rad['hr_rad']
+        net_sfc_rad = rad['sfc_rad']
+
+        # surface fluxes + boundary layer
+        qsurf = torch.zeros_like(ps)
+        T2, q2, u2, v2, precip_ls, shf, lhf = simple_physics_step(
+            T, q, u, v, p_mid, p_half, ps, Ts, qsurf, dt,
+            _G, _CPD, _RD, _RV, _LV, 1000.0,
+            85000.0, 20000.0, 0.0011, 0.0007, 0.000065, 0.002,
+            True, True, True, False)
+        lhf = torch.clamp(lhf, min=0.0)
+        du_sp = (u2 - u) / dt
+        dv_sp = (v2 - v) / dt
+        dT_sp = (T2 - T) / dt
+        dq_sp = (q2 - q) / dt
+
+        # Emanuel convection
+        qs = bolton_q_sat(T, p_mid, _RD, _RV)
+        conv = emanuel_convect(
+            T.T, q.T, qs.T, u.T, v.T, (p_mid / 100.0).T,
+            (p_half / 100.0).T, cbmf, dt, nz - 3, self.em_params)
+
+        du = du_sp + conv['fu'].T
+        dv = dv_sp + conv['fv'].T
+        dT = dT_sp + hr_rad + conv['ft'].T
+        dq = dq_sp + conv['fq'].T
+
+        # slab ocean
+        net_sfc = net_sfc_rad - shf - lhf
+        heat_capacity = 1.029e3 * 4.1813e3 * self.ocean_depth
+        Ts_new = Ts + dt * net_sfc / heat_capacity
+
+        aux_new = {
+            'Ts': Ts_new.reshape(nlat, nlon),
+            'cbmf': conv['cbmf'].reshape(nlat, nlon),
+            'hr_rad': self._to_grid3(hr_rad),
+            'sfc_rad': net_sfc_rad.reshape(nlat, nlon),
+            'olr': rad['olr'].reshape(nlat, nlon),
+            'asr': rad['asr'].reshape(nlat, nlon),
+        }
+        diag = {
+            'olr': rad['olr'].reshape(nlat, nlon),
+            'asr': rad['asr'].reshape(nlat, nlon),
+            'conv_precip': conv['precip'].reshape(nlat, nlon),
+            'ls_precip': precip_ls.reshape(nlat, nlon),
+            'shf': shf.reshape(nlat, nlon),
+            'lhf': lhf.reshape(nlat, nlon),
+        }
+        phys = {'du': self._to_grid3(du), 'dv': self._to_grid3(dv),
+                'dT': self._to_grid3(dT), 'dq': self._to_grid3(dq)}
+        return phys, aux_new, diag
+
+    # ------------------------------------------------------------------
+    def init(self, seed=0):
+        """Initial carry (prev, now, grids, aux, 0) from a numpy seed,
+        exactly as moist_gcm.py:347-367 builds it."""
+        nz, nlat, nlon = self.nz, self.nlat, self.nlon
+        dycore = self.dycore
+        rng = np.random.RandomState(seed)
+        shape = (nz, nlat, nlon)
+        mu = dycore.sht.mu
+        Ts2d = 300.0 - 40.0 * mu[:, None] ** 2 * np.ones((1, nlon))
+        sigma = np.linspace(0.02, 0.98, nz)[:, None, None]
+        T = (Ts2d[None] - 60.0) + 60.0 * sigma ** 0.7
+        T = np.maximum(T, 195.0) + 0.1 * rng.randn(*shape)
+        q = 0.8 * 0.622 * 611.2 / 1e5 * np.exp(
+            17.67 * (T - 273.15) / (T - 29.65)) * sigma ** 1.5
+        q = np.clip(q, 1e-7, 0.025)
+        lnps = np.full((nlat, nlon), np.log(1e5))
+        dev = self.wlat.device
+
+        def t(x):
+            return torch.as_tensor(x, dtype=self.dtype, device=dev)
+
+        zeros = t(np.zeros(shape))
+        spec = dycore.spectral_state_from_grid(zeros, zeros, t(T), t(q),
+                                               t(lnps))
+        prev, now = dycore.initial_step(spec)
+        grids = dycore.grids_of(prev)
+        aux = {'Ts': t(Ts2d), 'cbmf': t(np.zeros((nlat, nlon))),
+               'hr_rad': t(np.zeros(shape)),
+               'sfc_rad': t(np.zeros((nlat, nlon))),
+               'olr': t(np.zeros((nlat, nlon))),
+               'asr': t(np.zeros((nlat, nlon)))}
+        return prev, now, grids, aux, 0
+
+    def _total_water(self, q_g, p_half):
+        """Area-weighted mass-proxy integral sum(w * q * dp)."""
+        return torch.sum(self.wlat * q_g * (p_half[1:] - p_half[:-1]))
+
+    def _fix_water(self, new, prev, phys):
+        """Global multiplicative moisture mass fixer (moist_gcm.py:378)."""
+        sht = self.dycore.sht
+        q_prev = sht.synthesize(prev['q'])
+        ps_prev = torch.exp(sht.synthesize(prev['lnps']))
+        ph_prev, _, _, _ = self.dycore._vertical_structures(ps_prev)
+        src = torch.sum(self.wlat * phys['dq']
+                        * (ph_prev[1:] - ph_prev[:-1]))
+        target = self._total_water(q_prev, ph_prev) + 2.0 * self.dt * src
+        q_new = sht.synthesize(new['q'])
+        ps_new = torch.exp(sht.synthesize(new['lnps']))
+        ph_new, _, _, _ = self.dycore._vertical_structures(ps_new)
+        q_pos = torch.clamp(q_new, min=0.0)
+        tw_new = self._total_water(q_pos, ph_new)
+        scale = torch.where(tw_new > 0.0,
+                            torch.clamp(target, min=0.0) / tw_new, 1.0)
+        return dict(new, q=sht.analyze(q_pos * scale))
+
+    def step(self, carry, _=None):
+        """One model step: carry -> (carry, diagnostics) (:404)."""
+        prev, now, prev_grids, aux, k = carry
+        phys, aux_new, diag = self.physics(prev_grids, aux, k)
+        filtered, new, now_grids = self.dycore.step(prev, now, phys=phys)
+        if self.conserve_water:
+            new = self._fix_water(new, prev, phys)
+        return (filtered, new, now_grids, aux_new, k + 1), diag
+
+    def run(self, carry, n_steps):
+        """n_steps model steps; returns (carry, last diagnostics) (:412)."""
+        diag = None
+        for _ in range(n_steps):
+            carry, diag = self.step(carry)
+        return carry, diag
+
+
+def build_moist_gcm(nlon=128, nlat=64, nz=28, timestep=600.0,
+                    number_of_damped_levels=5, ocean_depth=5.0,
+                    dtype=torch.float32, fft_impl='fft', rad_every=6,
+                    rad_col_chunk=8192, conserve_water=True, mesh=None,
+                    moisture_advection='spectral', device=None):
+    """Return (dycore, init_fn, step_fn, run_fn) for the full moist GCM
+    (moist_gcm.py:276), on ``device``.
+
+    run_fn(carry, n_steps) -> (carry, last_diag); carry = (prev, now,
+    grids, aux, k) with k the global step index (a Python int), which
+    drives the radiation cadence and the diurnal cycle.  Multi-device
+    meshes, 'fv'/'sl' moisture transport and the matmul DFT are not
+    ported and raise NotImplementedError."""
+    if mesh is not None:
+        raise NotImplementedError('mesh: the port runs on one device')
+    if moisture_advection != 'spectral':
+        raise NotImplementedError(
+            "moisture_advection=%r: only 'spectral' is ported"
+            % (moisture_advection,))
+    if fft_impl != 'fft':
+        raise NotImplementedError("fft_impl=%r: only 'fft' is ported"
+                                  % (fft_impl,))
+    if device is None:
+        raise ValueError('pass device= explicitly')
+    model = MoistGCM(nlon, nlat, nz, timestep, number_of_damped_levels,
+                     ocean_depth, dtype, rad_every, rad_col_chunk,
+                     conserve_water, device)
+    return model.dycore, model.init, model.step, model.run

@@ -1,0 +1,68 @@
+"""Device profile of the T85 moist GCM's steps on one GPU.
+
+    python -m climt_tpu_torch.profile_step
+
+Runs the T85 model (256x128x28, f32, rad_every=6, rad_col_chunk=8192)
+for steps 0-5, then traces step 6 (a radiation refresh) and step 7 (a
+step that reuses the stored heating rates) with ``torch.profiler``.  For
+each it prints the wall time, the summed kernel time, the device busy
+share (kernel time over wall time: one stream, so kernels do not
+overlap), the number of kernel launches, and the kernels that take the
+most device time.  Wall times include the profiler's own overhead.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from .dycore.moist_gcm import build_moist_gcm
+
+
+def _kernel_events(prof):
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit('needs a CUDA GPU')
+    card = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    dev = torch.device('cuda:0')
+    _, init_fn, step_fn, _ = build_moist_gcm(
+        nlon=256, nlat=128, nz=28, timestep=600.0, dtype=torch.float32,
+        rad_every=6, rad_col_chunk=8192, device=dev)
+    carry = init_fn(0)
+    for _ in range(6):
+        carry, _ = step_fn(carry)
+    torch.cuda.synchronize()
+    for label in ('radiation step (k=6)', 'plain step (k=7)'):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            carry, _ = step_fn(carry)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = _kernel_events(prof)
+        busy = sum(e.device_time_total for e in kernels) / 1e6   # us -> s
+        by_name = {}
+        for e in kernels:
+            tot, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (tot + e.device_time_total / 1e3, n + 1)
+        print('%s on %s: wall %.4f s, kernel time %.4f s, device busy '
+              '%.1f%%, %d kernel launches' % (
+                  label, card, wall, busy, 100.0 * busy / wall,
+                  len(kernels)))
+        for name, (ms, n) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:15]:
+            print('    %9.3f ms %6d x  %s' % (ms, n, name[:100]))
+
+
+if __name__ == '__main__':
+    main()

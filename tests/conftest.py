@@ -41,6 +41,12 @@ import pytest  # noqa: E402
 from climt_tpu.core.constants import reset_constants, set_constant  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        'markers', 'gpu: needs a CUDA GPU; the test skips itself where '
+        'torch.cuda.is_available() is false')
+
+
 @pytest.fixture(autouse=True)
 def _reset_constants():
     reset_constants()

@@ -1,0 +1,90 @@
+"""climt_tpu_torch's CUDA kernels against their plain PyTorch versions.
+
+Every test here needs a CUDA GPU and skips itself elsewhere.  The file
+imports neither jax nor climt_tpu, so on a machine with a card and
+without jax it runs as
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from climt_tpu_torch.components.rrtmg import fused_mix, rtrn_kernel
+from climt_tpu_torch.components.rrtmg import lw_spectral as TL
+from climt_tpu_torch.convert import carry_to_numpy
+from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
+
+from torch_helpers import rel_err, to_torch
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA GPU (torch.cuda.is_available() is false)')
+    return torch.device('cuda:0')
+
+
+@pytest.mark.gpu
+def test_mix_rows_cuda_matches_plain(cuda):
+    rng = np.random.RandomState(2)
+    R, ng, T, S = 1175, 16, 8, (28, 512)
+    tbl = to_torch(rng.rand(R, ng), torch.float32, cuda)
+    idx = torch.as_tensor(rng.randint(-3, R + 3, (T,) + S),
+                          dtype=torch.int32, device=cuda)
+    w = to_torch(rng.randn(T, *S), torch.float32, cuda)
+    before = fused_mix.mix_rows_cuda.launches
+    out = fused_mix.mix_rows(tbl, idx, w)
+    assert fused_mix.mix_rows_cuda.launches == before + 1
+    assert rel_err(out, fused_mix.mix_rows_plain(tbl, idx.long(), w)) < 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('nz', [9, 28, 60])
+def test_rtrn_lw_cuda_matches_plain(cuda, nz):
+    rng = np.random.RandomState(1)
+    ncol = 256
+
+    def r(*shape):
+        return to_torch(rng.rand(*shape), torch.float32, cuda)
+
+    args = (r(nz, ncol, 140) * 2.0, r(nz, ncol, 140), r(nz, ncol, 16) * 0.2,
+            r(nz + 1, ncol, 16) * 0.2, r(ncol, 16) * 0.2,
+            0.9 + 0.1 * r(16, ncol), 1.5 + 0.3 * r(16, ncol),
+            (r(nz, ncol) > 0.5) * r(nz, ncol), r(nz, ncol, 16) * 3.0,
+            r(140) * 100.0)
+    rec_6 = TL._support_scalar('rec_6')
+    before = rtrn_kernel.rtrn_lw_cuda.launches
+    out = rtrn_kernel.rtrn_lw_fused(*args, rec_6)
+    assert rtrn_kernel.rtrn_lw_cuda.launches == before + 1
+    for a, b in zip(out, rtrn_kernel.rtrn_lw_plain(*args, rec_6)):
+        assert rel_err(a, b) < 2e-6
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_refuse_float64(cuda):
+    tbl = torch.zeros((4, 2), dtype=torch.float64, device=cuda)
+    idx = torch.zeros((1, 3), dtype=torch.int64, device=cuda)
+    w = torch.zeros((1, 3), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        fused_mix.mix_rows(tbl, idx, w)
+
+
+@pytest.mark.gpu
+def test_moist_gcm_gpu_matches_cpu(cuda):
+    """2 float32 steps at 32x16x10 (a radiation refresh at step 0) on the
+    card against the CPU; both kernels must launch."""
+    kw = dict(nlon=32, nlat=16, nz=10, rad_every=6, rad_col_chunk=128,
+              dtype=torch.float32)
+    out = {}
+    for dev in ('cpu', cuda):
+        _, init_fn, _, run_fn = build_moist_gcm(device=dev, **kw)
+        a0 = rtrn_kernel.rtrn_lw_cuda.launches
+        b0 = fused_mix.mix_rows_cuda.launches
+        carry, _ = run_fn(init_fn(0), 2)
+        out[str(dev)] = carry_to_numpy(carry)[2]
+    assert rtrn_kernel.rtrn_lw_cuda.launches > a0
+    assert fused_mix.mix_rows_cuda.launches > b0
+    for key, tol in (('T', 0.01), ('u', 0.02), ('v', 0.02), ('ps', 15.0)):
+        assert np.abs(out['cuda:0'][key] - out['cpu'][key]).max() < tol

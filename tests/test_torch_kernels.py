@@ -1,0 +1,158 @@
+"""climt_tpu_torch's two radiation kernels: their plain PyTorch versions
+against the JAX package, and the CUDA wrappers' refusals.
+
+Kernel B (fused_mix) is held against ``interp.mix_rows``, the function it
+replaces on the main path, and against the Pallas ``fused_mix_rows`` run
+in interpret mode.  Kernel A (rtrn_kernel) is held against ``rtrn_lw``'s
+XLA path at float64 and the Pallas ``rtrn_lw_fused`` in interpret mode at
+float32.  The CUDA kernels themselves are compared with these plain
+versions on a card by tests/test_torch_gpu.py.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from climt_tpu.components.rrtmg import lw_spectral as L
+from climt_tpu.components.rrtmg.fused_mix import fused_mix_rows
+from climt_tpu.components.rrtmg.interp import mix_rows
+from climt_tpu.components.rrtmg.pallas_rtrn import rtrn_lw_fused
+from climt_tpu_torch.components.rrtmg import fused_mix, rtrn_kernel
+from climt_tpu_torch.components.rrtmg import lw_spectral as TL
+
+from torch_helpers import rel_err, to_torch
+
+HEATFAC = 9.80665 * 8.64e4 / (1004.64 * 1e2)
+
+
+def _mix_inputs(low=0, high_pad=0):
+    """The inputs of test_pallas_radiation.py:24-28."""
+    rng = np.random.RandomState(0)
+    R, ng, T, nz, nc = 117, 12, 9, 7, 33
+    tbl = rng.rand(R, ng)
+    idx = rng.randint(low, R + high_pad, (T, nz, nc))
+    w = rng.randn(T, nz, nc)
+    return tbl, idx, w
+
+
+@pytest.mark.parametrize('dtype', ['float64', 'float32'])
+def test_mix_plain_matches_jax_mix_rows(dtype):
+    tbl, idx, w = _mix_inputs()
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = np.asarray(mix_rows(jnp.asarray(tbl, jdt), list(zip(
+        jnp.asarray(idx, jnp.int32), jnp.asarray(w, jdt)))))
+    out = fused_mix.mix_rows(to_torch(tbl, tdt), torch.as_tensor(idx),
+                             to_torch(w, tdt))
+    assert out.dtype == tdt and out.shape == ref.shape
+    # f64: exact gathers on both sides, only the summation order differs;
+    # f32: float32 sums of 9 terms
+    assert rel_err(out, ref) < (1e-12 if dtype == 'float64' else 1e-6)
+
+
+def test_mix_plain_matches_pallas_interpret():
+    tbl, idx, w = _mix_inputs()
+    f32 = jnp.float32
+    ref = np.asarray(fused_mix_rows(
+        jnp.asarray(tbl, f32), jnp.asarray(idx, jnp.int32),
+        jnp.asarray(w, f32), interpret=True))
+    out = fused_mix.mix_rows(to_torch(tbl, torch.float32),
+                             torch.as_tensor(idx), to_torch(w, torch.float32))
+    assert rel_err(out, ref) < 1e-6
+
+
+def test_mix_plain_clips_out_of_range_indices():
+    """Indices below 0 or above R-1 read the first or last row, as
+    interp.mix_rows clips them (:45, :51)."""
+    tbl, idx, w = _mix_inputs(low=-5, high_pad=5)
+    assert (idx < 0).any() and (idx >= tbl.shape[0]).any()
+    expect = (w[..., None] * tbl[np.clip(idx, 0, tbl.shape[0] - 1)]).sum(0)
+    ref = np.asarray(mix_rows(jnp.asarray(tbl), list(zip(
+        jnp.asarray(idx, jnp.int32), jnp.asarray(w)))))
+    out = fused_mix.mix_rows(to_torch(tbl), torch.as_tensor(idx),
+                             to_torch(w))
+    assert rel_err(out, expect) < 1e-12
+    assert rel_err(out, ref) < 1e-12
+
+
+def _rtrn_inputs(nz=9, ncol=40):
+    """The cloudy inputs of test_pallas_radiation.py:36-52 (numpy)."""
+    rng = np.random.RandomState(1)
+    return dict(
+        taug=rng.rand(nz, ncol, L.NGPT) * 2.0,
+        fracs=rng.rand(nz, ncol, L.NGPT),
+        planklay=rng.rand(nz, ncol, 16) * 0.2,
+        planklev=rng.rand(nz + 1, ncol, 16) * 0.2,
+        plankbnd=rng.rand(ncol, 16) * 0.2,
+        semiss=0.9 + 0.1 * rng.rand(16, ncol),
+        pwvcm=rng.rand(ncol) * 4,
+        cldfrac=(rng.rand(nz, ncol) > 0.5) * rng.rand(nz, ncol),
+        taucld_band=rng.rand(nz, ncol, 16) * 3.0,
+        pz=np.linspace(1000., 1., nz + 1)[:, None] * np.ones((1, ncol)))
+
+
+_ORDER = ('taug', 'fracs', 'planklay', 'planklev', 'plankbnd', 'semiss',
+          'pwvcm', 'cldfrac', 'taucld_band', 'pz')
+
+
+def test_rtrn_plain_matches_jax_xla_f64():
+    x = _rtrn_inputs()
+    ref = L.rtrn_lw(*[jnp.asarray(x[k]) for k in _ORDER], HEATFAC,
+                    use_tables=False)
+    out = TL.rtrn_lw(*[to_torch(x[k]) for k in _ORDER], HEATFAC)
+    assert len(out) == len(ref) == 6
+    for a, b in zip(out, ref):
+        assert a.dtype == torch.float64
+        assert rel_err(a, b) < 1e-10
+
+
+def _secdiff_dwave(pwvcm):
+    """secdiff (16, ncol) and dwave_g (140,) as rtrn_lw builds them."""
+    t = L.load_support()
+    fixed = np.zeros(16, bool)
+    fixed[[0, 3]] = True
+    fixed[9:] = True
+    sec = np.clip(t['secdiff_a0'][:, None] + t['secdiff_a1'][:, None]
+                  * np.exp(t['secdiff_a2'][:, None] * pwvcm[None]), 1.5, 1.8)
+    secdiff = np.where(fixed[:, None], 1.66, sec)
+    dwave_g = t['delwave'][L.NGB] * float(t['wtdiff'][0]) * (np.pi * 2.0e4)
+    return secdiff, dwave_g
+
+
+def test_rtrn_plain_matches_pallas_interpret_f32():
+    x = _rtrn_inputs()
+    secdiff, dwave_g = _secdiff_dwave(x['pwvcm'])
+    names = ('taug', 'fracs', 'planklay', 'planklev', 'plankbnd', 'semiss')
+    f32 = jnp.float32
+    ref = rtrn_lw_fused(
+        *[jnp.asarray(x[k], f32) for k in names], jnp.asarray(secdiff, f32),
+        jnp.asarray(x['cldfrac'], f32), jnp.asarray(x['taucld_band'], f32),
+        jnp.asarray(dwave_g, f32), interpret=True)
+    rec_6 = float(L.load_support()['rec_6'][0])
+    out = rtrn_kernel.rtrn_lw_fused(
+        *[to_torch(x[k], torch.float32) for k in names],
+        to_torch(secdiff, torch.float32),
+        to_torch(x['cldfrac'], torch.float32),
+        to_torch(x['taucld_band'], torch.float32),
+        to_torch(dwave_g, torch.float32), rec_6)
+    for a, b in zip(out, ref):
+        assert a.dtype == torch.float32
+        assert rel_err(a, b) < 2e-6
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The kernel launchers take CUDA tensors only; on the CPU the
+    dispatchers take the plain versions instead."""
+    tbl = torch.zeros((4, 2), dtype=torch.float32)
+    idx = torch.zeros((1, 3), dtype=torch.int32)
+    w = torch.zeros((1, 3), dtype=torch.float32)
+    with pytest.raises(ValueError):
+        fused_mix.mix_rows_cuda(tbl, idx, w)
+    x = _rtrn_inputs(nz=3, ncol=4)
+    secdiff, dwave_g = _secdiff_dwave(x['pwvcm'])
+    args = [to_torch(x[k], torch.float32) for k in (
+        'taug', 'fracs', 'planklay', 'planklev', 'plankbnd', 'semiss')]
+    args += [to_torch(a, torch.float32) for a in (
+        secdiff, x['cldfrac'], x['taucld_band'], dwave_g)]
+    with pytest.raises(ValueError):
+        rtrn_kernel.rtrn_lw_cuda(*args, 1.0 / 6.0)

@@ -1,0 +1,134 @@
+"""Shared inputs and comparisons for the climt_tpu_torch parity tests.
+
+Inputs are made once with numpy from a seed and handed to both packages:
+JAX through ``jnp.asarray``, the port through ``to_torch``.
+"""
+
+import numpy as np
+import torch
+
+G, AVOG, CPD = 9.80665, 6.022140857e23, 1004.64
+
+
+def to_torch(x, dtype=torch.float64, device='cpu'):
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+def rel_err(a, b):
+    """max |a - b| / max |b| of two arrays (numpy, jax or torch)."""
+    a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else \
+        np.asarray(a)
+    b = b.detach().cpu().numpy() if isinstance(b, torch.Tensor) else \
+        np.asarray(b)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
+
+
+def radiation_columns(nz=40, ncol=16):
+    """The physical columns of tests/test_radiation_fastpath.py:25-54, as
+    float64 numpy arrays."""
+    rng = np.random.RandomState(42)
+    p_sfc = 1013.0
+    plev1 = np.linspace(p_sfc, 0.3, nz + 1)
+    play1 = 0.5 * (plev1[:-1] + plev1[1:])
+
+    def cols(profile, jitter=0.0):
+        base = np.repeat(np.asarray(profile)[:, None], ncol, 1)
+        if jitter:
+            base = base * (1.0 + jitter * rng.randn(*base.shape))
+        return base
+
+    tlay1 = np.maximum(300.0 - 60.0 * (1 - play1 / p_sfc) / 0.8, 205.0)
+    tlev1 = np.concatenate([[302.0], 0.5 * (tlay1[:-1] + tlay1[1:]),
+                            [tlay1[-1]]])
+    play, plev = cols(play1), cols(plev1)
+    tlay, tlev = cols(tlay1, 0.005), cols(tlev1)
+    tsfc = 295.0 + 10.0 * rng.rand(ncol)
+    h2o = cols(0.016 * (play1 / p_sfc) ** 3, 0.05)
+    o3 = cols(5e-6 * np.exp(-0.5 * ((np.log(play1) - np.log(20.0))
+                                    / 1.2) ** 2))
+    return dict(play=play, plev=plev, tlay=tlay, tlev=tlev, tsfc=tsfc,
+                h2o=h2o, o3=o3, co2=np.full_like(play, 355e-6),
+                o2=np.full_like(play, 0.21), zero=np.zeros_like(play),
+                emis=np.ones((16, ncol)),
+                mu0=np.linspace(1e-6, 1.0, ncol), alb=np.full(ncol, 0.2),
+                nz=nz, ncol=ncol)
+
+
+def varying_ps_columns(nz=28, ncol=64):
+    """Columns whose surface pressure runs from 550 to 1050 hPa, so that
+    one model level spans several taumol pressure blocks across columns
+    (float64 numpy, same keys as radiation_columns)."""
+    rng = np.random.RandomState(7)
+    psfc = np.linspace(550.0, 1050.0, ncol)
+    plev = np.maximum(np.linspace(1.0, 0.0, nz + 1)[:, None] * psfc, 0.3)
+    play = 0.5 * (plev[:-1] + plev[1:])
+    tlay = np.maximum(300.0 - 60.0 * (1 - play / 1013.0) / 0.8, 205.0)
+    tlev = np.concatenate([np.full((1, ncol), 302.0),
+                           0.5 * (tlay[:-1] + tlay[1:]), tlay[-1:]])
+    h2o = 0.016 * (play / 1013.0) ** 3 * (1 + 0.05 * rng.randn(nz, ncol))
+    o3 = 5e-6 * np.exp(-0.5 * ((np.log(play) - np.log(20.0)) / 1.2) ** 2)
+    return dict(play=play, plev=plev, tlay=tlay, tlev=tlev,
+                tsfc=295.0 + 10.0 * rng.rand(ncol), h2o=h2o, o3=o3,
+                co2=np.full_like(play, 355e-6), o2=np.full_like(play, 0.21),
+                zero=np.zeros_like(play), emis=np.ones((16, ncol)),
+                mu0=np.full(ncol, 0.6), alb=np.full(ncol, 0.2),
+                nz=nz, ncol=ncol)
+
+
+def port_lw(c, dtype):
+    from climt_tpu_torch.components.rrtmg.lw_spectral import rrtmg_lw_fluxes
+    t = {k: to_torch(v, dtype) for k, v in c.items()
+         if isinstance(v, np.ndarray)}
+    z = t['zero']
+    z16 = torch.zeros((c['nz'], c['ncol'], 16), dtype=dtype)
+    return rrtmg_lw_fluxes(
+        t['play'], t['plev'], t['tlay'], t['tlev'], t['tsfc'], t['h2o'],
+        t['o3'], t['co2'], z, z, t['o2'], z, z, z, z, t['emis'], z, z16,
+        z, z, torch.full_like(z, 25.0), torch.full_like(z, 10.0), z16,
+        G, AVOG, CPD, use_tables=False)
+
+
+def port_sw(c, dtype):
+    from climt_tpu_torch.components.rrtmg.sw_spectral import (
+        rrtmg_sw_fluxes, solar_variability)
+    t = {k: to_torch(v, dtype) for k, v in c.items()
+         if isinstance(v, np.ndarray)}
+    z = t['zero']
+    z14 = torch.zeros((c['nz'], c['ncol'], 14), dtype=dtype)
+    alb = t['alb']
+    return rrtmg_sw_fluxes(
+        t['play'], t['plev'], t['tlay'], t['h2o'], t['o3'], t['co2'], z, z,
+        t['o2'], alb, alb, alb, alb, t['mu0'], z, (z14,) * 4, (z14,) * 3,
+        1.0, -1, 0.0, -1, solar_variability(-1, 0.0), G, AVOG, CPD,
+        icld=0, use_tables=False)
+
+
+def jax_lw(c, dtype, use_tables):
+    import jax.numpy as jnp
+    from climt_tpu.components.rrtmg.lw_spectral import rrtmg_lw_fluxes
+    j = {k: jnp.asarray(v, dtype) for k, v in c.items()
+         if isinstance(v, np.ndarray)}
+    z = j['zero']
+    z16 = jnp.zeros((c['nz'], c['ncol'], 16), dtype)
+    return rrtmg_lw_fluxes(
+        j['play'], j['plev'], j['tlay'], j['tlev'], j['tsfc'], j['h2o'],
+        j['o3'], j['co2'], z, z, j['o2'], z, z, z, z, j['emis'], z, z16,
+        z, z, jnp.full_like(z, 25.0), jnp.full_like(z, 10.0), z16,
+        G, AVOG, CPD, use_tables=use_tables)
+
+
+def jax_sw(c, dtype, use_tables):
+    import jax.numpy as jnp
+    from climt_tpu.components.rrtmg.sw_spectral import (
+        rrtmg_sw_fluxes, solar_variability)
+    j = {k: jnp.asarray(v, dtype) for k, v in c.items()
+         if isinstance(v, np.ndarray)}
+    z = j['zero']
+    z14 = jnp.zeros((c['nz'], c['ncol'], 14), dtype)
+    alb = j['alb']
+    return rrtmg_sw_fluxes(
+        j['play'], j['plev'], j['tlay'], j['h2o'], j['o3'], j['co2'], z, z,
+        j['o2'], alb, alb, alb, alb, j['mu0'], z, (z14,) * 4, (z14,) * 3,
+        1.0, -1, 0.0, -1, solar_variability(-1, 0.0), G, AVOG, CPD,
+        icld=0, use_tables=use_tables)
