@@ -6,19 +6,26 @@
 Phases, each of which fails loudly (no exception is turned into exit 0):
   1. require a CUDA device; print the card's name and power limit; check
      that float32 matmuls run in full float32 (TF32 off);
-  2. build the CUDA kernels of climt_tpu_torch/csrc/ with nvcc;
-  3. kernel B (table-row gather-sum) against its plain version at a
-     taumol-sized case;
+  2. build the CUDA kernels of climt_tpu_torch/csrc/ with nvcc, one
+     process per source;
+  3. kernel B (band-fused gather-sum): the one-table synthetic case, then
+     the six groups that one T85 radiation chunk launches (nz=28, the
+     first 8192 columns of the T85 initial state), each against its plain
+     version, timed beside its bound, F.embedding_bag per band and the
+     variant that stages the tables in shared memory;
   4. kernel A (LW flux integration) against its plain version, with
-     clouds, at nz=28 and nz=60, ncol=8192;
+     clouds, at nz=28 and nz=60, ncol=8192, one and two columns per block,
+     timed beside its bound;
   5. the moist GCM at 32x16x10, float32, 7 steps on the GPU against the
      same model on the CPU (plain versions);
   6. the moist GCM at T85 (256x128x28, dt 600 s, rad_every=6,
      rad_col_chunk=8192), 12 steps through build_moist_gcm's step_fn,
-     with both kernels' launch counts read around that run;
+     with both kernels' launch counts read around that run: it fails if a
+     radiation refresh launches kernel B more than 40 times;
   7. standalone LW+SW radiation at nz=60, ncol=8192, in columns/s.
 The line before the last is a JSON object with each kernel's launches,
-error and time; the last line is {"ok": true, "device": {...}}.
+error, time, bound, plain and library times; the last line is
+{"ok": true, "device": {...}}.
 It imports neither jax nor climt_tpu.
 """
 
@@ -37,6 +44,16 @@ T85_STEPS = 12
 # 1.1e-7 kg/kg and 0.32 Pa; the bounds leave 50x room for the other
 # summation order and transcendental roundoff of the card.
 SMALL_TOL = dict(T=0.01, u=0.02, v=0.02, q=5e-6, ps=15.0)
+# H100 SXM peaks (on-chip-measurement guide): device memory bytes/s and
+# float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# kernel A's float32 operations per (g, layer, column), both sweeps: the
+# layer terms (about 30 with the cloudy branch) and the two recurrences
+# (about 6), twice, plus the exp
+RTRN_OPS_PER_POINT = 80
+B_LAUNCHES_PER_REFRESH_MAX = 40
+G, AVOGADRO = 9.80665, 6.022140857e23
 
 
 def phase(n, msg):
@@ -60,6 +77,57 @@ def cuda_ms(fn, reps, torch):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bound(nbytes, ops):
+    """(ms, 'bytes' or 'operations'): the least time the card could take
+    to move nbytes and do ops float32 operations."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ('bytes' if by_bytes >= by_ops
+                                   else 'operations')
+
+
+def group_cost(layout, ncell):
+    """Bytes and operations kernel B needs for one group: every weight,
+    every index of a table of more than one row, the output and the
+    packed tables once; one multiply-add per (term, cell, g)."""
+    nbytes = (ncell * sum(4 + (4 if rows > 1 else 0)
+                          for _, rows in layout.terms)
+              + 4 * ncell * layout.width
+              + 4 * sum(b[6] for b in layout.bands))
+    ops = 2 * ncell * sum(b[0] * b[3] for b in layout.bands)
+    return nbytes, ops
+
+
+def embedding_bag_call(layout, idx, w, torch):
+    """One F.embedding_bag per band on pre-clipped, pre-offset, (cells,
+    terms) indices and weights: the library yardstick for kernel B, which
+    the port never calls.  Returns (fn, check) where check(out) is the
+    largest difference from the kernel's output."""
+    F = torch.nn.functional
+    calls = []
+    for ng, ngp, t0, nt, goff, tab0, tablen in layout.bands:
+        if nt == 0:
+            continue
+        term = layout.term_i64[t0:t0 + nt]
+        flat = idx[t0:t0 + nt].reshape(nt, -1).long()
+        rows = torch.minimum(flat.clamp(min=0), term[:, 1:2] - 1) + (
+            (term[:, 0:1] - tab0) // ngp)
+        calls.append((rows.T.contiguous(),
+                      layout.table[tab0:tab0 + tablen].view(-1, ngp),
+                      w[t0:t0 + nt].reshape(nt, -1).T.contiguous(), goff, ng))
+
+    def fn():
+        return [F.embedding_bag(i, tab, per_sample_weights=pw, mode='sum')
+                for i, tab, pw, _, _ in calls]
+
+    def check(out):
+        flat = out.reshape(-1, layout.width)
+        return max(float((o[:, :ng] - flat[:, goff:goff + ng]).abs().max())
+                   for o, (_, _, _, goff, ng) in zip(fn(), calls))
+
+    return fn, check
 
 
 def max_rel_err(a, b):
@@ -123,12 +191,93 @@ def main():
     if not err <= 1e-6 * scale:
         fail('kernel B disagrees: max abs err %g > 1e-6 * %g' % (err, scale))
     ms = cuda_ms(lambda: fused_mix.mix_rows_cuda(table, idx, w), 20, torch)
-    plain_ms = cuda_ms(lambda: fused_mix.mix_rows_plain(table, idx.long(), w),
-                       20, torch)
-    report['B'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    phase(3, 'kernel B R=%d ng=%d T=%d S=%s: max abs err %.3g (max %.3g)'
-          ', %.4f ms vs plain %.4f ms' % (R, ng, T, S, err, scale, ms,
-                                         plain_ms))
+    phase(3, 'kernel B one table R=%d ng=%d T=%d S=%s: max abs err %.3g '
+          '(max %.3g), %.4f ms' % (R, ng, T, S, err, scale, ms))
+    del table, idx, w, out, ref
+
+    # the six groups of one T85 radiation chunk, from the initial state
+    dycore, init_fn, step_fn, _ = build_moist_gcm(
+        dtype=f32, device=dev, **T85)
+    model = step_fn.__self__
+    _, _, grids, aux, _ = init_fn(0)
+    cols = model._to_cols
+    ph_c = cols(grids['p_half'])
+    inputs = model.radiation_inputs(
+        cols(grids['T']), torch.clamp(cols(grids['q']), min=0.0),
+        0.5 * (ph_c[1:] + ph_c[:-1]), ph_c, aux['Ts'].reshape(-1),
+        torch.tensor(0.0, device=dev))
+    chunk = T85['rad_col_chunk']
+    (play, plev, tlay, tlev, tsfc, h2o, o3, co2, o2, _, _, emis) = [
+        x[:chunk] if x.dim() == 1 else x[:, :chunk] for x in inputs]
+    zero = torch.zeros_like(play)
+    cs, wx, _ = LW.gas_coefs_lw(play, plev, tlay, tlev, tsfc, emis, h2o, o3,
+                                co2, zero, zero, o2, zero, zero, zero, zero,
+                                G, AVOGADRO)
+    css = SW.gas_coefs_sw(play, plev, tlay, h2o, o3, co2, zero, zero, o2, G,
+                          AVOGADRO)
+    groups = dict(zip(
+        ('lw_planck', 'lw_taug', 'lw_fracs', 'sw_taug', 'sw_taur',
+         'sw_sflux'),
+        (LW.planck_terms(tlay, tlev, tsfc),)
+        + LW.taumol_lw_terms(cs, wx, f32)
+        + SW.taumol_sw_terms(css, -1, *model.solar_config[:6], f32)))
+    del grids, aux, inputs, cs, css
+    report['B'] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                       library_ms=0.0, bound_ms=0.0, staged_ms=0.0,
+                       groups={})
+    for gname, group in groups.items():
+        layout, idx, w = group.finish()
+        ncell = idx[0].numel()
+        out = fused_mix.mix_groups_cuda(layout, idx, w)
+        ref = fused_mix.mix_groups_plain(layout, idx, w)
+        staged = fused_mix.mix_groups_cuda(layout, idx, w, stage_tables=True)
+        lib_fn, lib_check = embedding_bag_call(layout, idx, w, torch)
+        torch.cuda.synchronize()
+        err, scale = max_rel_err(out, ref)
+        err_staged, _ = max_rel_err(staged, ref)
+        lib_err = lib_check(out)
+        if not max(err, err_staged) <= 1e-6 * scale:
+            fail('kernel B disagrees on %s: max abs err %g (staged %g) > '
+                 '1e-6 * %g' % (gname, err, err_staged, scale))
+        if not lib_err <= 1e-5 * scale:
+            fail('embedding_bag yardstick disagrees on %s by %g'
+                 % (gname, lib_err))
+        ms = cuda_ms(lambda: fused_mix.mix_groups_cuda(layout, idx, w), 20,
+                     torch)
+        staged_ms = cuda_ms(lambda: fused_mix.mix_groups_cuda(
+            layout, idx, w, stage_tables=True), 20, torch)
+        plain_ms = cuda_ms(
+            lambda: fused_mix.mix_groups_plain(layout, idx, w), 3, torch)
+        library_ms = cuda_ms(lib_fn, 10, torch)
+        nbytes, ops = group_cost(layout, ncell)
+        bound_ms, bound_by = bound(nbytes, ops)
+        rec = dict(cells=ncell, terms=layout.nterms, bands=len(layout.bands),
+                   max_abs_err=err, ms=ms, staged_ms=staged_ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, mbytes=nbytes / 1e6,
+                   share=bound_ms / ms)
+        report['B']['groups'][gname] = rec
+        for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'staged_ms'):
+            report['B'][key] += rec[key]
+        report['B']['max_abs_err'] = max(report['B']['max_abs_err'], err)
+        phase(3, 'kernel B %s: %d cells, %d bands, %d terms: max abs err '
+              '%.3g (max %.3g); %.4f ms (tables in shared memory %.4f ms), '
+              'plain %.4f ms, embedding_bag %.4f ms, bound %.4f ms (%s, '
+              '%.1f MB), %.0f%% of bound' % (
+                  gname, ncell, len(layout.bands), layout.nterms, err, scale,
+                  ms, staged_ms, plain_ms, library_ms, bound_ms, bound_by,
+                  nbytes / 1e6, 100.0 * bound_ms / ms))
+        del layout, idx, w, out, ref, staged, lib_fn, lib_check
+    rb = report['B']
+    rb['share'] = rb['bound_ms'] / rb['ms']
+    rb['bound_by'] = 'bytes'
+    phase(3, 'kernel B, one T85 chunk (6 launches): %.4f ms (tables in '
+          'shared memory %.4f ms), plain %.4f ms, embedding_bag %.4f ms, '
+          'bound %.4f ms, %.0f%% of bound; on %s' % (
+              rb['ms'], rb['staged_ms'], rb['plain_ms'], rb['library_ms'],
+              rb['bound_ms'], 100.0 * rb['share'], card))
+    del groups
+    torch.cuda.empty_cache()
 
     # ---- phase 4: kernel A -------------------------------------------
     sup = LW.load_support(f32, dev)
@@ -147,41 +296,57 @@ def main():
                 1.5 + 0.3 * r(16, ncol), (cld > 0.5) * r(nz, ncol),
                 r(nz, ncol, 16) * 3.0, dwave_g)
 
+    report['A'] = dict(max_abs_err=0.0, library_ms=None, variants={})
     for nz in (28, 60):
-        args = rtrn_inputs(nz, 8192)
-        outs = rtrn_kernel.rtrn_lw_cuda(*args, rec_6)
+        ncol = 8192
+        args = rtrn_inputs(nz, ncol)
         refs = rtrn_kernel.rtrn_lw_plain(*args, rec_6)
-        torch.cuda.synchronize()
-        worst = worst_rel = 0.0
-        for o, rf, nm in zip(outs, refs, ('up', 'dn', 'up_clr', 'dn_clr')):
-            err, scale = max_rel_err(o, rf)
-            if not err <= 2e-6 * scale:
-                fail('kernel A disagrees at nz=%d (%s): %g > 2e-6 * %g'
-                     % (nz, nm, err, scale))
-            worst = max(worst, err)
-            worst_rel = max(worst_rel, err / scale)
-        msg = ('kernel A nz=%d ncol=8192: max abs err %.3g W/m^2 (%.3g of '
-               'max)' % (nz, worst, worst_rel))
-        if nz == 28:            # the main path's shape
-            ms = cuda_ms(lambda: rtrn_kernel.rtrn_lw_cuda(*args, rec_6), 10,
-                         torch)
-            plain_ms = cuda_ms(
-                lambda: rtrn_kernel.rtrn_lw_plain(*args, rec_6), 3, torch)
-            report['A'] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
-            msg += ', %.3f ms vs plain %.3f ms' % (ms, plain_ms)
-        else:
+        nbytes = (sum(a.numel() for a in args) + 4 * (nz + 1) * ncol) * 4
+        bound_ms, bound_by = bound(nbytes, RTRN_OPS_PER_POINT * 140 * nz
+                                   * ncol)
+        for cpb in (1, 2):
+            outs = rtrn_kernel.rtrn_lw_cuda(*args, rec_6, cols_per_block=cpb)
+            torch.cuda.synchronize()
+            worst = worst_rel = 0.0
+            for o, rf, nm in zip(outs, refs, ('up', 'dn', 'up_clr',
+                                              'dn_clr')):
+                err, scale = max_rel_err(o, rf)
+                if not err <= 2e-6 * scale:
+                    fail('kernel A disagrees at nz=%d, %d columns per block '
+                         '(%s): %g > 2e-6 * %g' % (nz, cpb, nm, err, scale))
+                worst = max(worst, err)
+                worst_rel = max(worst_rel, err / scale)
+            ms = cuda_ms(lambda: rtrn_kernel.rtrn_lw_cuda(
+                *args, rec_6, cols_per_block=cpb), 10, torch)
             report['A']['max_abs_err'] = max(report['A']['max_abs_err'],
                                              worst)
-        phase(4, msg)
-        del args, outs, refs
+            report['A']['variants']['nz%d_cols%d' % (nz, cpb)] = dict(
+                ms=ms, bound_ms=bound_ms, share=bound_ms / ms,
+                max_abs_err=worst)
+            msg = ('kernel A nz=%d ncol=%d, %d column(s) per block: max abs '
+                   'err %.3g W/m^2 (%.3g of max), %.4f ms, bound %.4f ms '
+                   '(%s, %.1f MB), %.0f%% of bound' % (
+                       nz, ncol, cpb, worst, worst_rel, ms, bound_ms,
+                       bound_by, nbytes / 1e6, 100.0 * bound_ms / ms))
+            if nz == 28 and cpb == rtrn_kernel.COLS_PER_BLOCK:
+                plain_ms = cuda_ms(
+                    lambda: rtrn_kernel.rtrn_lw_plain(*args, rec_6), 3, torch)
+                report['A'].update(ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   share=bound_ms / ms)
+                msg += ', plain %.3f ms' % plain_ms
+            phase(4, msg + '; on ' + card)
+            del outs
+        del args, refs
+    torch.cuda.empty_cache()
 
     # ---- phase 5: small model, GPU vs CPU ------------------------------
     small = dict(nlon=32, nlat=16, nz=10, rad_every=6, rad_col_chunk=128,
                  dtype=f32)
     finals = {}
     for where in ('cpu', 'cuda'):
-        _, init_fn, _, run_fn = build_moist_gcm(device=where, **small)
-        carry, _ = run_fn(init_fn(0), 7)
+        _, small_init, _, small_run = build_moist_gcm(device=where, **small)
+        carry, _ = small_run(small_init(0), 7)
         finals[where] = carry_to_numpy(carry)[2]
     diffs = {}
     for key, tol in SMALL_TOL.items():
@@ -195,12 +360,11 @@ def main():
         ', '.join('%s %.3g' % kv for kv in diffs.items())))
 
     # ---- phase 6: T85 moist GCM through the entry point ----------------
-    dycore, init_fn, step_fn, run_fn = build_moist_gcm(
-        dtype=f32, device=dev, **T85)
+    # (the model built by build_moist_gcm in phase 3)
     carry = init_fn(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_mix.mix_rows_cuda.launches = 0
+    fused_mix.mix_groups_cuda.launches = 0
     rtrn_kernel.rtrn_lw_cuda.launches = 0
     step_s = []
     diag = None
@@ -209,8 +373,9 @@ def main():
         carry, diag = step_fn(carry, None)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    launches = {'B': fused_mix.mix_rows_cuda.launches,
+    launches = {'B': fused_mix.mix_groups_cuda.launches,
                 'A': rtrn_kernel.rtrn_lw_cuda.launches}
+    refreshes = sum(1 for k in range(T85_STEPS) if k % T85['rad_every'] == 0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     T_grid = dycore.sht.synthesize(carry[1]['T'])
     for key, val in [('T', T_grid)] + list(diag.items()):
@@ -222,6 +387,10 @@ def main():
             float(T_grid.min()), float(T_grid.max())))
     if not (launches['A'] > 0 and launches['B'] > 0):
         fail('T85 run did not go through both kernels: %s' % launches)
+    if launches['B'] > B_LAUNCHES_PER_REFRESH_MAX * refreshes:
+        fail('T85: kernel B launched %d times in %d radiation refreshes, '
+             'more than %d each' % (launches['B'], refreshes,
+                                    B_LAUNCHES_PER_REFRESH_MAX))
     # 12 steps hold 2 radiation refreshes (steps 0 and 6): the mean over
     # all of them is the model's cost at its 1-in-6 radiation cadence
     rad_steps = [s for i, s in enumerate(step_s) if i % 6 == 0]
@@ -238,7 +407,6 @@ def main():
               launches['B'], float(T_grid.min()), float(T_grid.max()), card))
 
     # breakdown of one radiation step (outside the counted run)
-    model = step_fn.__self__
     prev, now, grids, aux, k = carry
     t_ph = time.perf_counter()
 
@@ -263,6 +431,10 @@ def main():
     phase(6, 'T85 breakdown: radiation %.4f s, physics without radiation '
           '%.4f s, dynamics + water fixer %.4f s (%.1f s to measure)' % (
               rad_s, phys_s, dyn_s, time.perf_counter() - t_ph))
+    phase(6, 'T85: kernel B launches per radiation refresh %g (limit %d), '
+          'kernel A %g; radiation alone %.4f s per refresh; on %s' % (
+              launches['B'] / refreshes, B_LAUNCHES_PER_REFRESH_MAX,
+              launches['A'] / refreshes, rad_s, card))
     del carry, model, grids, aux, prev, now, phys
     torch.cuda.empty_cache()
 
@@ -320,7 +492,7 @@ def main():
           'on %s' % (nz, ncol, rad_cols, card))
 
     kernels = [
-        dict(name='mix_rows_cuda', route='cuda',
+        dict(name='mix_groups_cuda', route='cuda',
              source='climt_tpu_torch/csrc/mix_rows.cu',
              replaces='climt_tpu/components/rrtmg/fused_mix.py:76',
              launches=launches['B'], **report['B']),

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface and loaded with ``ctypes``.  The build
+Each source is compiled by its own ``nvcc`` for ``sm_90a``, all started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with ``ctypes``.  The build
 directory, ``climt_tpu_torch/_build/<hash>/``, is keyed by a hash of the
 sources and flags, so an edit rebuilds.  Nothing here runs when the
 package is imported: ``library()`` builds on its first call, which is the
@@ -21,8 +22,9 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
 BUILD_ROOT = os.path.join(_HERE, '_build')
-NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
+NVCC_FLAGS = ARCH + ['-std=c++17', '-O3', '-Xcompiler', '-fPIC',
+                     '-Xptxas', '-v']
 LIB_NAME = 'libclimt_tpu_torch_kernels.so'
 
 # filled by library(): build seconds (0.0 when the cached build was used),
@@ -33,8 +35,8 @@ _LIB = []
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 SIGNATURES = {
-    'climt_mix_rows_f32': [_P, _I, _I, _P, _P, _I, _L, _P, _P],
-    'climt_rtrn_lw_f32': [_P] * 12 + [_I, _I, _F] + [_P] * 5,
+    'climt_mix_groups_f32': [_P, _P, _I, _P, _P, _P, _L, _I, _P, _I, _P],
+    'climt_rtrn_lw_f32': [_P] * 10 + [_I, _I, _F, _I] + [_P] * 5,
 }
 
 
@@ -71,17 +73,40 @@ def library():
     seconds = 0.0
     if not os.path.exists(so):
         os.makedirs(out_dir, exist_ok=True)
-        tmp = '%s.%d.tmp' % (so, os.getpid())
-        cmd = [_nvcc()] + NVCC_FLAGS + ['-o', tmp] + [
-            p for p in srcs if p.endswith('.cu')]
+        nvcc = _nvcc()
+        tag = '%d.tmp' % os.getpid()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        jobs = []
+        for src in (p for p in srcs if p.endswith('.cu')):
+            obj = os.path.join(out_dir, '%s.%s.o' % (
+                os.path.basename(src), tag))
+            cmd = [nvcc] + NVCC_FLAGS + ['-c', '-o', obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        tmp = '%s.%s' % (so, tag)
+        link = [nvcc] + ARCH + ['-shared', '-o', tmp] + [o for _, o, _ in jobs]
+        text, failed = [], []
+        for cmd, _, proc in jobs:
+            out, err = proc.communicate()
+            text.append(' '.join(cmd) + '\n' + out + err)
+            if proc.returncode != 0:
+                failed.append('%s (%d):\n%s' % (cmd[-1], proc.returncode,
+                                                 err[-4000:]))
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            text.append(' '.join(link) + '\n' + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append('link (%d):\n%s' % (proc.returncode,
+                                                  proc.stderr[-4000:]))
+        for _, obj, _ in jobs:
+            if os.path.exists(obj):
+                os.remove(obj)
         seconds = time.perf_counter() - t0
         with open(log, 'w') as f:
-            f.write(' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError('nvcc failed (%d):\n%s' % (
-                proc.returncode, proc.stderr[-4000:]))
+            f.write('\n'.join(text))
+        if failed:
+            raise RuntimeError('nvcc failed: ' + '\n'.join(failed))
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
     for name, argtypes in SIGNATURES.items():

@@ -1,36 +1,275 @@
-"""Table-row gather-sum for the RRTMG gas optics: kernel B and its plain
-version.
+"""Band-fused table-row gather-sum for the RRTMG gas optics: kernel B
+and its plain version.
 
-    out[s, :] = sum_t w[t, s] * table[clip(idx[t, s], 0, R-1), :]
+One launch computes one taumol output for every band at once.  Band b
+owns the output columns [goff_b, goff_b + ng_b) and the terms
+[t0_b, t0_b + nt_b); for every cell s
+
+    out[s, goff_b + g] = sum_t  w[t, s] * table_t[clip(idx[t, s], 0, R_t - 1), g]
+
+where table_t is the part (key species [absa; absb], selfref, forref, a
+minor-gas k-table, a one-row cross-section, ...) that term t reads.  The
+terms of a band are summed in float32 in term order.
 
 TPU kernel replaced: climt_tpu/components/rrtmg/fused_mix.py:76
-(``fused_mix_rows``, Pallas body ``_mix_kernel`` :54).  On the TPU the
-gather is rebuilt as one-hot rows contracted on the MXU, because TPU
-gathers do not vectorise (interp.py:13-20); the JAX main path computes
-the same function as that contraction in ``interp.mix_rows`` /
-``mix_rows_windowed``.  On Hopper the gather is the natural form, and
-every taumol interpolation of the port (LW and SW: key species,
-continua, minor gases, Planck fractions, solar source) goes through it.
+(``fused_mix_rows``, Pallas body ``_mix_kernel`` :54), at the granularity
+``BandAccum`` (:130) gives it there: every term of every part of a band,
+all tables concatenated row-wise, in one kernel.  The port goes one step
+further and puts all bands of one output (LW taug, LW fracs, SW taug, SW
+taur, SW solar source, the LW Planck functions) into one launch, so a
+radiation call of one column chunk makes 6 launches of kernel B.
 
-Bound on the card: bytes.  The tables (<= ~1.8k rows x <= 16 floats)
-stay in L1/L2; each cell streams T int32 indices, T weights and ng
-outputs.  ``csrc/mix_rows.cu`` runs one thread per (cell, g) with g
-fastest, so stores are coalesced and the table goes through the
-read-only cache; no (cells x rows) weight matrix exists anywhere.
+Bound on the card: bytes.  Each term streams 4 bytes of weight and, when
+its table has more than one row, 4 bytes of index per cell; the output is
+written once; the packed tables (at most 116 KB per band) stay in L1/L2.
+``csrc/mix_rows.cu`` runs one thread per cell and one block row per band:
+the thread loads each term's index and weight once (coalesced along
+cells), reads table rows as float4, keeps the ng sums in registers and
+stages its row through shared memory so that the block writes the band's
+slice of the output coalesced.
 
-Indices are clipped to [0, R-1], the semantics of ``interp.mix_rows``
-(:45, :51), the function this replaces on the main path.  (The Pallas
-kernel drops out-of-range rows only to handle its own tile padding.)
+Layout (``Layout``): built once per output, dtype and device and cached.
+Every part's table is padded to a multiple of 4 floats per row and packed
+band by band into one flat buffer; each band has a descriptor (ng, padded
+ng, first term, term count, output offset, table offset and length) and
+each term one (flat offset of its part's row 0, its part's row count).
+Callers write raw, part-relative row indices and their weights straight
+into one preallocated (terms, *cells) int32 and float pair (``Group``);
+the kernel clips and offsets the index itself, and reads no index at all
+for a one-row table.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ... import _build
 
+def _padded(ng):
+    return -(-ng // 4) * 4
+
+
+def _signature(ngs, parts):
+    return tuple(ngs), tuple((b, np.shape(tab), n) for b, tab, n in parts)
+
+
+class Layout:
+    """The packed tables and descriptors of one group of bands.
+
+    ``parts`` is a list of (band, table, nterms); ``table`` is a (rows, ng)
+    array or tensor, or a (ng,) row or a scalar for a one-row table."""
+
+    def __init__(self, ngs, parts, dtype, device):
+        self.signature = _signature(ngs, parts)
+        flat, bands, terms = [], [], []
+        off = t = goff = 0
+        for b, ng in enumerate(ngs):
+            ngp = _padded(ng)
+            t0, tab0 = t, off
+            for pb, table, n in parts:
+                if pb != b:
+                    continue
+                tab = torch.as_tensor(table, dtype=dtype, device=device)
+                tab = tab.expand(ng) if tab.dim() < 2 else tab
+                tab = torch.nn.functional.pad(tab.reshape(-1, ng),
+                                              (0, ngp - ng))
+                flat.append(tab.reshape(-1))
+                terms += [(off, tab.shape[0])] * n
+                off += tab.numel()
+                t += n
+            bands.append((ng, ngp, t0, t - t0, goff, tab0, off - tab0))
+            goff += ng
+        self.width = goff
+        self.nterms = t
+        self.bands = bands
+        self.terms = terms
+        self.table = torch.cat(flat) if flat else torch.zeros(
+            4, dtype=dtype, device=device)
+        i32 = dict(dtype=torch.int32, device=device)
+        self.band_desc = torch.as_tensor(
+            np.asarray(bands, np.int32).reshape(-1), **i32)
+        self.term_desc = torch.as_tensor(
+            np.asarray(terms, np.int32).reshape(-1), **i32)
+        self.term_i64 = self.term_desc.long().reshape(-1, 2)
+        self.max_band_floats = max(b[6] for b in bands)
+
+    @classmethod
+    def single(cls, table, nterms):
+        """One band, one part: the layout of ``mix_rows``."""
+        return cls([table.shape[1]], [(0, table, nterms)], table.dtype,
+                   table.device)
+
+
+def mix_groups_plain(layout, idx, w):
+    """Plain PyTorch version, one band at a time.  idx (T, *S) integer,
+    w (T, *S) float; returns (*S, width) in w's dtype."""
+    cells = tuple(idx.shape[1:])
+    out = torch.zeros(cells + (layout.width,), dtype=w.dtype,
+                      device=w.device)
+    term = layout.term_i64
+    for ng, ngp, t0, nt, goff, _, _ in layout.bands:
+        if nt == 0:
+            continue
+        shape = (nt,) + (1,) * len(cells)
+        base = term[t0:t0 + nt, 0].view(shape)
+        rows = term[t0:t0 + nt, 1].view(shape)
+        r = torch.minimum(idx[t0:t0 + nt].long().clamp(min=0), rows - 1)
+        pos = (base + r * ngp)[..., None] + torch.arange(ng, device=w.device)
+        out[..., goff:goff + ng] = (w[t0:t0 + nt, ..., None]
+                                    * layout.table[pos]).sum(0)
+    return out
+
+
+def mix_groups_cuda(layout, idx, w, stage_tables=False):
+    """Launch kernel B on one group.  idx (T, *S) int32 and w (T, *S)
+    float32, contiguous, on the layout's CUDA device.  Returns (*S, width)
+    float32.  ``stage_tables`` copies each band's tables into shared
+    memory first instead of reading them through L1 (a measured
+    alternative, see PERF.md)."""
+    table = layout.table
+    if not (table.is_cuda and idx.device == table.device
+            and w.device == table.device):
+        raise ValueError('mix_groups_cuda: all tensors must be on one CUDA '
+                         'device')
+    if table.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError('mix_groups_cuda takes float32 tables and weights, '
+                        'got %s, %s' % (table.dtype, w.dtype))
+    if idx.dtype != torch.int32:
+        raise TypeError('mix_groups_cuda takes int32 indices, got %s'
+                        % idx.dtype)
+    if idx.shape != w.shape or idx.shape[0] != layout.nterms:
+        raise ValueError('mix_groups_cuda: idx %s and w %s for %d terms' % (
+            tuple(idx.shape), tuple(w.shape), layout.nterms))
+    if not (idx.is_contiguous() and w.is_contiguous()):
+        raise ValueError('mix_groups_cuda takes contiguous tensors')
+    cells = tuple(idx.shape[1:])
+    ncell = math.prod(cells)
+    out = torch.empty(cells + (layout.width,), dtype=torch.float32,
+                      device=table.device)
+    if ncell == 0:
+        return out
+    lib = _build.library()
+    rc = lib.climt_mix_groups_f32(
+        table.data_ptr(), layout.band_desc.data_ptr(), len(layout.bands),
+        layout.term_desc.data_ptr(), idx.data_ptr(), w.data_ptr(), ncell,
+        layout.width, out.data_ptr(),
+        layout.max_band_floats if stage_tables else 0,
+        torch.cuda.current_stream(table.device).cuda_stream)
+    _build.check_launch(rc, 'mix_groups_cuda')
+    mix_groups_cuda.launches += 1
+    return out
+
+
+mix_groups_cuda.launches = 0
+
+
+def mix_groups(layout, idx, w):
+    """The plain version for CPU tensors, kernel B for CUDA tensors."""
+    if w.device.type == 'cpu':
+        return mix_groups_plain(layout, idx, w)
+    return mix_groups_cuda(layout, idx, w)
+
+
+class Group:
+    """The terms of one output, written in place for one launch.
+
+    A caller opens each band with ``band(ng)``, each part of it with
+    ``part(table)``, and writes the part's terms through ``slot()`` (an
+    index and a weight view to fill with ``out=``), ``lin`` or ``row``.
+    ``run()`` launches.  The packed layout is cached under ``key``: on the
+    first call the terms are collected and the tables packed; later calls
+    write into one preallocated (terms, *cells) pair and must produce the
+    same bands, parts and term counts."""
+
+    _LAYOUTS = {}
+
+    def __init__(self, key, cells, dtype, device):
+        self.key = (key, dtype, str(torch.device(device)))
+        self.cells = tuple(cells)
+        self.dtype, self.device = dtype, device
+        self.layout = self._LAYOUTS.get(self.key)
+        self.ngs, self.parts, self.fresh = [], [], []
+        self.nterms = 0
+        if self.layout is not None:
+            shape = (self.layout.nterms,) + self.cells
+            self.idx = torch.empty(shape, dtype=torch.int32, device=device)
+            self.w = torch.empty(shape, dtype=dtype, device=device)
+
+    def band(self, ng):
+        self.ngs.append(ng)
+
+    def part(self, table):
+        self.parts.append([len(self.ngs) - 1, table, 0])
+
+    def slot(self):
+        """(index, weight) views of the next term of the current part."""
+        self.parts[-1][2] += 1
+        t = self.nterms
+        self.nterms += 1
+        if self.layout is not None:
+            if t >= self.layout.nterms:
+                raise RuntimeError('group %s: more terms than its cached '
+                                   'layout' % (self.key,))
+            return self.idx[t], self.w[t]
+        pair = (torch.zeros(self.cells, dtype=torch.int32,
+                            device=self.device),
+                torch.empty(self.cells, dtype=self.dtype,
+                            device=self.device))
+        self.fresh.append(pair)
+        return pair
+
+    def lin(self, idx, frac, weight=None):
+        """weight * (row[idx] + frac * (row[idx+1] - row[idx])) as the two
+        terms weight*(1-frac) on idx and weight*frac on idx+1; weight is a
+        tensor, a number or None (1)."""
+        i_lo, w_lo = self.slot()
+        i_hi, w_hi = self.slot()
+        i_lo.copy_(idx)
+        torch.add(idx, 1, out=i_hi)
+        if weight is None:
+            w_hi.copy_(frac)
+            torch.sub(1.0, frac, out=w_lo)
+        else:
+            torch.mul(frac, weight, out=w_hi)
+            torch.mul(1.0 - frac, weight, out=w_lo)
+
+    def row(self, weight):
+        """A one-row part's term: the kernel reads no index for it."""
+        w = self.slot()[1]
+        if isinstance(weight, torch.Tensor):
+            w.copy_(weight)
+        else:
+            w.fill_(weight)
+
+    def finish(self):
+        """(layout, idx, w) of the written terms, packing the tables on
+        the first call for this key."""
+        if self.layout is None:
+            self.layout = Layout(self.ngs, self.parts, self.dtype,
+                                 self.device)
+            self._LAYOUTS[self.key] = self.layout
+            shape = (0,) + self.cells
+            self.idx = (torch.stack([i for i, _ in self.fresh]) if self.fresh
+                        else torch.empty(shape, dtype=torch.int32,
+                                         device=self.device))
+            self.w = (torch.stack([w for _, w in self.fresh]) if self.fresh
+                      else torch.empty(shape, dtype=self.dtype,
+                                       device=self.device))
+            self.fresh = []
+        elif _signature(self.ngs, self.parts) != self.layout.signature:
+            raise RuntimeError('group %s: terms differ from its cached '
+                               'layout' % (self.key,))
+        return self.layout, self.idx, self.w
+
+    def run(self):
+        """Launch (or, on the CPU, evaluate) the group: (*cells, width)."""
+        return mix_groups(*self.finish())
+
+
+# ---- the single-table entry point (one band, one part) ----------------
 
 def mix_rows_plain(table, idx, w):
     """Plain PyTorch version: (w[..., None] * table[clip(idx)]).sum(0)."""
@@ -39,8 +278,8 @@ def mix_rows_plain(table, idx, w):
 
 
 def mix_rows_cuda(table, idx, w):
-    """Launch kernel B.  table (R, ng) f32, idx (T, *S) int32, w (T, *S)
-    f32, all contiguous on one CUDA device.  Returns (*S, ng) f32."""
+    """Kernel B on one table: table (R, ng) f32, idx (T, *S) int32, w
+    (T, *S) f32, all contiguous on one CUDA device.  Returns (*S, ng)."""
     if not (table.is_cuda and idx.device == table.device
             and w.device == table.device):
         raise ValueError('mix_rows_cuda: all tensors must be on one CUDA '
@@ -48,32 +287,10 @@ def mix_rows_cuda(table, idx, w):
     if table.dtype != torch.float32 or w.dtype != torch.float32:
         raise TypeError('mix_rows_cuda takes float32 table and weights, '
                         'got %s, %s' % (table.dtype, w.dtype))
-    if idx.dtype != torch.int32:
-        raise TypeError('mix_rows_cuda takes int32 indices, got %s'
-                        % idx.dtype)
     if table.dim() != 2 or idx.dim() < 1 or idx.shape != w.shape:
         raise ValueError('mix_rows_cuda: shapes table %s, idx %s, w %s' % (
             tuple(table.shape), tuple(idx.shape), tuple(w.shape)))
-    if not (table.is_contiguous() and idx.is_contiguous()
-            and w.is_contiguous()):
-        raise ValueError('mix_rows_cuda takes contiguous tensors')
-    rows, ng = table.shape
-    nterms = idx.shape[0]
-    s_shape = tuple(idx.shape[1:])
-    ncell = math.prod(s_shape)
-    out = torch.empty(s_shape + (ng,), dtype=torch.float32,
-                      device=table.device)
-    lib = _build.library()
-    rc = lib.climt_mix_rows_f32(
-        table.data_ptr(), rows, ng, idx.data_ptr(), w.data_ptr(), nterms,
-        ncell, out.data_ptr(), torch.cuda.current_stream(
-            table.device).cuda_stream)
-    _build.check_launch(rc, 'mix_rows_cuda')
-    mix_rows_cuda.launches += 1
-    return out
-
-
-mix_rows_cuda.launches = 0
+    return mix_groups_cuda(Layout.single(table, idx.shape[0]), idx, w)
 
 
 def mix_rows(table, idx, w):

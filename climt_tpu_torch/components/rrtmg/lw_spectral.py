@@ -4,10 +4,11 @@
 Ported for the moist GCM's configuration: analytic transmittance
 (``use_tables=False``), band clouds through ``cldprop_lw`` with
 inflag 2 / iceflag 1 / liqflag 1 (what the GCM passes), no dF/dTs, no
-McICA.  Every table interpolation of taumol goes through
-kernel B (``interp.mix_rows``, a direct gather over the merged
-[absa; absb] table, the JAX package's f64 path); the flux integration
-goes through kernel A (``rtrn_kernel.rtrn_lw_fused``).
+McICA.  Every table interpolation of taumol (and setcoef's Planck
+functions) is a term of a kernel-B group (``fused_mix.Group``): a direct
+gather over the merged [absa; absb] table, the JAX package's f64 path, with
+one launch for all bands of taug and one for the Planck fractions; the
+flux integration goes through kernel A (``rtrn_kernel.rtrn_lw_fused``).
 
 Layout as in the JAX module: layers bottom-up, columns trailing, g-points
 innermost, taug (nz, ncol, 140).  The tables are the same surrogate
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from ... import data
-from .interp import lin_rows, mix_rows
+from . import fused_mix
 from .rtrn_kernel import NG, NGB, rtrn_lw_fused
 
 ONEMINUS = 1.0 - 1.0e-6
@@ -123,8 +124,9 @@ def _support_scalar(name):
 
 
 def _trunc_int(x):
-    """Truncate toward zero, then cast (lw_spectral.py:220): selects rows."""
-    return torch.trunc(x).to(torch.int64)
+    """Truncate toward zero, then cast (lw_spectral.py:220): selects rows.
+    int32, the index type kernel B reads."""
+    return torch.trunc(x).to(torch.int32)
 
 
 def inatm_lw(play, plev, tlay, vmr, grav, avogad):
@@ -143,6 +145,19 @@ def inatm_lw(play, plev, tlay, vmr, grav, avogad):
     return coldry, wkl, wbroad, pwvcm
 
 
+def planck_terms(tavel, tz, tbound):
+    """The Planck functions of the layers, levels and surface (setcoef
+    :246) as one kernel-B group over their temperatures, unlaunched:
+    (nz*ncol + (nz+1)*ncol + ncol, 16) once run."""
+    temp = torch.cat([tavel.reshape(-1), tz.reshape(-1), tbound.reshape(-1)])
+    ind = torch.clamp(_trunc_int(temp - 159.0), 1, 180)
+    group = fused_mix.Group('lw_planck', temp.shape, temp.dtype, temp.device)
+    group.band(16)
+    group.part(data.load_numpy(data.LW_SUPPORT)['totplnk'])
+    group.lin(ind - 1, temp - 159.0 - ind)
+    return group
+
+
 def setcoef_lw(pavel, tavel, tz, tbound, semiss, coldry, wkl, wbroad,
                idrv=False):
     """Interpolation indices/factors and Planck values (:246)."""
@@ -150,7 +165,6 @@ def setcoef_lw(pavel, tavel, tz, tbound, semiss, coldry, wkl, wbroad,
         raise NotImplementedError('idrv (dF/dTs) is not ported')
     t = load_support(pavel.dtype, pavel.device)
     preflog, tref, chi = t['preflog'], t['tref'], t['chi_mls']
-    totplnk = t['totplnk']                           # (181, 16)
     stpfac = 296.0 / 1013.0
 
     plog = torch.log(pavel)
@@ -204,14 +218,11 @@ def setcoef_lw(pavel, tavel, tz, tbound, semiss, coldry, wkl, wbroad,
         rats['rat_' + pair] = chi[r1][jp0] / chi[r2][jp0]
         rats['rat_' + pair + '_1'] = chi[r1][jp0 + 1] / chi[r2][jp0 + 1]
 
-    def plnk_interp(temp):
-        ind = torch.clamp(_trunc_int(temp - 159.0), 1, 180)
-        frac = temp - 159.0 - ind
-        return lin_rows(totplnk, ind - 1, frac)
-
-    planklay = plnk_interp(tavel)                    # (nz, ncol, 16)
-    planklev = plnk_interp(tz)                       # (nz+1, ncol, 16)
-    plankbnd = semiss.T * plnk_interp(tbound)        # (ncol, 16)
+    plnk = planck_terms(tavel, tz, tbound).run()
+    nlay, nlev = tavel.numel(), tz.numel()
+    planklay = plnk[:nlay].view(tavel.shape + (16,))
+    planklev = plnk[nlay:nlay + nlev].view(tz.shape + (16,))
+    plankbnd = semiss.T * plnk[nlay + nlev:]
 
     return dict(
         trop=trop, jp=jp, jp0=jp0, jt0=jt0, jt10=jt10,
@@ -266,29 +277,51 @@ def _adjusted_column(gas, mode, cs):
     return torch.where(rat > thresh, adj, col)
 
 
-def taumol_lw(cs, wx, dtype):
-    """Gaseous optical depth and Planck fractions per g-point (:396).
+def taumol_lw_terms(cs, wx, dtype):
+    """The terms of taumol (:396) as two kernel-B groups, unlaunched:
+    taug and the Planck fractions, each (nz, ncol, 140) once run.
 
-    Returns taug, fracs: (nz, ncol, 140).  The key-species 2x2x2
-    interpolation is one gather-sum over the merged [absa; absb] table
-    (the JAX f64 path, lw_spectral.py:517-535)."""
+    Every band's key-species 2x2x2 interpolation (one part, the merged
+    [absa; absb] table), continua, minor gases and cross-sections are
+    terms of one band of the taug group; the band-1/2 pressure corrections
+    are folded into their weights, as are the trop/upper masks of the
+    Planck fractions."""
     trop = cs['trop']
     nz, ncol = trop.shape
     device = trop.device
-    t = load_kdist(dtype, device)
+    t = data.load_numpy(data.LW_KDIST)
     sup = data.load_numpy(data.LW_SUPPORT)
     jp, jt0, jt10 = cs['jp'], cs['jt0'], cs['jt10']
     pavel = cs['pavel']
     zero_i = torch.zeros_like(jp)
     zero_f = torch.zeros(trop.shape, dtype=dtype, device=device)
+    trop_f = trop.to(dtype)
+    upper_f = 1.0 - trop_f
+    taug_g = fused_mix.Group(('lw_taug', tuple(sorted(wx))), (nz, ncol),
+                             dtype, device)
+    fracs_g = fused_mix.Group('lw_fracs', (nz, ncol), dtype, device)
 
-    taug_parts, fracs_parts = [], []
     for bi, bd in enumerate(BANDS_LW):
         num, ng = bd['num'], NG[bi]
 
         def tab(name, b=num):
             return t.get('b%d_%s' % (b, name))
 
+        # pressure correction of the whole band (taugb1/taugb2), folded
+        # into every term's weight
+        corr = None
+        if bd.get('corradj') == 'b1':
+            corr_lo = torch.where(pavel < 250.0,
+                                  1.0 - 0.15 * (250.0 - pavel) / 154.4, 1.0)
+            corr = torch.where(trop, corr_lo, 1.0 - 0.15 * (pavel / 95.6))
+        elif bd.get('corradj') == 'b2':
+            corr = torch.where(trop, 1.0 - 0.05 * (pavel - 100.0) / 900.0,
+                               torch.ones_like(pavel))
+
+        def scaled(x, corr=corr):
+            return x if corr is None else x * corr
+
+        taug_g.band(ng)
         absa, absb = tab('absa'), tab('absb')
         have_lo = bd['lo'] is not None
         have_up = bd['up'] is not None
@@ -300,8 +333,6 @@ def taumol_lw(cs, wx, dtype):
         speccomb_l1, specparm_l1 = _key_spec(bd['lo'], cs, '_1')
         speccomb_u, specparm_u = _key_spec(bd['up'], cs)
         speccomb_u1, specparm_u1 = _key_spec(bd['up'], cs, '_1')
-
-        taug = torch.zeros((nz, ncol, ng), dtype=dtype, device=device)
 
         if have_lo or have_up:
             if have_lo:
@@ -324,20 +355,20 @@ def taumol_lw(cs, wx, dtype):
                 ind1b = ((jp - 12) * 5 + jt10) * nspb + jsu1
 
             if have_lo and have_up:
-                table = torch.cat([absa, absb], dim=0)
+                taug_g.part(np.concatenate([absa, absb], axis=0))
                 rows_a = absa.shape[0]
                 sc0 = torch.where(trop, speccomb_l, speccomb_u)
                 sc1 = torch.where(trop, speccomb_l1, speccomb_u1)
             elif have_lo:
-                table, rows_a = absa, absa.shape[0]
+                taug_g.part(absa)
                 sc0 = torch.where(trop, speccomb_l, 0.0)
                 sc1 = torch.where(trop, speccomb_l1, 0.0)
             else:
-                table, rows_a = absb, 0
+                taug_g.part(absb)
                 sc0 = torch.where(trop, 0.0, speccomb_u)
                 sc1 = torch.where(trop, 0.0, speccomb_u1)
+            sc0, sc1 = scaled(sc0), scaled(sc1)
 
-            terms = []
             for side, (f0name, f1name) in (
                     ('i0', ('fac00', 'fac10')), ('i1', ('fac01', 'fac11'))):
                 sc = sc0 if side == 'i0' else sc1
@@ -351,41 +382,41 @@ def taumol_lw(cs, wx, dtype):
                                    if nspa == 9 else zero_f)
                             wl = fac * (fse if eta_off else (1.0 - fse))
                             il = ((ind0a if side == 'i0' else ind1a)
-                                  + nsp_off * nspa
-                                  + (eta_off if nspa == 9 else 0))
+                                  + (nsp_off * nspa
+                                     + (eta_off if nspa == 9 else 0)))
                         if have_up:
                             fse = ((fsu if side == 'i0' else fsu1)
                                    if nspb == 5 else zero_f)
                             wu = fac * (fse if eta_off else (1.0 - fse))
                             iu = ((ind0b if side == 'i0' else ind1b)
-                                  + nsp_off * nspb
-                                  + (eta_off if nspb == 5 else 0))
+                                  + (nsp_off * nspb
+                                     + (eta_off if nspb == 5 else 0)))
+                        idx, w = taug_g.slot()
                         if have_lo and have_up:
-                            w = torch.where(trop, wl, wu)
-                            idx = torch.where(trop, il, rows_a + iu)
+                            torch.where(trop, il, rows_a + iu, out=idx)
+                            wt = torch.where(trop, wl, wu)
                         elif have_lo:
-                            w = torch.where(trop, wl, 0.0)
-                            idx = il
+                            idx.copy_(il)
+                            wt = torch.where(trop, wl, 0.0)
                         else:
-                            w = torch.where(trop, 0.0, wu)
-                            idx = iu
-                        terms.append((idx, w * sc))
-            taug = taug + mix_rows(table, terms)
+                            idx.copy_(iu)
+                            wt = torch.where(trop, 0.0, wu)
+                        torch.mul(wt, sc, out=w)
 
         # water-vapour self/foreign continuum
         selfref, forref = tab('selfref'), tab('forref')
         if bd.get('self_lo') and selfref is not None:
-            taug = taug + lin_rows(selfref, cs['indself'], cs['selffrac'],
-                                   torch.where(trop, cs['selffac'], 0.0))
+            taug_g.part(selfref)
+            taug_g.lin(cs['indself'], cs['selffrac'],
+                       scaled(torch.where(trop, cs['selffac'], 0.0)))
         if (bd.get('for_lo') or bd.get('for_up')) and forref is not None:
             if bd.get('for_lo') and bd.get('for_up'):
-                fmask = torch.ones_like(trop)
-            elif bd.get('for_lo'):
-                fmask = trop
+                forfac = cs['forfac']
             else:
-                fmask = ~trop
-            taug = taug + lin_rows(forref, cs['indfor'], cs['forfrac'],
-                                   torch.where(fmask, cs['forfac'], 0.0))
+                forfac = cs['forfac'] * (trop_f if bd.get('for_lo')
+                                         else upper_f)
+            taug_g.part(forref)
+            taug_g.lin(cs['indfor'], cs['forfrac'], scaled(forfac))
 
         # minor absorbers
         for region, key in (('lo', 'minors_lo'), ('up', 'minors_up')):
@@ -395,34 +426,29 @@ def taumol_lw(cs, wx, dtype):
                     continue
                 amount = _adjusted_column(gas, mode, cs)
                 mask = trop if region == 'lo' else ~trop
-                taug = taug + lin_rows(ktab, cs['indminor'], cs['minorfrac'],
-                                       torch.where(mask, amount, 0.0))
+                taug_g.part(ktab)
+                taug_g.lin(cs['indminor'], cs['minorfrac'],
+                           scaled(torch.where(mask, amount, 0.0)))
 
-        # CFC/CCL4 cross-sections
+        # CFC/CCL4 cross-sections: one-row tables
         for region, key in (('lo', 'wx_lo'), ('up', 'wx_up')):
             for gas, tname in bd.get(key, ()):
                 xs = tab(tname)
                 if xs is None or gas not in wx:
                     continue
                 mask = trop if region == 'lo' else ~trop
-                taug = taug + torch.where(mask, wx[gas], 0.0)[..., None] * xs
+                taug_g.part(xs)
+                taug_g.row(scaled(torch.where(mask, wx[gas], 0.0)))
 
-        # band-specific pressure corrections (taugb1/taugb2)
-        if bd.get('corradj') == 'b1':
-            corr_lo = torch.where(pavel < 250.0,
-                                  1.0 - 0.15 * (250.0 - pavel) / 154.4, 1.0)
-            corr_up = 1.0 - 0.15 * (pavel / 95.6)
-            taug = taug * torch.where(trop, corr_lo, corr_up)[..., None]
-        elif bd.get('corradj') == 'b2':
-            corr = 1.0 - 0.05 * (pavel - 100.0) / 900.0
-            taug = taug * torch.where(trop, corr, 1.0)[..., None]
-
-        # Planck fractions
+        # Planck fractions: where(trop, f_lo, f_up) as masked terms
+        fracs_g.band(ng)
         fraca, fracb = tab('fracrefa'), tab('fracrefb')
 
-        def frac_interp(frtab, planck_spec, n_eta):
-            if frtab.dim() == 1:
-                return frtab.expand(nz, ncol, ng)
+        def frac_terms(frtab, planck_spec, n_eta, weight):
+            if frtab.ndim == 1:
+                fracs_g.part(frtab)
+                fracs_g.row(1.0 if weight is None else weight)
+                return
             s1, s2, (r1, r2, lev) = planck_spec
             refrat = float(sup['chi_mls'][r1 - 1, lev - 1]
                            / sup['chi_mls'][r2 - 1, lev - 1])
@@ -430,17 +456,24 @@ def taumol_lw(cs, wx, dtype):
             parm = torch.clamp(cs['col' + s1] / comb, max=ONEMINUS)
             mult = n_eta * parm
             jpl = _trunc_int(mult)
-            return lin_rows(frtab.T, jpl, mult - jpl)
+            fracs_g.part(frtab.T)
+            fracs_g.lin(jpl, mult - jpl, weight)
 
-        f_lo = (frac_interp(fraca, bd.get('planck_lo'), 8)
-                if fraca is not None else zero_f[..., None].expand(
-                    nz, ncol, ng))
-        f_up = (frac_interp(fracb, bd.get('planck_up'), 4)
-                if fracb is not None else f_lo)
-        fracs_parts.append(torch.where(trop[..., None], f_lo, f_up))
-        taug_parts.append(taug)
+        if fraca is not None:
+            frac_terms(fraca, bd.get('planck_lo'), 8,
+                       trop_f if fracb is not None else None)
+        if fracb is not None:
+            frac_terms(fracb, bd.get('planck_up'), 4, upper_f)
 
-    return torch.cat(taug_parts, dim=-1), torch.cat(fracs_parts, dim=-1)
+    return taug_g, fracs_g
+
+
+def taumol_lw(cs, wx, dtype):
+    """Gaseous optical depth and Planck fractions per g-point (:396).
+
+    Returns taug, fracs: (nz, ncol, 140), one kernel-B launch each."""
+    taug_g, fracs_g = taumol_lw_terms(cs, wx, dtype)
+    return taug_g.run(), fracs_g.run()
 
 
 def _cloud_abs_coeffs(ciwp, clwp, rei, rel):
@@ -516,6 +549,24 @@ def rtrn_lw(taug, fracs, planklay, planklev, plankbnd, semiss, pwvcm,
     return totuflux, totdflux, htr, totuclfl, totdclfl, htrc
 
 
+def gas_coefs_lw(play, plev, tlay, tlev, tsfc, emis, h2ovmr, o3vmr,
+                 co2vmr, ch4vmr, n2ovmr, o2vmr, cfc11vmr, cfc12vmr,
+                 cfc22vmr, ccl4vmr, grav, avogad):
+    """inatm and setcoef of the LW driver (:977-989): the interpolation
+    coefficients ``cs``, the cross-section amounts ``wx`` and the
+    precipitable water ``pwvcm`` that taumol and rtrn read."""
+    vmr = dict(h2o=h2ovmr, co2=co2vmr, o3=o3vmr, n2o=n2ovmr,
+               co=torch.zeros_like(play), ch4=ch4vmr, o2=o2vmr)
+    coldry, wkl, wbroad, pwvcm = inatm_lw(play, plev, tlay, vmr, grav,
+                                          avogad)
+    wx = {name: coldry * v * 1.0e-20
+          for name, v in (('ccl4', ccl4vmr), ('cfc11', cfc11vmr),
+                          ('cfc12', cfc12vmr), ('cfc22', cfc22vmr))}
+    cs = setcoef_lw(play, tlay, tlev, tsfc, emis, coldry, wkl, wbroad)
+    cs['pavel'] = play
+    return cs, wx, pwvcm
+
+
 def rrtmg_lw_fluxes(play, plev, tlay, tlev, tsfc, h2ovmr, o3vmr, co2vmr,
                     ch4vmr, n2ovmr, o2vmr, cfc11vmr, cfc12vmr, cfc22vmr,
                     ccl4vmr, emis, cldfrac, taucld, ciwp, clwp, rei, rel,
@@ -532,17 +583,10 @@ def rrtmg_lw_fluxes(play, plev, tlay, tlev, tsfc, h2ovmr, o3vmr, co2vmr,
         raise NotImplementedError(
             'rrtmg_lw_fluxes: only use_tables=False, idrv=False, band '
             'clouds are ported')
-    dtype = play.dtype
-    vmr = dict(h2o=h2ovmr, co2=co2vmr, o3=o3vmr, n2o=n2ovmr,
-               co=torch.zeros_like(play), ch4=ch4vmr, o2=o2vmr)
-    coldry, wkl, wbroad, pwvcm = inatm_lw(play, plev, tlay, vmr, grav,
-                                          avogad)
-    wx = {name: coldry * v * 1.0e-20
-          for name, v in (('ccl4', ccl4vmr), ('cfc11', cfc11vmr),
-                          ('cfc12', cfc12vmr), ('cfc22', cfc22vmr))}
-    cs = setcoef_lw(play, tlay, tlev, tsfc, emis, coldry, wkl, wbroad)
-    cs['pavel'] = play
-    taug, fracs = taumol_lw(cs, wx, dtype)
+    cs, wx, pwvcm = gas_coefs_lw(
+        play, plev, tlay, tlev, tsfc, emis, h2ovmr, o3vmr, co2vmr, ch4vmr,
+        n2ovmr, o2vmr, cfc11vmr, cfc12vmr, cfc22vmr, ccl4vmr, grav, avogad)
+    taug, fracs = taumol_lw(cs, wx, play.dtype)
     ngb = torch.as_tensor(NGB, dtype=torch.int64, device=play.device)
     taug = taug + tauaer[..., ngb]
     heatfac = grav * 8.64e4 / (cpdair * 1.0e2)

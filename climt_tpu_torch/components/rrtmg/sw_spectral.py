@@ -3,10 +3,12 @@
 
 Ported for the moist GCM's configuration: clear sky (``icld=0``, so no
 ``cldprop_sw`` runs), no McICA, analytic transmittance
-(``use_tables=False``).  The taumol interpolations go through kernel B
-(``interp.mix_rows``) over the merged [absa; absb] table; the delta-scaled
-two-stream solver and the adding method (``vrtqdr_sw``) are plain torch
-with Python loops over levels.  Layers bottom-up, columns trailing.
+(``use_tables=False``).  taumol's interpolations, Rayleigh depths and
+solar sources are terms of three kernel-B groups (``fused_mix.Group``,
+the key species over the merged [absa; absb] table), one launch each for
+all bands; the delta-scaled two-stream solver and the adding method
+(``vrtqdr_sw``) are plain torch with Python loops over levels.  Layers
+bottom-up, columns trailing.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 
 from ... import data
-from .interp import lin_rows, mix_rows
+from . import fused_mix
 
 NBANDS = 14
 NGPT = 112
@@ -93,7 +95,7 @@ def load_tables(dtype, device):
 
 
 def _trunc_int(x):
-    return torch.trunc(x).to(torch.int64)
+    return torch.trunc(x).to(torch.int32)
 
 
 def setcoef_sw(pavel, tavel, coldry, wkl):
@@ -174,20 +176,29 @@ def _last_true_index(cond, default):
     return torch.where(torch.any(cond, dim=0), idx, default)
 
 
-def taumol_sw(cs, isolvar, svar_f, svar_s, svar_i,
-              svar_f_bnd, svar_s_bnd, svar_i_bnd, dtype):
-    """Gaseous + Rayleigh optical depth and solar source per g-point
-    (:247).  Returns taug, taur (nz, ncol, 112) and sflux (ncol, 112)."""
+def taumol_sw_terms(cs, isolvar, svar_f, svar_s, svar_i,
+                    svar_f_bnd, svar_s_bnd, svar_i_bnd, dtype):
+    """The terms of taumol (:247) as three kernel-B groups, unlaunched:
+    taug and taur, (nz, ncol, 112) once run, and the solar source sflux,
+    (ncol, 112).  Every band is one band of each group."""
     trop = cs['trop']
     nz, ncol = trop.shape
     device = trop.device
-    t = load_tables(dtype, device)
+    t = data.load_numpy(data.SW_KDIST)
     jp, jt0, jt10 = cs['jp'], cs['jt0'], cs['jt10']
     ltrop_idx = torch.clamp(torch.sum(trop, dim=0) - 1, min=0)
     zero_i = torch.zeros_like(jp)
     zero_f = torch.zeros(trop.shape, dtype=dtype, device=device)
+    trop_f = trop.to(dtype)
+    upper_f = 1.0 - trop_f
+    colmol = cs['colmol']
+    solar_mode = 'ref' if isolvar < 0 else ('svar' if isolvar <= 2
+                                            else 'band')
+    taug_g = fused_mix.Group('sw_taug', (nz, ncol), dtype, device)
+    taur_g = fused_mix.Group('sw_taur', (nz, ncol), dtype, device)
+    sflux_g = fused_mix.Group(('sw_sflux', solar_mode), (ncol,), dtype,
+                              device)
 
-    taug_parts, taur_parts, sflux_parts = [], [], []
     for bi, bd in enumerate(BANDS):
         num, ng = bd['num'], NG[bi]
         nspa, nspb = NSPA[bi], NSPB[bi]
@@ -205,8 +216,7 @@ def taumol_sw(cs, isolvar, svar_f, svar_s, svar_i,
         if specparm_u is not None:
             js0_u, fs_u = _eta(specparm_u, 4)
 
-        taug = torch.zeros((nz, ncol, ng), dtype=dtype, device=device)
-
+        taug_g.band(ng)
         absa, absb = tab('absa'), tab('absb')
         have_lo = bd['lo'] is not None
         have_up = bd['up'] is not None
@@ -223,21 +233,20 @@ def taumol_sw(cs, isolvar, svar_f, svar_s, svar_i,
                 ind1b = ((jp - 12) * 5 + jt10) * nspb + jsu
 
             if have_lo and have_up:
-                table = torch.cat([absa, absb], dim=0)
+                taug_g.part(np.concatenate([absa, absb], axis=0))
                 rows_a = absa.shape[0]
                 speccomb = torch.where(trop, speccomb_l, speccomb_u)
             elif have_lo:
-                table, rows_a = absa, absa.shape[0]
+                taug_g.part(absa)
                 speccomb = torch.where(trop, speccomb_l, 0.0)
             else:
-                table, rows_a = absb, 0
+                taug_g.part(absb)
                 speccomb = torch.where(trop, 0.0, speccomb_u)
             kscale = bd.get('kscale_lo')
             if kscale:
                 # (a where of two Python floats would be float32)
                 speccomb = torch.where(trop, speccomb * kscale, speccomb)
 
-            terms = []
             for ind_sel, f0, f1 in (
                     ('i0', 'fac00', 'fac10'), ('i1', 'fac01', 'fac11')):
                 for fac_name, nsp_off in ((f0, 0), (f1, 1)):
@@ -248,68 +257,58 @@ def taumol_sw(cs, isolvar, svar_f, svar_s, svar_i,
                         if have_lo:
                             wl = fac * (fsl if eta_off else (1.0 - fsl))
                             il = ((ind0a if ind_sel == 'i0' else ind1a)
-                                  + nsp_off * nspa + eta_off)
+                                  + (nsp_off * nspa + eta_off))
                         if have_up:
                             wu = fac * (fsu if eta_off else (1.0 - fsu))
                             iu = ((ind0b if ind_sel == 'i0' else ind1b)
-                                  + nsp_off * nspb + eta_off)
+                                  + (nsp_off * nspb + eta_off))
+                        idx, w = taug_g.slot()
                         if have_lo and have_up:
-                            w = torch.where(trop, wl, wu)
-                            idx = torch.where(trop, il, rows_a + iu)
+                            torch.where(trop, il, rows_a + iu, out=idx)
+                            wt = torch.where(trop, wl, wu)
                         elif have_lo:
-                            w = torch.where(trop, wl, 0.0)
-                            idx = il
+                            idx.copy_(il)
+                            wt = torch.where(trop, wl, 0.0)
                         else:
-                            w = torch.where(trop, 0.0, wu)
-                            idx = iu
-                        terms.append((idx, w * speccomb))
-            taug = taug + mix_rows(table, terms)
+                            idx.copy_(iu)
+                            wt = torch.where(trop, 0.0, wu)
+                        torch.mul(wt, speccomb, out=w)
 
         # water-vapour self/foreign continuum
-        selfref, forref = tab('selfref'), tab('forref')
         if bd['self_lo'] or bd['for_lo'] or bd['for_up']:
             colh2o = cs['colh2o']
             if bd['self_lo']:
-                taug = taug + lin_rows(
-                    selfref, cs['indself'], cs['selffrac'],
-                    torch.where(trop, cs['selffac'], 0.0) * colh2o)
-            if bd['for_lo'] and bd['for_up']:
-                fmask = torch.ones_like(trop)
-            elif bd['for_lo']:
-                fmask = trop
-            else:
-                fmask = ~trop
-            taug = taug + lin_rows(
-                forref, cs['indfor'], cs['forfrac'],
-                torch.where(fmask, cs['forfac'], 0.0) * colh2o)
+                taug_g.part(tab('selfref'))
+                taug_g.lin(cs['indself'], cs['selffrac'],
+                           torch.where(trop, cs['selffac'], 0.0) * colh2o)
+            forfac = cs['forfac'] * colh2o
+            if not (bd['for_lo'] and bd['for_up']):
+                forfac = forfac * (trop_f if bd['for_lo'] else upper_f)
+            taug_g.part(tab('forref'))
+            taug_g.lin(cs['indfor'], cs['forfrac'], forfac)
 
-        # minor absorbers
+        # minor absorbers: one-row tables
         for gas, table_name, regime in bd.get('extra', ()):
-            coef = tab(table_name)
             col = cs['col' + gas]
+            taug_g.part(tab(table_name))
             if regime == 'both':
-                mask = torch.ones_like(trop)
-            elif regime == 'lo':
-                mask = trop
+                taug_g.row(col)
             else:
-                mask = ~trop
-            taug = taug + torch.where(mask, col, 0.0)[..., None] * coef
+                taug_g.row(col * (trop_f if regime == 'lo' else upper_f))
         if bd.get('o2cont'):
-            o2cont = 4.35e-4 * cs['colo2'] / (350.0 * 2.0)
-            taug = taug + o2cont[..., None]
+            taug_g.part(np.ones(ng))
+            taug_g.row(4.35e-4 * cs['colo2'] / (350.0 * 2.0))
 
         # Rayleigh
-        colmol = cs['colmol']
-        rayl = tab('rayl')
-        if bd['rayl'] == 'c':
-            taur = colmol[..., None] * rayl
-        elif bd['rayl'] == 'pg':
-            taur = colmol[..., None] * rayl[None, None, :]
+        taur_g.band(ng)
+        if bd['rayl'] in ('c', 'pg'):
+            taur_g.part(tab('rayl'))
+            taur_g.row(colmol)
         else:  # band 24: eta-interpolated lower, raylb upper
-            r_lo = lin_rows(tab('rayla').T, js0_l, fs_l)
-            taur = colmol[..., None] * torch.where(
-                trop[..., None], r_lo, tab('raylb')[None, None, :])
-        taur = taur.expand(nz, ncol, ng).to(dtype)
+            taur_g.part(tab('rayla').T)
+            taur_g.lin(js0_l, fs_l, colmol * trop_f)
+            taur_g.part(tab('raylb'))
+            taur_g.row(colmol * upper_f)
 
         # solar source at the reference layer
         where, neta = bd['sflux']
@@ -327,36 +326,41 @@ def taumol_sw(cs, isolvar, svar_f, svar_s, svar_i,
                                jp[:-1] < layreffr], dim=0)
             lay = _last_true_index(cond & condp, nz - 1)
 
-        def at_ref(x, lay=lay):
-            return torch.gather(x, 0, lay[None, :])[0]
-
-        def source(name, where=where, neta=neta, js0_l=js0_l, fs_l=fs_l,
-                   js0_u=js0_u, fs_u=fs_u, tab=tab, ng=ng):
+        sflux_g.band(ng)
+        if neta:
+            js_sol = torch.gather(js0_l if where == 'lo' else js0_u, 0,
+                                  lay[None, :])[0]
+            fs_sol = torch.gather(fs_l if where == 'lo' else fs_u, 0,
+                                  lay[None, :])[0]
+        if solar_mode == 'ref':
+            sources = [('sfluxref', bd.get('sflux_scale', 1.0))]
+        elif solar_mode == 'svar':
+            sources = [('facbrght', svar_f), ('snsptdrk', svar_s),
+                       ('irradnce', svar_i)]
+        else:
+            sources = [('facbrght', svar_f_bnd[bi]),
+                       ('snsptdrk', svar_s_bnd[bi]),
+                       ('irradnce', svar_i_bnd[bi])]
+        for name, factor in sources:
             ref = tab(name)
             if neta == 0:
-                return ref[None, :].expand(ncol, ng)
-            js_sol = at_ref(js0_l if where == 'lo' else js0_u)
-            fs_sol = at_ref(fs_l if where == 'lo' else fs_u)
-            return lin_rows(ref.T, js_sol, fs_sol)
+                sflux_g.part(ref)
+                sflux_g.row(float(factor))
+            else:
+                sflux_g.part(ref.T)
+                sflux_g.lin(js_sol, fs_sol, float(factor))
 
-        scale = bd.get('sflux_scale', 1.0)
-        if isolvar < 0:
-            sflux = source('sfluxref') * scale
-        elif isolvar <= 2:
-            sflux = (svar_f * source('facbrght')
-                     + svar_s * source('snsptdrk')
-                     + svar_i * source('irradnce'))
-        else:
-            sflux = (svar_f_bnd[bi] * source('facbrght')
-                     + svar_s_bnd[bi] * source('snsptdrk')
-                     + svar_i_bnd[bi] * source('irradnce'))
+    return taug_g, taur_g, sflux_g
 
-        taug_parts.append(taug)
-        taur_parts.append(taur)
-        sflux_parts.append(sflux)
 
-    return (torch.cat(taug_parts, dim=-1), torch.cat(taur_parts, dim=-1),
-            torch.cat(sflux_parts, dim=-1))
+def taumol_sw(cs, isolvar, svar_f, svar_s, svar_i,
+              svar_f_bnd, svar_s_bnd, svar_i_bnd, dtype):
+    """Gaseous + Rayleigh optical depth and solar source per g-point
+    (:247).  Returns taug, taur (nz, ncol, 112) and sflux (ncol, 112),
+    one kernel-B launch each."""
+    return tuple(g.run() for g in taumol_sw_terms(
+        cs, isolvar, svar_f, svar_s, svar_i, svar_f_bnd, svar_s_bnd,
+        svar_i_bnd, dtype))
 
 
 def _exp_transmittance(tau):
@@ -614,6 +618,20 @@ def solar_variability(isolvar, scon, solcycfrac=0.0, indsolvar=(1.0, 1.0),
             solvar)
 
 
+def gas_coefs_sw(play, plev, tlay, h2ovmr, o3vmr, co2vmr, ch4vmr,
+                 n2ovmr, o2vmr, grav, avogadro):
+    """Column amounts and setcoef of the SW driver: the interpolation
+    coefficients that taumol reads."""
+    pdp = plev[:-1] - plev[1:]
+    amm = (1.0 - h2ovmr) * AMD + h2ovmr * AMW
+    coldry = pdp * 1.0e3 * avogadro / (
+        1.0e2 * grav * amm * (1.0 + h2ovmr))
+    wkl = {g: vmr * coldry for g, vmr in (
+        ('h2o', h2ovmr), ('co2', co2vmr), ('o3', o3vmr),
+        ('n2o', n2ovmr), ('ch4', ch4vmr), ('o2', o2vmr))}
+    return setcoef_sw(play, tlay, coldry, wkl)
+
+
 def rrtmg_sw_fluxes(play, plev, tlay, h2ovmr, o3vmr, co2vmr, ch4vmr,
                     n2ovmr, o2vmr, asdir, asdif, aldir, aldif, coszen,
                     cldfrac, cloud_optics, aerosol_optics,
@@ -639,14 +657,8 @@ def rrtmg_sw_fluxes(play, plev, tlay, h2ovmr, o3vmr, co2vmr, ch4vmr,
     cossza = torch.clamp(coszen, min=1.0e-10)
 
     pdp = plev[:-1] - plev[1:]
-    amm = (1.0 - h2ovmr) * AMD + h2ovmr * AMW
-    coldry = pdp * 1.0e3 * avogadro / (
-        1.0e2 * grav * amm * (1.0 + h2ovmr))
-    wkl = {g: vmr * coldry for g, vmr in (
-        ('h2o', h2ovmr), ('co2', co2vmr), ('o3', o3vmr),
-        ('n2o', n2ovmr), ('ch4', ch4vmr), ('o2', o2vmr))}
-
-    cs = setcoef_sw(play, tlay, coldry, wkl)
+    cs = gas_coefs_sw(play, plev, tlay, h2ovmr, o3vmr, co2vmr, ch4vmr,
+                      n2ovmr, o2vmr, grav, avogadro)
     taug, taur, sflux = taumol_sw(
         cs, isolvar, svar_f, svar_s, svar_i, svf_b, svs_b, svi_b, dtype)
 

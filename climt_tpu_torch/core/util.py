@@ -5,6 +5,19 @@ from __future__ import annotations
 import torch
 
 
+def resolve_device(device='cuda'):
+    """The torch.device of a constructor's ``device`` argument.  The
+    default is the CUDA card; without one this raises rather than fall
+    back to the CPU, which a caller asks for as ``device='cpu'``."""
+    dev = torch.device(device)
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            'device %r: no CUDA device is available '
+            '(torch.cuda.is_available() is False); pass device="cpu" to '
+            'run on the CPU' % str(dev))
+    return dev
+
+
 def get_interface_values(mid_level_values, surface_value,
                          mid_level_pressure, interface_level_pressure):
     """Linear-in-log-pressure interpolation of mid-level values (vertical

@@ -1,50 +1,205 @@
-// Table-row gather-sum for the RRTMG gas optics (kernel B).
+// Band-fused table-row gather-sum for the RRTMG gas optics (kernel B).
 //
-//   out[s, g] = sum_t  w[t, s] * table[clip(idx[t, s], 0, R-1), g]
+// One launch computes one taumol output for every band of a group.  Band b
+// owns output columns [goff, goff + ng) and terms [t0, t0 + nt); per cell s
+//
+//   out[s, goff + g] = sum_t  w[t, s] * table[base_t + clip(idx[t, s], 0,
+//                                              rows_t - 1) * ngp + g]
+//
+// summed in float32 in term order.  base_t and rows_t locate the part
+// (key-species [absa; absb], continuum, minor-gas or one-row table) that
+// term t reads in the packed table, whose rows are padded to ngp, a
+// multiple of 4 floats, so that a row loads as float4.
 //
 // Replaces climt_tpu/components/rrtmg/fused_mix.py:fused_mix_rows (the
-// Pallas _mix_kernel, which builds one-hot rows in VMEM and contracts them
-// on the MXU because TPU gathers do not vectorise).  On Hopper the gather
-// is the natural form: the tables are at most a few thousand rows of <= 16
-// floats (tens of KB), so they stay resident in L1/L2 and the kernel is
-// bound by the streaming bytes of idx, w and out (8 T + 4 ng bytes a cell).
-// One thread per (cell, g) with g fastest keeps the out stores coalesced;
-// the idx/w loads of one cell are shared by its ng threads through L1, and
-// the table is read through the read-only (__ldg) path.  Terms accumulate
-// in float32 in term order.
+// Pallas _mix_kernel) at the granularity BandAccum gives it there, one
+// launch for every term of a band, and extends it to every band of one
+// output.  The TPU kernel builds one-hot rows in VMEM and contracts them on
+// the MXU because TPU gathers do not vectorise; on Hopper the gather is the
+// natural form.
+//
+// Bound: bytes.  Per cell each term streams a 4-byte weight and, for a
+// table of more than one row, a 4-byte index; the output row is written
+// once.  A band's tables are at most 116 KB and stay in L1/L2.  So:
+//   - one thread per cell, one block per (band, 128-cell tile), the band
+//     fastest in the grid: the blocks of one tile run together, so every
+//     32-byte sector of the tile's output rows, which several bands share,
+//     is complete in L2 before it goes to memory;
+//   - each term's index and weight are loaded once, coalesced along cells,
+//     and the index is clipped and offset here (no index load at all for a
+//     one-row table);
+//   - table rows are read as float4, the ng sums stay in registers;
+//   - each thread parks its row in shared memory and the block writes the
+//     band's (128 cells x ng) slice of the output row by row, so stores
+//     are contiguous runs of ng floats instead of one scattered row per
+//     thread.
+// With stage_floats > 0 each block first copies its band's tables into
+// dynamic shared memory and walks several cell tiles (the alternative
+// measured against the L1 path; see PERF.md).
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void mix_rows_kernel(const float* __restrict__ table, int rows,
-                                int ng, const int* __restrict__ idx,
-                                const float* __restrict__ w, int nterms,
-                                long long ncell, float* __restrict__ out) {
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= ncell * ng) return;
-  const long long cell = tid / ng;
-  const int g = static_cast<int>(tid - cell * ng);
-  float acc = 0.0f;
-  for (int t = 0; t < nterms; ++t) {
-    const long long k = static_cast<long long>(t) * ncell + cell;
-    int r = __ldg(&idx[k]);
-    r = r < 0 ? 0 : (r > rows - 1 ? rows - 1 : r);
-    acc += __ldg(&w[k]) * __ldg(&table[static_cast<long long>(r) * ng + g]);
+constexpr int kCells = 128;        // cells (threads) per block
+constexpr int kTileStride = 20;    // widest padded row (16) + 4
+constexpr int kStagedTiles = 32;   // cell tiles per band when staging
+
+struct Band {
+  int ng, ngp, t0, nt, goff, tab0, tablen;
+};
+
+__device__ __forceinline__ Band load_band(const int* __restrict__ bands,
+                                          int b) {
+  const int* p = bands + 7 * b;
+  return Band{__ldg(p),     __ldg(p + 1), __ldg(p + 2), __ldg(p + 3),
+              __ldg(p + 4), __ldg(p + 5), __ldg(p + 6)};
+}
+
+// Shared-memory row stride of the output tile: an odd number of float4s,
+// so that a quarter-warp's float4 stores hit distinct banks.
+__device__ __forceinline__ int tile_stride(int ngp) {
+  return ((ngp >> 2) & 1) ? ngp : ngp + 4;
+}
+
+template <bool kStaged>
+__device__ __forceinline__ float4 load4(const float4* p) {
+  if constexpr (kStaged) {
+    return *p;  // shared memory
+  } else {
+    return __ldg(p);
   }
-  out[tid] = acc;
+}
+
+// The ng (padded to 4*NV) sums of one cell, into its row of the tile.
+template <int NV, bool kStaged>
+__device__ __forceinline__ void gather_sum(
+    const float* tab, int shift, const int2* __restrict__ terms,
+    const Band& bd, const int* __restrict__ idx, const float* __restrict__ w,
+    long long ncell, long long cell, float* trow) {
+  float4 acc[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int t = bd.t0; t < bd.t0 + bd.nt; ++t) {
+    const int2 d = __ldg(&terms[t]);  // (flat offset of row 0, rows)
+    const long long k = static_cast<long long>(t) * ncell + cell;
+    int r = 0;
+    if (d.y > 1) r = min(max(__ldg(&idx[k]), 0), d.y - 1);
+    const float wt = __ldg(&w[k]);
+    const float4* row = reinterpret_cast<const float4*>(
+        tab + (d.x - shift) + static_cast<long long>(r) * (4 * NV));
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const float4 x = load4<kStaged>(row + v);
+      acc[v].x = fmaf(wt, x.x, acc[v].x);
+      acc[v].y = fmaf(wt, x.y, acc[v].y);
+      acc[v].z = fmaf(wt, x.z, acc[v].z);
+      acc[v].w = fmaf(wt, x.w, acc[v].w);
+    }
+  }
+  float4* dst = reinterpret_cast<float4*>(trow);
+#pragma unroll
+  for (int v = 0; v < NV; ++v) dst[v] = acc[v];
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kCells)
+    mix_groups_kernel(const float* __restrict__ table,
+                      const int* __restrict__ bands,
+                      const int2* __restrict__ terms,
+                      const int* __restrict__ idx,
+                      const float* __restrict__ w, long long ncell, int width,
+                      float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float* tile = reinterpret_cast<float*>(smem4);  // kCells x kTileStride
+  // L1 path: blockIdx.x is the band, so the blocks of all bands of one cell
+  // tile run together and the tile's output rows are complete in L2 before
+  // they are written back.  Staged path: blockIdx.y is the band, and a
+  // block walks cell tiles with its band's tables in shared memory.
+  const Band bd = load_band(bands, kStaged ? blockIdx.y : blockIdx.x);
+  const long long it0 = kStaged ? blockIdx.x : blockIdx.y;
+  const long long itn = kStaged ? gridDim.x : gridDim.y;
+  const float* tab = table;
+  int shift = 0;
+  if constexpr (kStaged) {
+    float* stab = tile + kCells * kTileStride;
+    const float4* src = reinterpret_cast<const float4*>(table + bd.tab0);
+    float4* dst = reinterpret_cast<float4*>(stab);
+    for (int i = threadIdx.x; i < (bd.tablen >> 2); i += kCells)
+      dst[i] = __ldg(src + i);
+    __syncthreads();
+    tab = stab;
+    shift = bd.tab0;
+  }
+  const int stride = tile_stride(bd.ngp);
+  const long long ntiles = (ncell + kCells - 1) / kCells;
+  for (long long it = it0; it < ntiles; it += itn) {
+    const long long cell0 = it * kCells;
+    const long long cell = cell0 + threadIdx.x;
+    if (cell < ncell) {
+      float* trow = tile + threadIdx.x * stride;
+      switch (bd.ngp) {
+        case 4:
+          gather_sum<1, kStaged>(tab, shift, terms, bd, idx, w, ncell, cell,
+                                 trow);
+          break;
+        case 8:
+          gather_sum<2, kStaged>(tab, shift, terms, bd, idx, w, ncell, cell,
+                                 trow);
+          break;
+        case 12:
+          gather_sum<3, kStaged>(tab, shift, terms, bd, idx, w, ncell, cell,
+                                 trow);
+          break;
+        default:
+          gather_sum<4, kStaged>(tab, shift, terms, bd, idx, w, ncell, cell,
+                                 trow);
+          break;
+      }
+    }
+    __syncthreads();
+    const long long left = ncell - cell0;
+    const int n = static_cast<int>(left < kCells ? left : kCells);
+    for (int i = threadIdx.x; i < n * bd.ng; i += kCells) {
+      const int cl = i / bd.ng;
+      const int g = i - cl * bd.ng;
+      out[(cell0 + cl) * width + bd.goff + g] = tile[cl * stride + g];
+    }
+    __syncthreads();
+  }
 }
 
 }  // namespace
 
-extern "C" int climt_mix_rows_f32(const float* table, int rows, int ng,
-                                  const int* idx, const float* w, int nterms,
-                                  long long ncell, float* out, void* stream) {
-  const int threads = 256;
-  const long long total = ncell * ng;
-  const long long blocks = (total + threads - 1) / threads;
-  mix_rows_kernel<<<static_cast<unsigned int>(blocks), threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      table, rows, ng, idx, w, nterms, ncell, out);
+// bands: nband x 7 ints (ng, ngp, t0, nt, goff, tab0, tablen); terms:
+// T x 2 ints (base, rows); idx, w: T x ncell; out: ncell x width.
+// stage_floats: 0 reads the tables through L1, else the largest band's
+// table length in floats, staged in shared memory.  Returns the CUDA error.
+extern "C" int climt_mix_groups_f32(const float* table, const int* bands,
+                                    int nband, const int* terms,
+                                    const int* idx, const float* w,
+                                    long long ncell, int width, float* out,
+                                    int stage_floats, void* stream) {
+  const long long ntiles = (ncell + kCells - 1) / kCells;
+  const size_t tile_bytes = sizeof(float) * kCells * kTileStride;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int2* t2 = reinterpret_cast<const int2*>(terms);
+  if (stage_floats == 0) {
+    const dim3 grid(nband,
+                    static_cast<unsigned>(ntiles < 65535 ? ntiles : 65535));
+    mix_groups_kernel<false><<<grid, kCells, tile_bytes, s>>>(
+        table, bands, t2, idx, w, ncell, width, out);
+  } else {
+    const size_t bytes = tile_bytes + sizeof(float) * stage_floats;
+    const cudaError_t e = cudaFuncSetAttribute(
+        mix_groups_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid(
+        static_cast<unsigned>(ntiles < kStagedTiles ? ntiles : kStagedTiles),
+        nband);
+    mix_groups_kernel<true><<<grid, kCells, bytes, s>>>(
+        table, bands, t2, idx, w, ncell, width, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,7 +28,8 @@ from ..components.rrtmg.lw_spectral import rrtmg_lw_fluxes
 from ..components.rrtmg.sw_spectral import rrtmg_sw_fluxes, solar_variability
 from ..components.simple_physics import simple_physics_step
 from ..core.grid import hybrid_sigma_pressure_coefficients
-from ..core.util import bolton_q_sat, get_interface_values
+from ..core.util import (bolton_q_sat, get_interface_values,
+                         resolve_device)
 from .spectral_dynamics import SpectralDycore
 
 _G = 9.80665
@@ -70,8 +71,9 @@ class MoistGCM(nn.Module):
 
     def __init__(self, nlon, nlat, nz, timestep, number_of_damped_levels,
                  ocean_depth, dtype, rad_every, rad_col_chunk,
-                 conserve_water, device):
+                 conserve_water, device='cuda'):
         super().__init__()
+        device = resolve_device(device)
         ak, bk = hybrid_sigma_pressure_coefficients(nz + 1, 1e5, 20.0)
         self.dycore = SpectralDycore(
             nlon, nlat, nz, ak, bk, timestep=timestep,
@@ -109,11 +111,9 @@ class MoistGCM(nn.Module):
         buf('wlat', np.asarray(self.dycore.sht.weights)[None, :, None])
 
     # ------------------------------------------------------------------
-    def radiation(self, T, q, p_mid, p_half, Ts, t_seconds):
-        """Heating rate (K/s) and surface/TOA fluxes of (nz, ncol)
-        bottom-up columns, pressures in Pa (moist_gcm.py:83)."""
-        nz = self.nz
-        dtype = T.dtype
+    def radiation_inputs(self, T, q, p_mid, p_half, Ts, t_seconds):
+        """The column inputs of ``_radiation_chunk``, in its argument
+        order, for (nz, ncol) bottom-up columns with pressures in Pa."""
         play = p_mid / 100.0
         plev = p_half / 100.0
         h2ovmr = q * (28.964 / 18.02)
@@ -126,16 +126,20 @@ class MoistGCM(nn.Module):
         mu0 = self.rad_coslat * torch.cos(hour_angle)
         day = mu0 > 0.0
         mu0 = torch.clamp(mu0, min=1e-6)
-        emis = torch.ones((16,) + tuple(Ts.shape), dtype=dtype,
+        emis = torch.ones((16,) + tuple(Ts.shape), dtype=T.dtype,
                           device=T.device)
+        return (play, plev, T, tlev, Ts, h2ovmr, o3vmr, co2, o2, mu0, day,
+                emis)
 
+    def radiation(self, T, q, p_mid, p_half, Ts, t_seconds):
+        """Heating rate (K/s) and surface/TOA fluxes of (nz, ncol)
+        bottom-up columns, pressures in Pa (moist_gcm.py:83)."""
+        inputs = self.radiation_inputs(T, q, p_mid, p_half, Ts, t_seconds)
         outs = []
         for cols in torch.chunk(torch.arange(T.shape[1]), self.rad_chunks):
             c = slice(int(cols[0]), int(cols[-1]) + 1)
-            outs.append(self._radiation_chunk(
-                play[:, c], plev[:, c], T[:, c], tlev[:, c], Ts[c],
-                h2ovmr[:, c], o3vmr[:, c], co2[:, c], o2[:, c], mu0[c],
-                day[c], emis[:, c]))
+            outs.append(self._radiation_chunk(*(
+                x[c] if x.dim() == 1 else x[:, c] for x in inputs)))
         hr, sfc, olr, asr = (torch.cat([o[i] for o in outs], dim=-1)
                              for i in range(4))
         return {'hr_rad': hr, 'sfc_rad': sfc, 'olr': olr, 'asr': asr}
@@ -328,9 +332,11 @@ def build_moist_gcm(nlon=128, nlat=64, nz=28, timestep=600.0,
                     number_of_damped_levels=5, ocean_depth=5.0,
                     dtype=torch.float32, fft_impl='fft', rad_every=6,
                     rad_col_chunk=8192, conserve_water=True, mesh=None,
-                    moisture_advection='spectral', device=None):
+                    moisture_advection='spectral', device='cuda'):
     """Return (dycore, init_fn, step_fn, run_fn) for the full moist GCM
-    (moist_gcm.py:276), on ``device``.
+    (moist_gcm.py:276), on ``device``: the CUDA card unless the caller
+    asks for another (``device='cpu'``); without a card the default
+    raises.
 
     run_fn(carry, n_steps) -> (carry, last_diag); carry = (prev, now,
     grids, aux, k) with k the global step index (a Python int), which
@@ -346,8 +352,7 @@ def build_moist_gcm(nlon=128, nlat=64, nz=28, timestep=600.0,
     if fft_impl != 'fft':
         raise NotImplementedError("fft_impl=%r: only 'fft' is ported"
                                   % (fft_impl,))
-    if device is None:
-        raise ValueError('pass device= explicitly')
+    device = resolve_device(device)
     model = MoistGCM(nlon, nlat, nz, timestep, number_of_damped_levels,
                      ocean_depth, dtype, rad_every, rad_col_chunk,
                      conserve_water, device)

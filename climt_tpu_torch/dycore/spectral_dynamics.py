@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.util import resolve_device
 from ..ops.sht import SphericalHarmonicTransform
 
 
@@ -34,13 +35,12 @@ class SpectralDycore(nn.Module):
                  asselin_strength=0.05,
                  rd=287.0, cpd=1004.64, g=9.80665,
                  radius=6.371e6, omega=7.292e-5,
-                 dtype=torch.float64, device=None):
+                 dtype=torch.float64, device='cuda'):
         """``ak``, ``bk``: bottom-up interface coefficients with
         p_interface = ak + bk (ps - p_top), as in the JAX constructor
         (spectral_dynamics.py:43)."""
         super().__init__()
-        if device is None:
-            raise ValueError('pass device= explicitly')
+        device = resolve_device(device)
         self.nlon, self.nlat, self.nz = nlon, nlat, nz
         self.sht = SphericalHarmonicTransform(
             nlon, nlat, truncation, radius=radius, dtype=dtype,

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..core.grid import gauss_legendre_nodes
+from ..core.util import resolve_device
 
 
 def _legendre_tensors(truncation, mu):
@@ -62,10 +63,9 @@ class SphericalHarmonicTransform(nn.Module):
     """Batched-matmul spherical harmonic transform for one resolution."""
 
     def __init__(self, nlon, nlat, truncation=None, radius=6.371e6,
-                 dtype=torch.float64, device=None):
+                 dtype=torch.float64, device='cuda'):
         super().__init__()
-        if device is None:
-            raise ValueError('pass device= explicitly')
+        device = resolve_device(device)
         if truncation is None:
             truncation = min((2 * nlat - 1) // 3, (nlon - 1) // 3)
         self.nlon, self.nlat = nlon, nlat

@@ -16,7 +16,9 @@ from climt_tpu_torch.components.rrtmg import lw_spectral as TL
 from climt_tpu_torch.convert import carry_to_numpy
 from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
 
-from torch_helpers import rel_err, to_torch
+from torch_helpers import (port_lw, port_sw, port_taumol_groups,
+                           radiation_columns, ragged_bands, ragged_group,
+                           rel_err, to_torch)
 
 
 @pytest.fixture
@@ -34,26 +36,30 @@ def test_mix_rows_cuda_matches_plain(cuda):
     idx = torch.as_tensor(rng.randint(-3, R + 3, (T,) + S),
                           dtype=torch.int32, device=cuda)
     w = to_torch(rng.randn(T, *S), torch.float32, cuda)
-    before = fused_mix.mix_rows_cuda.launches
+    before = fused_mix.mix_groups_cuda.launches
     out = fused_mix.mix_rows(tbl, idx, w)
-    assert fused_mix.mix_rows_cuda.launches == before + 1
+    assert fused_mix.mix_groups_cuda.launches == before + 1
     assert rel_err(out, fused_mix.mix_rows_plain(tbl, idx.long(), w)) < 1e-6
+
+
+def _rtrn_args(nz, ncol, device):
+    rng = np.random.RandomState(1)
+
+    def r(*shape):
+        return to_torch(rng.rand(*shape), torch.float32, device)
+
+    return (r(nz, ncol, 140) * 2.0, r(nz, ncol, 140), r(nz, ncol, 16) * 0.2,
+            r(nz + 1, ncol, 16) * 0.2, r(ncol, 16) * 0.2,
+            0.9 + 0.1 * r(16, ncol), 1.5 + 0.3 * r(16, ncol),
+            (r(nz, ncol) > 0.5) * r(nz, ncol), r(nz, ncol, 16) * 3.0,
+            r(140) * 100.0)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize('nz', [9, 28, 60])
 def test_rtrn_lw_cuda_matches_plain(cuda, nz):
-    rng = np.random.RandomState(1)
-    ncol = 256
-
-    def r(*shape):
-        return to_torch(rng.rand(*shape), torch.float32, cuda)
-
-    args = (r(nz, ncol, 140) * 2.0, r(nz, ncol, 140), r(nz, ncol, 16) * 0.2,
-            r(nz + 1, ncol, 16) * 0.2, r(ncol, 16) * 0.2,
-            0.9 + 0.1 * r(16, ncol), 1.5 + 0.3 * r(16, ncol),
-            (r(nz, ncol) > 0.5) * r(nz, ncol), r(nz, ncol, 16) * 3.0,
-            r(140) * 100.0)
+    """At nz=60 one column's tile needs more than 48 KB of shared memory."""
+    args = _rtrn_args(nz, 256, cuda)
     rec_6 = TL._support_scalar('rec_6')
     before = rtrn_kernel.rtrn_lw_cuda.launches
     out = rtrn_kernel.rtrn_lw_fused(*args, rec_6)
@@ -81,10 +87,61 @@ def test_moist_gcm_gpu_matches_cpu(cuda):
     for dev in ('cpu', cuda):
         _, init_fn, _, run_fn = build_moist_gcm(device=dev, **kw)
         a0 = rtrn_kernel.rtrn_lw_cuda.launches
-        b0 = fused_mix.mix_rows_cuda.launches
+        b0 = fused_mix.mix_groups_cuda.launches
         carry, _ = run_fn(init_fn(0), 2)
         out[str(dev)] = carry_to_numpy(carry)[2]
     assert rtrn_kernel.rtrn_lw_cuda.launches > a0
-    assert fused_mix.mix_rows_cuda.launches > b0
+    assert fused_mix.mix_groups_cuda.launches > b0
     for key, tol in (('T', 0.01), ('u', 0.02), ('v', 0.02), ('ps', 15.0)):
         assert np.abs(out['cuda:0'][key] - out['cpu'][key]).max() < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('nz', [9, 28, 60])
+def test_rtrn_lw_cuda_two_columns_per_block_matches_plain(cuda, nz):
+    """An odd column count leaves the last block one column short."""
+    args = _rtrn_args(nz, 255, cuda)
+    rec_6 = TL._support_scalar('rec_6')
+    out = rtrn_kernel.rtrn_lw_cuda(*args, rec_6, cols_per_block=2)
+    for a, b in zip(out, rtrn_kernel.rtrn_lw_plain(*args, rec_6)):
+        assert rel_err(a, b) < 2e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('stage_tables', [False, True])
+def test_grouped_kernel_matches_plain_on_ragged_bands(cuda, stage_tables):
+    """Bands of ng 2, 14, 16, 6, 12 and an empty one, with clipping at both
+    ends of every part; 9300 cells, so the last tile of 128 is partial."""
+    layout, idx, w = ragged_group(ragged_bands(cells=(31, 300)),
+                                  torch.float32, cuda)
+    before = fused_mix.mix_groups_cuda.launches
+    out = fused_mix.mix_groups_cuda(layout, idx, w,
+                                    stage_tables=stage_tables)
+    assert fused_mix.mix_groups_cuda.launches == before + 1
+    assert rel_err(out, fused_mix.mix_groups_plain(layout, idx, w)) < 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name', ['lw_taug', 'lw_fracs', 'sw_taug',
+                                  'sw_taur', 'sw_sflux'])
+def test_taumol_group_kernel_matches_plain(cuda, name):
+    """The real groups of 512 physical columns, nz=28, both table paths."""
+    group = port_taumol_groups(radiation_columns(nz=28, ncol=512),
+                               torch.float32, cuda)[name]
+    layout, idx, w = group.finish()
+    ref = fused_mix.mix_groups_plain(layout, idx, w)
+    for stage_tables in (False, True):
+        out = fused_mix.mix_groups_cuda(layout, idx, w,
+                                        stage_tables=stage_tables)
+        assert rel_err(out, ref) < 1e-6
+
+
+@pytest.mark.gpu
+def test_t85_chunk_radiation_makes_few_kernel_b_launches(cuda):
+    """One radiation call on a T85 chunk (nz=28, 8192 columns): LW + SW
+    make at most 10 launches of kernel B (6 by design)."""
+    c = radiation_columns(nz=28, ncol=8192)
+    before = fused_mix.mix_groups_cuda.launches
+    port_lw(c, torch.float32, cuda)
+    port_sw(c, torch.float32, cuda)
+    assert 0 < fused_mix.mix_groups_cuda.launches - before <= 10

@@ -21,7 +21,7 @@ from climt_tpu.components.rrtmg.pallas_rtrn import rtrn_lw_fused
 from climt_tpu_torch.components.rrtmg import fused_mix, rtrn_kernel
 from climt_tpu_torch.components.rrtmg import lw_spectral as TL
 
-from torch_helpers import rel_err, to_torch
+from torch_helpers import ragged_bands, ragged_group, rel_err, to_torch
 
 HEATFAC = 9.80665 * 8.64e4 / (1004.64 * 1e2)
 
@@ -156,3 +156,81 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         secdiff, x['cldfrac'], x['taucld_band'], dwave_g)]
     with pytest.raises(ValueError):
         rtrn_kernel.rtrn_lw_cuda(*args, 1.0 / 6.0)
+
+
+def _jax_band_sums(bands, jdt):
+    """Each band's sum of interp.mix_rows over its parts, side by side."""
+    cells = bands[0][1][0][1].shape[1:]
+    outs = []
+    for ng, parts in bands:
+        ref = np.zeros(cells + (ng,))
+        for table, idx, w in parts:
+            ref = ref + np.asarray(mix_rows(jnp.asarray(table, jdt), list(
+                zip(jnp.asarray(idx, jnp.int32), jnp.asarray(w, jdt)))))
+        outs.append(ref)
+    return np.concatenate(outs, axis=-1)
+
+
+@pytest.mark.parametrize('dtype', ['float64', 'float32'])
+def test_grouped_plain_matches_jax_mix_rows(dtype):
+    """Bands of ng 2, 14, 16, 6, 12 and an empty one, each a sum over
+    parts of several row counts; indices run past both ends of their
+    part's table and are clipped there, as interp.mix_rows clips them."""
+    bands = ragged_bands()
+    assert any((idx < 0).any() for _, ps in bands for _, idx, _ in ps)
+    assert any((idx >= t.shape[0]).any() for _, ps in bands
+               for t, idx, _ in ps if t.shape[0] > 1)
+    layout, idx, w = ragged_group(bands, getattr(torch, dtype))
+    out = fused_mix.mix_groups(layout, idx, w)
+    ref = _jax_band_sums(bands, getattr(jnp, dtype))
+    assert out.dtype == getattr(torch, dtype) and out.shape == ref.shape
+    # f64: exact gathers, only the order of the sum differs; f32: float32
+    # sums of up to 7 terms
+    assert rel_err(out, ref) < (1e-12 if dtype == 'float64' else 1e-6)
+
+
+def test_grouped_band_matches_pallas_interpret():
+    """One band of the group (ng=14, three parts) against the Pallas kernel
+    on the band's tables concatenated row-wise, the indices clipped per part
+    and offset as BandAccum.total (fused_mix.py:182-196) builds them."""
+    bands = ragged_bands()
+    layout, idx, w = ragged_group(bands, torch.float32)
+    out = fused_mix.mix_groups(layout, idx, w)
+    b = 1
+    ng, parts = bands[b]
+    off, tables, idxs, ws = 0, [], [], []
+    for table, i, wt in parts:
+        idxs.append(np.clip(i, 0, table.shape[0] - 1) + off)
+        tables.append(table)
+        ws.append(wt)
+        off += table.shape[0]
+    f32 = jnp.float32
+    ref = np.asarray(fused_mix_rows(
+        jnp.asarray(np.concatenate(tables), f32),
+        jnp.asarray(np.concatenate(idxs), jnp.int32),
+        jnp.asarray(np.concatenate(ws), f32), interpret=True))
+    goff = sum(n for n, _ in bands[:b])
+    assert rel_err(out[..., goff:goff + ng], ref) < 1e-6
+
+
+def test_group_refuses_a_changed_layout():
+    """A cached layout is reused only by calls that write the same bands,
+    parts and term counts."""
+    cells = (3, 5)
+
+    def write(nterms):
+        g = fused_mix.Group('test_changed_layout', cells, torch.float64,
+                            'cpu')
+        g.band(3)
+        g.part(np.arange(12.0).reshape(4, 3))
+        for _ in range(nterms):
+            i, w = g.slot()
+            i.fill_(2)
+            w.fill_(1.0)
+        return g
+
+    expect = torch.tensor([6.0, 7.0, 8.0], dtype=torch.float64)
+    assert torch.equal(write(1).run(), expect.expand(cells + (3,)))
+    assert torch.equal(write(1).run(), expect.expand(cells + (3,)))
+    with pytest.raises(RuntimeError):
+        write(2).run()

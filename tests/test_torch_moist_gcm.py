@@ -87,3 +87,13 @@ def test_converter_round_trip(jax_model, port_model):
     j2_via_port, _ = j_run(back, 1)
     j2, _ = j_run(j0, 2)
     _assert_carries_close(_np(j2_via_port), _np(j2), jd.sht, 1e-10)
+
+
+def test_default_device_is_the_card_and_never_the_cpu():
+    """build_moist_gcm() with no device builds on CUDA; on a machine
+    without a card it raises an error that names the device instead of
+    building on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default builds there')
+    with pytest.raises(RuntimeError, match="device 'cuda'"):
+        port_build(nlon=32, nlat=16, nz=10)

@@ -76,12 +76,12 @@ def varying_ps_columns(nz=28, ncol=64):
                 nz=nz, ncol=ncol)
 
 
-def port_lw(c, dtype):
+def port_lw(c, dtype, device='cpu'):
     from climt_tpu_torch.components.rrtmg.lw_spectral import rrtmg_lw_fluxes
-    t = {k: to_torch(v, dtype) for k, v in c.items()
+    t = {k: to_torch(v, dtype, device) for k, v in c.items()
          if isinstance(v, np.ndarray)}
     z = t['zero']
-    z16 = torch.zeros((c['nz'], c['ncol'], 16), dtype=dtype)
+    z16 = torch.zeros((c['nz'], c['ncol'], 16), dtype=dtype, device=device)
     return rrtmg_lw_fluxes(
         t['play'], t['plev'], t['tlay'], t['tlev'], t['tsfc'], t['h2o'],
         t['o3'], t['co2'], z, z, t['o2'], z, z, z, z, t['emis'], z, z16,
@@ -89,13 +89,13 @@ def port_lw(c, dtype):
         G, AVOG, CPD, use_tables=False)
 
 
-def port_sw(c, dtype):
+def port_sw(c, dtype, device='cpu'):
     from climt_tpu_torch.components.rrtmg.sw_spectral import (
         rrtmg_sw_fluxes, solar_variability)
-    t = {k: to_torch(v, dtype) for k, v in c.items()
+    t = {k: to_torch(v, dtype, device) for k, v in c.items()
          if isinstance(v, np.ndarray)}
     z = t['zero']
-    z14 = torch.zeros((c['nz'], c['ncol'], 14), dtype=dtype)
+    z14 = torch.zeros((c['nz'], c['ncol'], 14), dtype=dtype, device=device)
     alb = t['alb']
     return rrtmg_sw_fluxes(
         t['play'], t['plev'], t['tlay'], t['h2o'], t['o3'], t['co2'], z, z,
@@ -132,3 +132,57 @@ def jax_sw(c, dtype, use_tables):
         j['o2'], alb, alb, alb, alb, j['mu0'], z, (z14,) * 4, (z14,) * 3,
         1.0, -1, 0.0, -1, solar_variability(-1, 0.0), G, AVOG, CPD,
         icld=0, use_tables=use_tables)
+
+
+def port_taumol_groups(c, dtype, device='cpu'):
+    """The port's five taumol kernel-B groups (LW taug, LW fracs, SW taug,
+    SW taur, SW sflux) of columns ``c``, unlaunched, by name."""
+    from climt_tpu_torch.components.rrtmg import lw_spectral as TL
+    from climt_tpu_torch.components.rrtmg import sw_spectral as TS
+    t = {k: to_torch(v, dtype, device) for k, v in c.items()
+         if isinstance(v, np.ndarray)}
+    z = t['zero']
+    cs, wx, _ = TL.gas_coefs_lw(
+        t['play'], t['plev'], t['tlay'], t['tlev'], t['tsfc'], t['emis'],
+        t['h2o'], t['o3'], t['co2'], z, z, t['o2'], z, z, z, z, G, AVOG)
+    css = TS.gas_coefs_sw(t['play'], t['plev'], t['tlay'], t['h2o'],
+                          t['o3'], t['co2'], z, z, t['o2'], G, AVOG)
+    solar = TS.solar_variability(-1, 0.0)
+    groups = (TL.taumol_lw_terms(cs, wx, dtype)
+              + TS.taumol_sw_terms(css, -1, *solar[:6], dtype))
+    return dict(zip(('lw_taug', 'lw_fracs', 'sw_taug', 'sw_taur',
+                     'sw_sflux'), groups))
+
+
+# bands of unequal width, none of them all multiples of 4; the last one
+# has no terms
+RAGGED_NG = (2, 14, 16, 6, 12, 4)
+
+
+def ragged_bands(cells=(7, 33), seed=3):
+    """Synthetic kernel-B bands: [(ng, [(table, idx, w), ...]), ...] with
+    parts of several row counts (one-row tables included) and indices that
+    run past both ends of their table (float64 numpy)."""
+    rng = np.random.RandomState(seed)
+    bands = []
+    for b, ng in enumerate(RAGGED_NG):
+        shapes = ((17 + 5 * b, 4), (1, 1), (9, 2))[:2 + b % 2]
+        parts = []
+        for rows, nt in (shapes if b < len(RAGGED_NG) - 1 else ()):
+            parts.append((rng.rand(rows, ng),
+                          rng.randint(-3, rows + 3, (nt,) + cells),
+                          rng.randn(nt, *cells)))
+        bands.append((ng, parts))
+    return bands
+
+
+def ragged_group(bands, dtype, device='cpu'):
+    """(layout, idx, w) of ``ragged_bands`` for fused_mix.mix_groups."""
+    from climt_tpu_torch.components.rrtmg.fused_mix import Layout
+    parts = [(b, table, i.shape[0]) for b, (_, ps) in enumerate(bands)
+             for table, i, _ in ps]
+    idx = np.concatenate([i for _, ps in bands for _, i, _ in ps])
+    w = np.concatenate([wt for _, ps in bands for _, _, wt in ps])
+    return (Layout([ng for ng, _ in bands], parts, dtype, device),
+            torch.as_tensor(idx, dtype=torch.int32, device=device),
+            to_torch(w, dtype, device))
