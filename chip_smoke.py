@@ -11,11 +11,9 @@ Phases, each of which fails loudly (no exception is turned into exit 0):
   3. kernel B (band-fused gather-sum): the one-table synthetic case, then
      the six groups that one T85 radiation chunk launches (nz=28, the
      first 8192 columns of the T85 initial state), each against its plain
-     version, timed beside its bound, F.embedding_bag per band and the
-     variant that stages the tables in shared memory;
+     version, timed beside its bound and F.embedding_bag per band;
   4. kernel A (LW flux integration) against its plain version, with
-     clouds, at nz=28 and nz=60, ncol=8192, one and two columns per block,
-     timed beside its bound;
+     clouds, at nz=28 and nz=60, ncol=8192, timed beside its bound;
   5. the moist GCM at 32x16x10, float32, 7 steps on the GPU against the
      same model on the CPU (plain versions);
   6. the moist GCM at T85 (256x128x28, dt 600 s, rad_every=6,
@@ -223,59 +221,51 @@ def main():
         + SW.taumol_sw_terms(css, -1, *model.solar_config[:6], f32)))
     del grids, aux, inputs, cs, css
     report['B'] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-                       library_ms=0.0, bound_ms=0.0, staged_ms=0.0,
-                       groups={})
+                       library_ms=0.0, bound_ms=0.0, groups={})
     for gname, group in groups.items():
         layout, idx, w = group.finish()
         ncell = idx[0].numel()
         out = fused_mix.mix_groups_cuda(layout, idx, w)
         ref = fused_mix.mix_groups_plain(layout, idx, w)
-        staged = fused_mix.mix_groups_cuda(layout, idx, w, stage_tables=True)
         lib_fn, lib_check = embedding_bag_call(layout, idx, w, torch)
         torch.cuda.synchronize()
         err, scale = max_rel_err(out, ref)
-        err_staged, _ = max_rel_err(staged, ref)
         lib_err = lib_check(out)
-        if not max(err, err_staged) <= 1e-6 * scale:
-            fail('kernel B disagrees on %s: max abs err %g (staged %g) > '
-                 '1e-6 * %g' % (gname, err, err_staged, scale))
+        if not err <= 1e-6 * scale:
+            fail('kernel B disagrees on %s: max abs err %g > 1e-6 * %g'
+                 % (gname, err, scale))
         if not lib_err <= 1e-5 * scale:
             fail('embedding_bag yardstick disagrees on %s by %g'
                  % (gname, lib_err))
         ms = cuda_ms(lambda: fused_mix.mix_groups_cuda(layout, idx, w), 20,
                      torch)
-        staged_ms = cuda_ms(lambda: fused_mix.mix_groups_cuda(
-            layout, idx, w, stage_tables=True), 20, torch)
         plain_ms = cuda_ms(
             lambda: fused_mix.mix_groups_plain(layout, idx, w), 3, torch)
         library_ms = cuda_ms(lib_fn, 10, torch)
         nbytes, ops = group_cost(layout, ncell)
         bound_ms, bound_by = bound(nbytes, ops)
         rec = dict(cells=ncell, terms=layout.nterms, bands=len(layout.bands),
-                   max_abs_err=err, ms=ms, staged_ms=staged_ms,
-                   plain_ms=plain_ms, library_ms=library_ms,
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by, mbytes=nbytes / 1e6,
                    share=bound_ms / ms)
         report['B']['groups'][gname] = rec
-        for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'staged_ms'):
+        for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms'):
             report['B'][key] += rec[key]
         report['B']['max_abs_err'] = max(report['B']['max_abs_err'], err)
         phase(3, 'kernel B %s: %d cells, %d bands, %d terms: max abs err '
-              '%.3g (max %.3g); %.4f ms (tables in shared memory %.4f ms), '
-              'plain %.4f ms, embedding_bag %.4f ms, bound %.4f ms (%s, '
-              '%.1f MB), %.0f%% of bound' % (
+              '%.3g (max %.3g); %.4f ms, plain %.4f ms, embedding_bag %.4f '
+              'ms, bound %.4f ms (%s, %.1f MB), %.0f%% of bound' % (
                   gname, ncell, len(layout.bands), layout.nterms, err, scale,
-                  ms, staged_ms, plain_ms, library_ms, bound_ms, bound_by,
+                  ms, plain_ms, library_ms, bound_ms, bound_by,
                   nbytes / 1e6, 100.0 * bound_ms / ms))
-        del layout, idx, w, out, ref, staged, lib_fn, lib_check
+        del layout, idx, w, out, ref, lib_fn, lib_check
     rb = report['B']
     rb['share'] = rb['bound_ms'] / rb['ms']
     rb['bound_by'] = 'bytes'
-    phase(3, 'kernel B, one T85 chunk (6 launches): %.4f ms (tables in '
-          'shared memory %.4f ms), plain %.4f ms, embedding_bag %.4f ms, '
-          'bound %.4f ms, %.0f%% of bound; on %s' % (
-              rb['ms'], rb['staged_ms'], rb['plain_ms'], rb['library_ms'],
-              rb['bound_ms'], 100.0 * rb['share'], card))
+    phase(3, 'kernel B, one T85 chunk (6 launches): %.4f ms, plain %.4f '
+          'ms, embedding_bag %.4f ms, bound %.4f ms, %.0f%% of bound; on %s'
+          % (rb['ms'], rb['plain_ms'], rb['library_ms'], rb['bound_ms'],
+             100.0 * rb['share'], card))
     del groups
     torch.cuda.empty_cache()
 
@@ -296,48 +286,40 @@ def main():
                 1.5 + 0.3 * r(16, ncol), (cld > 0.5) * r(nz, ncol),
                 r(nz, ncol, 16) * 3.0, dwave_g)
 
-    report['A'] = dict(max_abs_err=0.0, library_ms=None, variants={})
+    report['A'] = dict(max_abs_err=0.0, library_ms=None)
     for nz in (28, 60):
         ncol = 8192
         args = rtrn_inputs(nz, ncol)
+        outs = rtrn_kernel.rtrn_lw_cuda(*args, rec_6)
         refs = rtrn_kernel.rtrn_lw_plain(*args, rec_6)
+        torch.cuda.synchronize()
+        worst = worst_rel = 0.0
+        for o, rf, nm in zip(outs, refs, ('up', 'dn', 'up_clr', 'dn_clr')):
+            err, scale = max_rel_err(o, rf)
+            if not err <= 2e-6 * scale:
+                fail('kernel A disagrees at nz=%d (%s): %g > 2e-6 * %g'
+                     % (nz, nm, err, scale))
+            worst = max(worst, err)
+            worst_rel = max(worst_rel, err / scale)
+        report['A']['max_abs_err'] = max(report['A']['max_abs_err'], worst)
+        ms = cuda_ms(lambda: rtrn_kernel.rtrn_lw_cuda(*args, rec_6), 10,
+                     torch)
+        # each input read once, each output written once
         nbytes = (sum(a.numel() for a in args) + 4 * (nz + 1) * ncol) * 4
         bound_ms, bound_by = bound(nbytes, RTRN_OPS_PER_POINT * 140 * nz
                                    * ncol)
-        for cpb in (1, 2):
-            outs = rtrn_kernel.rtrn_lw_cuda(*args, rec_6, cols_per_block=cpb)
-            torch.cuda.synchronize()
-            worst = worst_rel = 0.0
-            for o, rf, nm in zip(outs, refs, ('up', 'dn', 'up_clr',
-                                              'dn_clr')):
-                err, scale = max_rel_err(o, rf)
-                if not err <= 2e-6 * scale:
-                    fail('kernel A disagrees at nz=%d, %d columns per block '
-                         '(%s): %g > 2e-6 * %g' % (nz, cpb, nm, err, scale))
-                worst = max(worst, err)
-                worst_rel = max(worst_rel, err / scale)
-            ms = cuda_ms(lambda: rtrn_kernel.rtrn_lw_cuda(
-                *args, rec_6, cols_per_block=cpb), 10, torch)
-            report['A']['max_abs_err'] = max(report['A']['max_abs_err'],
-                                             worst)
-            report['A']['variants']['nz%d_cols%d' % (nz, cpb)] = dict(
-                ms=ms, bound_ms=bound_ms, share=bound_ms / ms,
-                max_abs_err=worst)
-            msg = ('kernel A nz=%d ncol=%d, %d column(s) per block: max abs '
-                   'err %.3g W/m^2 (%.3g of max), %.4f ms, bound %.4f ms '
-                   '(%s, %.1f MB), %.0f%% of bound' % (
-                       nz, ncol, cpb, worst, worst_rel, ms, bound_ms,
-                       bound_by, nbytes / 1e6, 100.0 * bound_ms / ms))
-            if nz == 28 and cpb == rtrn_kernel.COLS_PER_BLOCK:
-                plain_ms = cuda_ms(
-                    lambda: rtrn_kernel.rtrn_lw_plain(*args, rec_6), 3, torch)
-                report['A'].update(ms=ms, plain_ms=plain_ms,
-                                   bound_ms=bound_ms, bound_by=bound_by,
-                                   share=bound_ms / ms)
-                msg += ', plain %.3f ms' % plain_ms
-            phase(4, msg + '; on ' + card)
-            del outs
-        del args, refs
+        msg = ('kernel A nz=%d ncol=%d: max abs err %.3g W/m^2 (%.3g of '
+               'max), %.4f ms, bound %.4f ms (%s, %.1f MB), %.0f%% of '
+               'bound' % (nz, ncol, worst, worst_rel, ms, bound_ms, bound_by,
+                          nbytes / 1e6, 100.0 * bound_ms / ms))
+        if nz == 28:            # the main path's shape
+            plain_ms = cuda_ms(
+                lambda: rtrn_kernel.rtrn_lw_plain(*args, rec_6), 3, torch)
+            report['A'].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, share=bound_ms / ms)
+            msg += ', plain %.3f ms' % plain_ms
+        phase(4, msg + '; on ' + card)
+        del args, outs, refs
     torch.cuda.empty_cache()
 
     # ---- phase 5: small model, GPU vs CPU ------------------------------

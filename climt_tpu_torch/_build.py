@@ -35,8 +35,8 @@ _LIB = []
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 SIGNATURES = {
-    'climt_mix_groups_f32': [_P, _P, _I, _P, _P, _P, _L, _I, _P, _I, _P],
-    'climt_rtrn_lw_f32': [_P] * 10 + [_I, _I, _F, _I] + [_P] * 5,
+    'climt_mix_groups_f32': [_P, _P, _I, _P, _P, _P, _L, _I, _P, _P],
+    'climt_rtrn_lw_f32': [_P] * 10 + [_I, _I, _F] + [_P] * 5,
 }
 
 

@@ -94,7 +94,6 @@ class Layout:
         self.term_desc = torch.as_tensor(
             np.asarray(terms, np.int32).reshape(-1), **i32)
         self.term_i64 = self.term_desc.long().reshape(-1, 2)
-        self.max_band_floats = max(b[6] for b in bands)
 
     @classmethod
     def single(cls, table, nterms):
@@ -123,12 +122,10 @@ def mix_groups_plain(layout, idx, w):
     return out
 
 
-def mix_groups_cuda(layout, idx, w, stage_tables=False):
+def mix_groups_cuda(layout, idx, w):
     """Launch kernel B on one group.  idx (T, *S) int32 and w (T, *S)
     float32, contiguous, on the layout's CUDA device.  Returns (*S, width)
-    float32.  ``stage_tables`` copies each band's tables into shared
-    memory first instead of reading them through L1 (a measured
-    alternative, see PERF.md)."""
+    float32."""
     table = layout.table
     if not (table.is_cuda and idx.device == table.device
             and w.device == table.device):
@@ -156,7 +153,6 @@ def mix_groups_cuda(layout, idx, w, stage_tables=False):
         table.data_ptr(), layout.band_desc.data_ptr(), len(layout.bands),
         layout.term_desc.data_ptr(), idx.data_ptr(), w.data_ptr(), ncell,
         layout.width, out.data_ptr(),
-        layout.max_band_floats if stage_tables else 0,
         torch.cuda.current_stream(table.device).cuda_stream)
     _build.check_launch(rc, 'mix_groups_cuda')
     mix_groups_cuda.launches += 1

@@ -10,11 +10,11 @@ Bound on the card: by bytes, ~0.09 ms at nz=28, ncol=8192 (taug and
 fracs, 8 bytes per (g, layer, column), read once, the band rows and the
 outputs); in practice the two sweeps' arithmetic, which a thread per
 (g, column) issues for every layer, takes most of the time (PERF.md).
-``csrc/rtrn_lw.cu`` gives a block one column (or two), brings the
-column's taug, fracs and band rows into shared memory once with
-``cp.async``, computes the band cloud prologue (odcl, exp(-odcl), the
-cloudy (1 - exp(-odcl)) * cldfrac) there, and runs both sweeps from
-shared memory with the z recurrences in registers.  The g-sums are warp
+``csrc/rtrn_lw.cu`` gives a block one column, brings the column's taug,
+fracs and band rows into shared memory once with ``cp.async``, computes
+the band cloud prologue (odcl, exp(-odcl), the cloudy
+(1 - exp(-odcl)) * cldfrac) there, and runs both sweeps from shared
+memory with the z recurrences in registers.  The g-sums are warp
 reduce-scatters of 8 interfaces at a time written as per-warp partials,
 added in warp order after the one block barrier, so they are the same
 from run to run.  The up sweep recomputes its layer terms from the tile.
@@ -37,17 +37,16 @@ NGPT = 140
 NG = [10, 12, 16, 14, 16, 8, 12, 8, 12, 6, 8, 8, 4, 2, 2, 2]
 NGB = [b for b, n in enumerate(NG) for _ in range(n)]
 
-COLS_PER_BLOCK = 1          # columns per block of kernel A
 MAX_SMEM_BYTES = 232448     # shared memory one block may use on Hopper
-SLOTS = 5                   # warps that hold g-points of one column
+WARPS = 5                   # warps of one block of kernel A
 
 
-def smem_bytes(nz, cols_per_block):
+def smem_bytes(nz):
     """Dynamic shared memory of one block of kernel A (csrc/rtrn_lw.cu):
-    each column's taug, fracs, band rows and cloud terms, and the warp
+    the column's taug, fracs, band rows and cloud terms, and the warp
     partial sums."""
     tile = 2 * nz * NGPT + (5 * nz + 1) * NBANDS + (nz + 3) // 4 * 4
-    return 4 * cols_per_block * (tile + SLOTS * (nz + 1) * 4)
+    return 4 * (tile + WARPS * (nz + 1) * 4)
 
 
 def _ngb(device):
@@ -139,11 +138,9 @@ def rtrn_lw_plain(taug, fracs, planklay, planklev, plankbnd, semiss,
 
 
 def rtrn_lw_cuda(taug, fracs, planklay, planklev, plankbnd, semiss,
-                 secdiff, cldfrac, taucld_band, dwave_g, rec_6,
-                 cols_per_block=COLS_PER_BLOCK):
+                 secdiff, cldfrac, taucld_band, dwave_g, rec_6):
     """Launch kernel A.  Shapes as ``rtrn_lw_plain``; float32, contiguous,
-    on one CUDA device.  ``cols_per_block`` (1 or 2) is how many columns
-    one block sweeps (see PERF.md for the two measured)."""
+    on one CUDA device."""
     args = (taug, fracs, planklay, planklev, plankbnd, semiss, secdiff,
             cldfrac, taucld_band, dwave_g)
     dev = taug.device
@@ -154,9 +151,6 @@ def rtrn_lw_cuda(taug, fracs, planklay, planklev, plankbnd, semiss,
         raise TypeError('rtrn_lw_cuda takes float32 tensors')
     if not all(a.is_contiguous() for a in args):
         raise ValueError('rtrn_lw_cuda takes contiguous tensors')
-    if cols_per_block not in (1, 2):
-        raise ValueError('rtrn_lw_cuda: cols_per_block is 1 or 2, got %r'
-                         % (cols_per_block,))
     nz, ncol = taug.shape[:2]
     expected = {
         'taug': (nz, ncol, NGPT), 'fracs': (nz, ncol, NGPT),
@@ -168,18 +162,17 @@ def rtrn_lw_cuda(taug, fracs, planklay, planklev, plankbnd, semiss,
         if tuple(a.shape) != expected[name]:
             raise ValueError('rtrn_lw_cuda: %s has shape %s, expected %s'
                              % (name, tuple(a.shape), expected[name]))
-    if smem_bytes(nz, cols_per_block) > MAX_SMEM_BYTES:
+    if smem_bytes(nz) > MAX_SMEM_BYTES:
         raise ValueError('rtrn_lw_cuda: nz=%d needs %d bytes of shared '
                          'memory per block, more than %d' % (
-                             nz, smem_bytes(nz, cols_per_block),
-                             MAX_SMEM_BYTES))
+                             nz, smem_bytes(nz), MAX_SMEM_BYTES))
 
     outs = [torch.empty((nz + 1, ncol), dtype=torch.float32, device=dev)
             for _ in range(4)]
     lib = _build.library()
     rc = lib.climt_rtrn_lw_f32(
         *[a.data_ptr() for a in args], nz, ncol, float(rec_6),
-        cols_per_block, *[o.data_ptr() for o in outs],
+        *[o.data_ptr() for o in outs],
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, 'rtrn_lw_cuda')
     rtrn_lw_cuda.launches += 1

@@ -33,16 +33,14 @@
 //     band's (128 cells x ng) slice of the output row by row, so stores
 //     are contiguous runs of ng floats instead of one scattered row per
 //     thread.
-// With stage_floats > 0 each block first copies its band's tables into
-// dynamic shared memory and walks several cell tiles (the alternative
-// measured against the L1 path; see PERF.md).
+// (Staging each band's tables in shared memory instead of reading them
+// through L1 measured slower on every large group; see PERF.md.)
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kCells = 128;        // cells (threads) per block
 constexpr int kTileStride = 20;    // widest padded row (16) + 4
-constexpr int kStagedTiles = 32;   // cell tiles per band when staging
 
 struct Band {
   int ng, ngp, t0, nt, goff, tab0, tablen;
@@ -61,19 +59,10 @@ __device__ __forceinline__ int tile_stride(int ngp) {
   return ((ngp >> 2) & 1) ? ngp : ngp + 4;
 }
 
-template <bool kStaged>
-__device__ __forceinline__ float4 load4(const float4* p) {
-  if constexpr (kStaged) {
-    return *p;  // shared memory
-  } else {
-    return __ldg(p);
-  }
-}
-
 // The ng (padded to 4*NV) sums of one cell, into its row of the tile.
-template <int NV, bool kStaged>
+template <int NV>
 __device__ __forceinline__ void gather_sum(
-    const float* tab, int shift, const int2* __restrict__ terms,
+    const float* __restrict__ table, const int2* __restrict__ terms,
     const Band& bd, const int* __restrict__ idx, const float* __restrict__ w,
     long long ncell, long long cell, float* trow) {
   float4 acc[NV];
@@ -87,10 +76,10 @@ __device__ __forceinline__ void gather_sum(
     if (d.y > 1) r = min(max(__ldg(&idx[k]), 0), d.y - 1);
     const float wt = __ldg(&w[k]);
     const float4* row = reinterpret_cast<const float4*>(
-        tab + (d.x - shift) + static_cast<long long>(r) * (4 * NV));
+        table + d.x + static_cast<long long>(r) * (4 * NV));
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
-      const float4 x = load4<kStaged>(row + v);
+      const float4 x = __ldg(row + v);
       acc[v].x = fmaf(wt, x.x, acc[v].x);
       acc[v].y = fmaf(wt, x.y, acc[v].y);
       acc[v].z = fmaf(wt, x.z, acc[v].z);
@@ -102,7 +91,6 @@ __device__ __forceinline__ void gather_sum(
   for (int v = 0; v < NV; ++v) dst[v] = acc[v];
 }
 
-template <bool kStaged>
 __global__ void __launch_bounds__(kCells)
     mix_groups_kernel(const float* __restrict__ table,
                       const int* __restrict__ bands,
@@ -110,50 +98,28 @@ __global__ void __launch_bounds__(kCells)
                       const int* __restrict__ idx,
                       const float* __restrict__ w, long long ncell, int width,
                       float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  float* tile = reinterpret_cast<float*>(smem4);  // kCells x kTileStride
-  // L1 path: blockIdx.x is the band, so the blocks of all bands of one cell
-  // tile run together and the tile's output rows are complete in L2 before
-  // they are written back.  Staged path: blockIdx.y is the band, and a
-  // block walks cell tiles with its band's tables in shared memory.
-  const Band bd = load_band(bands, kStaged ? blockIdx.y : blockIdx.x);
-  const long long it0 = kStaged ? blockIdx.x : blockIdx.y;
-  const long long itn = kStaged ? gridDim.x : gridDim.y;
-  const float* tab = table;
-  int shift = 0;
-  if constexpr (kStaged) {
-    float* stab = tile + kCells * kTileStride;
-    const float4* src = reinterpret_cast<const float4*>(table + bd.tab0);
-    float4* dst = reinterpret_cast<float4*>(stab);
-    for (int i = threadIdx.x; i < (bd.tablen >> 2); i += kCells)
-      dst[i] = __ldg(src + i);
-    __syncthreads();
-    tab = stab;
-    shift = bd.tab0;
-  }
+  __shared__ float4 tile4[kCells * kTileStride / 4];
+  float* tile = reinterpret_cast<float*>(tile4);
+  const Band bd = load_band(bands, blockIdx.x);
   const int stride = tile_stride(bd.ngp);
   const long long ntiles = (ncell + kCells - 1) / kCells;
-  for (long long it = it0; it < ntiles; it += itn) {
+  for (long long it = blockIdx.y; it < ntiles; it += gridDim.y) {
     const long long cell0 = it * kCells;
     const long long cell = cell0 + threadIdx.x;
     if (cell < ncell) {
       float* trow = tile + threadIdx.x * stride;
       switch (bd.ngp) {
         case 4:
-          gather_sum<1, kStaged>(tab, shift, terms, bd, idx, w, ncell, cell,
-                                 trow);
+          gather_sum<1>(table, terms, bd, idx, w, ncell, cell, trow);
           break;
         case 8:
-          gather_sum<2, kStaged>(tab, shift, terms, bd, idx, w, ncell, cell,
-                                 trow);
+          gather_sum<2>(table, terms, bd, idx, w, ncell, cell, trow);
           break;
         case 12:
-          gather_sum<3, kStaged>(tab, shift, terms, bd, idx, w, ncell, cell,
-                                 trow);
+          gather_sum<3>(table, terms, bd, idx, w, ncell, cell, trow);
           break;
         default:
-          gather_sum<4, kStaged>(tab, shift, terms, bd, idx, w, ncell, cell,
-                                 trow);
+          gather_sum<4>(table, terms, bd, idx, w, ncell, cell, trow);
           break;
       }
     }
@@ -172,34 +138,18 @@ __global__ void __launch_bounds__(kCells)
 }  // namespace
 
 // bands: nband x 7 ints (ng, ngp, t0, nt, goff, tab0, tablen); terms:
-// T x 2 ints (base, rows); idx, w: T x ncell; out: ncell x width.
-// stage_floats: 0 reads the tables through L1, else the largest band's
-// table length in floats, staged in shared memory.  Returns the CUDA error.
+// T x 2 ints (base, rows); idx, w: T x ncell; out: ncell x width.  The
+// grid is (band, cell tile), the band fastest.  Returns the CUDA error.
 extern "C" int climt_mix_groups_f32(const float* table, const int* bands,
                                     int nband, const int* terms,
                                     const int* idx, const float* w,
                                     long long ncell, int width, float* out,
-                                    int stage_floats, void* stream) {
+                                    void* stream) {
   const long long ntiles = (ncell + kCells - 1) / kCells;
-  const size_t tile_bytes = sizeof(float) * kCells * kTileStride;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int2* t2 = reinterpret_cast<const int2*>(terms);
-  if (stage_floats == 0) {
-    const dim3 grid(nband,
-                    static_cast<unsigned>(ntiles < 65535 ? ntiles : 65535));
-    mix_groups_kernel<false><<<grid, kCells, tile_bytes, s>>>(
-        table, bands, t2, idx, w, ncell, width, out);
-  } else {
-    const size_t bytes = tile_bytes + sizeof(float) * stage_floats;
-    const cudaError_t e = cudaFuncSetAttribute(
-        mix_groups_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const dim3 grid(
-        static_cast<unsigned>(ntiles < kStagedTiles ? ntiles : kStagedTiles),
-        nband);
-    mix_groups_kernel<true><<<grid, kCells, bytes, s>>>(
-        table, bands, t2, idx, w, ncell, width, out);
-  }
+  const dim3 grid(nband,
+                  static_cast<unsigned>(ntiles < 65535 ? ntiles : 65535));
+  mix_groups_kernel<<<grid, kCells, 0, static_cast<cudaStream_t>(stream)>>>(
+      table, bands, reinterpret_cast<const int2*>(terms), idx, w, ncell,
+      width, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,11 +13,13 @@
 // Bound: bytes.  taug and fracs are 8 bytes per (g, layer, column), the
 // band inputs (Planck, band cloud depth) 16/140 of that, the outputs
 // 16 bytes per (interface, column).  The design reads each of them once:
-//   - A block owns NC columns (1 or 2), one thread per (g, column).  At
-//     block start every thread issues cp.async copies of the columns'
+//   - A block owns one column, one thread per g-point (140 of 160).  At
+//     block start every thread issues cp.async copies of the column's
 //     (nz, 140) taug and fracs rows and (nz, 16) band rows into dynamic
-//     shared memory (about 42 KB per column at nz=28, 90 KB at nz=60).
-//     Other resident blocks compute while one block's copies land.
+//     shared memory (about 42 KB at nz=28, 90 KB at nz=60).  Other
+//     resident blocks compute while one block's copies land.  (Two
+//     columns per block, 280 of 288 threads busy, measured slower: the
+//     larger tile leaves fewer blocks per SM; see PERF.md.)
 //   - The band-space cloud prologue (odcl = taucld * secdiff, exp(-odcl),
 //     the cloudy (1 - exp(-odcl)) * cldfrac) is computed once per (layer,
 //     band) into shared memory by the block.
@@ -28,9 +30,9 @@
 //   - The g-sums take no block barrier: every 8 interfaces each warp
 //     reduce-scatters its 16 values (all-sky and clear-sky) with 16
 //     shuffles and writes the warp's partials to shared memory; after the
-//     up sweep one __syncthreads, then the partials of each (column,
-//     interface, flux) are added in warp order, so the sums are the same
-//     from run to run.
+//     up sweep one __syncthreads, then the partials of each (interface,
+//     flux) are added in warp order, so the sums are the same from run to
+//     run.
 // The z recurrences stay in registers; nothing per-g goes back to device
 // memory.  With the loads hidden this way, the sweeps' arithmetic (a
 // thread per (g, column) issues every layer's terms twice) is what takes
@@ -41,7 +43,8 @@ namespace {
 
 constexpr int kNgpt = 140;
 constexpr int kBands = 16;
-constexpr int kSlots = 5;  // warps that hold g-points of one column
+constexpr int kThreads = 160;  // 140 g-points in five warps
+constexpr int kWarps = kThreads / 32;
 
 // band (0-based) of each of the 140 g-points: NG = 10, 12, 16, 14, 16, 8,
 // 12, 8, 12, 6, 8, 8, 4, 2, 2, 2 (rrtmg_lw_init.f90 ngc)
@@ -175,139 +178,105 @@ __device__ __forceinline__ Layer layer_terms(const Tile& s, int z, int g,
 
 constexpr int kBatch = 8;  // interfaces reduced together
 
-// Warp sums of a[j] and b[j] (all-sky and clear-sky at interface
-// iface0 + step * j, j < kBatch) over the lanes of each local column this
-// warp holds, as one reduce-scatter: the 2 * kBatch values take 2 * kBatch
-// shuffles, where one reduction each would take 5.  Lanes 2j and 2j+1 end
-// with the sum of value j; the even lane stores it at
-// part[column][slot][iface][q (+1 for clear sky)].
-template <int NC>
-__device__ __forceinline__ void flush_partials(const float (&a)[kBatch],
-                                               const float (&b)[kBatch],
-                                               int my_lc, float* part,
-                                               int nz1, int iface0, int step,
-                                               int q) {
+// Warp sums of v[j] (all-sky) and v[kBatch + j] (clear-sky) at interface
+// iface0 + step * j, j < kBatch, over the warp's lanes, as one
+// reduce-scatter: the 2 * kBatch values take 2 * kBatch shuffles, where
+// one reduction each would take 5.  Lanes 2j and 2j+1 end with the sum of
+// value j; the even lane stores it at part[warp][iface][q (+1 for clear
+// sky)].
+__device__ __forceinline__ void flush_partials(float (&v)[2 * kBatch],
+                                               float* part, int nz1,
+                                               int iface0, int step, int q) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int c_first = warp * 32 / kNgpt;
-  const int c_last = min(warp * 32 + 31, NC * kNgpt - 1) / kNgpt;
 #pragma unroll
-  for (int k = 0; k < NC; ++k) {  // a warp spans at most NC columns
-    const int cc = c_first + k;
-    if (cc > c_last) break;
-    const bool mine = my_lc == cc;
-    float v[2 * kBatch];
+  for (int n = kBatch; n >= 1; n >>= 1) {
+    const bool up = lane & (2 * n);
 #pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      v[j] = mine ? a[j] : 0.0f;
-      v[kBatch + j] = mine ? b[j] : 0.0f;
-    }
-#pragma unroll
-    for (int n = kBatch; n >= 1; n >>= 1) {
-      const bool up = lane & (2 * n);
-#pragma unroll
-      for (int i = 0; i < n; ++i) {
-        const float send = up ? v[i] : v[i + n];
-        const float keep = up ? v[i + n] : v[i];
-        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * n);
-      }
-    }
-    v[0] += __shfl_xor_sync(0xffffffffu, v[0], 1);
-    const int j = lane >> 1;  // 0..kBatch-1 all-sky, kBatch.. clear
-    const int iface = iface0 + step * (j % kBatch);
-    if (!(lane & 1) && iface >= 0 && iface < nz1) {
-      const int slot = warp - (cc * kNgpt) / 32;
-      part[((cc * kSlots + slot) * nz1 + iface) * 4 + q + j / kBatch] = v[0];
+    for (int i = 0; i < n; ++i) {
+      const float send = up ? v[i] : v[i + n];
+      const float keep = up ? v[i + n] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * n);
     }
   }
+  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 1);
+  const int j = lane >> 1;  // 0..kBatch-1 all-sky, kBatch.. clear
+  const int iface = iface0 + step * (j % kBatch);
+  if (!(lane & 1) && iface >= 0 && iface < nz1)
+    part[((threadIdx.x >> 5) * nz1 + iface) * 4 + q + j / kBatch] = v[0];
 }
 
-template <int NC>
-__global__ void __launch_bounds__(((NC * kNgpt + 31) / 32) * 32)
+__global__ void __launch_bounds__(kThreads)
     rtrn_lw_kernel(Inputs in, float* __restrict__ totu,
                    float* __restrict__ totd, float* __restrict__ totuc,
                    float* __restrict__ totdc) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int nz = in.nz, ncol = in.ncol, nz1 = nz + 1;
-  const int F = tile_floats(nz);
-  const int c0 = blockIdx.x * NC;
-  const int ncols = min(NC, ncol - c0);
+  const long long c = blockIdx.x;
+  const Tile s = tile_at(smem, nz);
+  float* part = smem + tile_floats(nz);  // [warp][nz+1][4]: dn, dnc, up, upc
 
-  // 1. bring the columns in: 16-byte async copies of the g rows and band
+  // 1. bring the column in: 16-byte async copies of the g rows and band
   //    rows; cldfrac by plain loads
-  for (int lc = 0; lc < ncols; ++lc) {
-    const Tile s = tile_at(smem + lc * F, nz);
-    const long long c = c0 + lc;
-    for (int i = threadIdx.x; i < nz * (kNgpt / 4); i += blockDim.x) {
-      const int z = i / (kNgpt / 4);
-      const int q = 4 * (i - z * (kNgpt / 4));
-      const long long src = (z * static_cast<long long>(ncol) + c) * kNgpt + q;
-      cp_async16(s.taug + z * kNgpt + q, in.taug + src);
-      cp_async16(s.fracs + z * kNgpt + q, in.fracs + src);
-    }
-    for (int i = threadIdx.x; i < (3 * nz + 1) * 4; i += blockDim.x) {
-      const int r = i >> 2;
-      const int q = 4 * (i & 3);
-      if (r < nz) {
-        cp_async16(s.blay + r * kBands + q,
-                   in.planklay + (r * static_cast<long long>(ncol) + c) *
-                                     kBands + q);
-      } else if (r < 2 * nz + 1) {
-        const int z = r - nz;
-        cp_async16(s.blev + z * kBands + q,
-                   in.planklev + (z * static_cast<long long>(ncol) + c) *
-                                     kBands + q);
-      } else {
-        const int z = r - 2 * nz - 1;
-        cp_async16(s.odcl + z * kBands + q,
-                   in.taucld + (z * static_cast<long long>(ncol) + c) *
-                                   kBands + q);
-      }
-    }
-    for (int z = threadIdx.x; z < nz; z += blockDim.x)
-      s.cld[z] = __ldg(&in.cldfrac[z * static_cast<long long>(ncol) + c]);
+  for (int i = threadIdx.x; i < nz * (kNgpt / 4); i += kThreads) {
+    const int z = i / (kNgpt / 4);
+    const int q = 4 * (i - z * (kNgpt / 4));
+    const long long src = (z * static_cast<long long>(ncol) + c) * kNgpt + q;
+    cp_async16(s.taug + z * kNgpt + q, in.taug + src);
+    cp_async16(s.fracs + z * kNgpt + q, in.fracs + src);
   }
+  for (int i = threadIdx.x; i < (3 * nz + 1) * 4; i += kThreads) {
+    const int r = i >> 2;
+    const int q = 4 * (i & 3);
+    if (r < nz) {
+      cp_async16(s.blay + r * kBands + q,
+                 in.planklay + (r * static_cast<long long>(ncol) + c) *
+                                   kBands + q);
+    } else if (r < 2 * nz + 1) {
+      const int z = r - nz;
+      cp_async16(s.blev + z * kBands + q,
+                 in.planklev + (z * static_cast<long long>(ncol) + c) *
+                                   kBands + q);
+    } else {
+      const int z = r - 2 * nz - 1;
+      cp_async16(s.odcl + z * kBands + q,
+                 in.taucld + (z * static_cast<long long>(ncol) + c) *
+                                 kBands + q);
+    }
+  }
+  for (int z = threadIdx.x; z < nz; z += kThreads)
+    s.cld[z] = __ldg(&in.cldfrac[z * static_cast<long long>(ncol) + c]);
   cp_async_wait_all();
   __syncthreads();
 
   // 2. band-space cloud optics, once per (layer, band)
-  for (int lc = 0; lc < ncols; ++lc) {
-    const Tile s = tile_at(smem + lc * F, nz);
-    for (int i = threadIdx.x; i < nz * kBands; i += blockDim.x) {
-      const float cf = s.cld[i / kBands];
-      const bool cloudy = cf >= 1e-6f;
-      const long long sec_at =
-          (i % kBands) * static_cast<long long>(ncol) + c0 + lc;
-      const float od = cloudy ? s.odcl[i] * __ldg(&in.secdiff[sec_at]) : 0.0f;
-      const float e = expf(-od);
-      s.odcl[i] = od;
-      s.expcl[i] = e;
-      s.efcl[i] = cloudy ? (1.0f - e) * cf : 0.0f;
-    }
+  for (int i = threadIdx.x; i < nz * kBands; i += kThreads) {
+    const float cf = s.cld[i / kBands];
+    const bool cloudy = cf >= 1e-6f;
+    const float sec_b =
+        __ldg(&in.secdiff[(i % kBands) * static_cast<long long>(ncol) + c]);
+    const float od = cloudy ? s.odcl[i] * sec_b : 0.0f;
+    const float e = expf(-od);
+    s.odcl[i] = od;
+    s.expcl[i] = e;
+    s.efcl[i] = cloudy ? (1.0f - e) * cf : 0.0f;
   }
   __syncthreads();
 
-  // 3. one thread per (g, column); padding threads shadow g-point 0 of the
-  //    first column and add nothing
-  const int lc_raw = threadIdx.x / kNgpt;
-  const bool live = lc_raw < ncols;
-  const int lc = live ? lc_raw : 0;
-  const int g = live ? threadIdx.x - lc_raw * kNgpt : 0;
-  const int my_lc = live ? lc : -1;
-  const int c = c0 + lc;
+  // 3. one thread per g-point; padding threads shadow g-point 0 with a
+  //    zero quadrature weight
+  const bool live = threadIdx.x < kNgpt;
+  const int g = live ? threadIdx.x : 0;
   const int b = NGB[g];
-  const float dw = __ldg(&in.dwave_g[g]);
+  const float dw = live ? __ldg(&in.dwave_g[g]) : 0.0f;
   const float sec = __ldg(&in.secdiff[b * static_cast<long long>(ncol) + c]);
-  const Tile s = tile_at(smem + lc * F, nz);
-  float* part = smem + NC * F;  // [NC][kSlots][nz+1][4]: dn, dnc, up, upc
 
   // downward sweep, top layer (nz-1) to the surface, kBatch layers at a
   // time: the recurrence in registers, the g-sums of the batch reduced
   // together
   float rad = 0.0f, radc = 0.0f;
   for (int z0 = nz - 1; z0 >= 0; z0 -= kBatch) {
-    float a[kBatch], bb[kBatch];
+    float v[2 * kBatch];
 #pragma unroll
     for (int j = 0; j < kBatch; ++j) {
       const int z = z0 - j;
@@ -316,10 +285,10 @@ __global__ void __launch_bounds__(((NC * kNgpt + 31) / 32) * 32)
         rad = rad * (1.0f - L.aeff) + L.sdn;
         radc = radc * (1.0f - L.atr) + L.gdn;
       }
-      a[j] = dw * rad;
-      bb[j] = dw * radc;
+      v[j] = dw * rad;
+      v[kBatch + j] = dw * radc;
     }
-    flush_partials<NC>(a, bb, my_lc, part, nz1, z0, -1, 0);
+    flush_partials(v, part, nz1, z0, -1, 0);
   }
 
   // surface emission + reflection (rrtmg_lw_rtrn.f90:460-476), then the
@@ -331,7 +300,7 @@ __global__ void __launch_bounds__(((NC * kNgpt + 31) / 32) * 32)
   float radu = rad0 + reflect * rad;
   float raduc = rad0 + reflect * radc;
   for (int i0 = 0; i0 <= nz; i0 += kBatch) {
-    float a[kBatch], bb[kBatch];
+    float v[2 * kBatch];
 #pragma unroll
     for (int j = 0; j < kBatch; ++j) {
       const int i = i0 + j;
@@ -340,42 +309,24 @@ __global__ void __launch_bounds__(((NC * kNgpt + 31) / 32) * 32)
         radu = radu * (1.0f - L.aeff) + L.sup;
         raduc = raduc * (1.0f - L.atr) + L.gup;
       }
-      a[j] = dw * radu;
-      bb[j] = dw * raduc;
+      v[j] = dw * radu;
+      v[kBatch + j] = dw * raduc;
     }
-    flush_partials<NC>(a, bb, my_lc, part, nz1, i0, 1, 2);
+    flush_partials(v, part, nz1, i0, 1, 2);
   }
   __syncthreads();
 
   // 4. add the warp partials in warp order; the TOA downward flux is 0
-  for (int i = threadIdx.x; i < ncols * nz1 * 4; i += blockDim.x) {
-    const int cc = i / (nz1 * 4);
-    const int iface = (i / 4) % nz1;
+  for (int i = threadIdx.x; i < nz1 * 4; i += kThreads) {
+    const int iface = i >> 2;
     const int q = i & 3;
     float sum = 0.0f;
     if (q >= 2 || iface < nz) {
-      const int nslot = (cc * kNgpt + kNgpt - 1) / 32 - (cc * kNgpt) / 32 + 1;
-      for (int slot = 0; slot < nslot; ++slot)
-        sum += part[((cc * kSlots + slot) * nz1 + iface) * 4 + q];
+      for (int w = 0; w < kWarps; ++w) sum += part[(w * nz1 + iface) * 4 + q];
     }
     float* dst = q == 0 ? totd : (q == 1 ? totdc : (q == 2 ? totu : totuc));
-    dst[iface * static_cast<long long>(ncol) + c0 + cc] = sum;
+    dst[iface * static_cast<long long>(ncol) + c] = sum;
   }
-}
-
-template <int NC>
-int launch(const Inputs& in, float* totu, float* totd, float* totuc,
-           float* totdc, cudaStream_t stream) {
-  const size_t bytes =
-      sizeof(float) * NC * (tile_floats(in.nz) + kSlots * (in.nz + 1) * 4);
-  const cudaError_t e = cudaFuncSetAttribute(
-      rtrn_lw_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int threads = ((NC * kNgpt + 31) / 32) * 32;
-  rtrn_lw_kernel<NC><<<(in.ncol + NC - 1) / NC, threads, bytes, stream>>>(
-      in, totu, totd, totuc, totdc);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -384,13 +335,17 @@ extern "C" int climt_rtrn_lw_f32(
     const float* taug, const float* fracs, const float* planklay,
     const float* planklev, const float* plankbnd, const float* semiss,
     const float* secdiff, const float* cldfrac, const float* taucld,
-    const float* dwave_g, int nz, int ncol, float rec_6, int cols_per_block,
-    float* totu, float* totd, float* totuc, float* totdc, void* stream) {
+    const float* dwave_g, int nz, int ncol, float rec_6, float* totu,
+    float* totd, float* totuc, float* totdc, void* stream) {
   const Inputs in{taug,    fracs,  planklay, planklev, plankbnd,
                   semiss,  secdiff, cldfrac, taucld,   dwave_g,
                   nz,      ncol,   rec_6};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cols_per_block == 2) return launch<2>(in, totu, totd, totuc, totdc, s);
-  if (cols_per_block == 1) return launch<1>(in, totu, totd, totuc, totdc, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = sizeof(float) * (tile_floats(nz) + kWarps * (nz + 1) * 4);
+  const cudaError_t e = cudaFuncSetAttribute(
+      rtrn_lw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rtrn_lw_kernel<<<ncol, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      in, totu, totd, totuc, totdc);
+  return static_cast<int>(cudaGetLastError());
 }
