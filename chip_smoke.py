@@ -42,7 +42,7 @@ T85_STEPS = 12
 # 1.1e-7 kg/kg and 0.32 Pa; the bounds leave 50x room for the other
 # summation order and transcendental roundoff of the card.
 SMALL_TOL = dict(T=0.01, u=0.02, v=0.02, q=5e-6, ps=15.0)
-# H100 SXM peaks (on-chip-measurement guide): device memory bytes/s and
+# H100 SXM peaks (NVIDIA's data sheet): device memory bytes/s and
 # float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12

@@ -22,11 +22,12 @@ radiation call of one column chunk makes 6 launches of kernel B.
 Bound on the card: bytes.  Each term streams 4 bytes of weight and, when
 its table has more than one row, 4 bytes of index per cell; the output is
 written once; the packed tables (at most 116 KB per band) stay in L1/L2.
-``csrc/mix_rows.cu`` runs one thread per cell and one block row per band:
-the thread loads each term's index and weight once (coalesced along
-cells), reads table rows as float4, keeps the ng sums in registers and
-stages its row through shared memory so that the block writes the band's
-slice of the output coalesced.
+``csrc/mix_rows.cu`` runs one thread per cell and one block per (band,
+128-cell tile), the band fastest so that the blocks writing one tile's
+output rows run together: the thread loads each term's index and weight
+once (coalesced along cells), reads table rows as float4, keeps the ng
+sums in registers and stages its row through shared memory so that the
+block writes the band's slice of the output in contiguous runs.
 
 Layout (``Layout``): built once per output, dtype and device and cached.
 Every part's table is padded to a multiple of 4 floats per row and packed

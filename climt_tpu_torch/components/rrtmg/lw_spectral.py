@@ -552,7 +552,7 @@ def rtrn_lw(taug, fracs, planklay, planklev, plankbnd, semiss, pwvcm,
 def gas_coefs_lw(play, plev, tlay, tlev, tsfc, emis, h2ovmr, o3vmr,
                  co2vmr, ch4vmr, n2ovmr, o2vmr, cfc11vmr, cfc12vmr,
                  cfc22vmr, ccl4vmr, grav, avogad):
-    """inatm and setcoef of the LW driver (:977-989): the interpolation
+    """inatm and setcoef of rrtmg_lw_fluxes (:977-989): the interpolation
     coefficients ``cs``, the cross-section amounts ``wx`` and the
     precipitable water ``pwvcm`` that taumol and rtrn read."""
     vmr = dict(h2o=h2ovmr, co2=co2vmr, o3=o3vmr, n2o=n2ovmr,

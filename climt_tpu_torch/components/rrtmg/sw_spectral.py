@@ -620,7 +620,7 @@ def solar_variability(isolvar, scon, solcycfrac=0.0, indsolvar=(1.0, 1.0),
 
 def gas_coefs_sw(play, plev, tlay, h2ovmr, o3vmr, co2vmr, ch4vmr,
                  n2ovmr, o2vmr, grav, avogadro):
-    """Column amounts and setcoef of the SW driver: the interpolation
+    """Column amounts and setcoef of rrtmg_sw_fluxes: the interpolation
     coefficients that taumol reads."""
     pdp = plev[:-1] - plev[1:]
     amm = (1.0 - h2ovmr) * AMD + h2ovmr * AMW

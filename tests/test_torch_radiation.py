@@ -91,7 +91,8 @@ def test_f32_inputs_give_f32_outputs(columns, band):
 
 def _jax_taumol(c):
     """JAX taumol_lw (taug, fracs) and taumol_sw (taug, taur, sflux) at
-    float64 on columns ``c``, set up as the JAX drivers set them up."""
+    float64 on columns ``c``, set up as the JAX rrtmg_lw_fluxes and
+    rrtmg_sw_fluxes set them up."""
     from climt_tpu.components.rrtmg import lw_spectral as JL
     from climt_tpu.components.rrtmg import sw_spectral as JS
     j = {k: jnp.asarray(v) for k, v in c.items()
