@@ -20,7 +20,18 @@ Phases, each of which fails loudly (no exception is turned into exit 0):
      rad_col_chunk=8192), 12 steps through build_moist_gcm's step_fn,
      with both kernels' launch counts read around that run: it fails if a
      radiation refresh launches kernel B more than 40 times;
-  7. standalone LW+SW radiation at nz=60, ncol=8192, in columns/s.
+  7. standalone LW+SW radiation at nz=60, ncol=8192, in columns/s;
+  8. the fused Held-Suarez model at bench.py's T42 (128x64x28, f32, dt
+     600 s), 1000 steps after one warm-up step, in s/step and
+     gridpoint-steps/s, with peak memory;
+  9. the Held-Suarez climatology of tests/test_dycore_multistep.py
+     (64x32x20, dt 1200 s, f64, 30 days = 2160 steps) and that file's
+     three checks: physical bounds, global mean surface pressure within
+     500 Pa of 1e5, a westerly jet aloft in midlatitudes;
+ 10. examples/held_suarez.py's body on the component API
+     (``import climt_tpu_torch as ct``): 128x64x20, 96 calls of 15 min on
+     the card, timed per call; then 8 calls at 32x16x10 on the CPU and on
+     the card, held against each other at float64.
 The line before the last is a JSON object with each kernel's launches,
 error, time, bound, plain and library times; the last line is
 {"ok": true, "device": {...}}.
@@ -51,6 +62,18 @@ FP32_OPS_PER_S = 67e12
 # (about 6), twice, plus the exp
 RTRN_OPS_PER_POINT = 80
 B_LAUNCHES_PER_REFRESH_MAX = 40
+T42 = dict(nlon=128, nlat=64, nz=28, timestep=600.0)
+T42_STEPS = 1000
+# phase 10: 8 calls of the component API at 32x16x10, GPU float64 against
+# CPU float64, max abs difference over max abs value of each output field;
+# on the CPU the port matches the JAX package to 1e-10 of max over 5 calls
+# (tests/test_torch_held_suarez.py), and the card differs from the CPU
+# only in summation order
+EXAMPLE_TOL = 1e-9
+GFS_OUTPUTS = ('eastward_wind', 'northward_wind', 'air_temperature',
+               'specific_humidity', 'surface_air_pressure', 'air_pressure',
+               'air_pressure_on_interface_levels', 'divergence_of_wind',
+               'atmosphere_relative_vorticity')
 G, AVOGADRO = 9.80665, 6.022140857e23
 
 
@@ -128,6 +151,182 @@ def embedding_bag_call(layout, idx, w, torch):
     return fn, check
 
 
+def held_suarez_example(device, n_calls, nx, ny, nz, dt_minutes=15):
+    """examples/held_suarez.py's main() with climt_tpu_torch as ct and
+    ``device`` given to HeldSuarez and GFSDynamicalCore, for n_calls
+    calls.  Returns (state, dycore, seconds of each call)."""
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+
+    import climt_tpu_torch as ct
+    from climt_tpu_torch.dycore.gfs import GFSDynamicalCore
+
+    held_suarez = ct.HeldSuarez(device=device)
+    dycore = GFSDynamicalCore([held_suarez], number_of_damped_levels=5,
+                              moist=False, device=device)
+    grid = ct.get_grid(nx=nx, ny=ny, nz=nz)
+    state = ct.get_default_state([dycore], grid_state=grid)
+    rng = np.random.RandomState(42)
+    state['air_temperature'].values[:] += 0.1 * rng.randn(
+        *state['air_temperature'].shape)
+    timestep = timedelta(minutes=dt_minutes)
+    call_s = []
+    for _ in range(n_calls):
+        t0 = time.perf_counter()
+        diagnostics, new_state = dycore(state, timestep)
+        state.update(new_state)
+        state['time'] += timestep
+        if torch.device(device).type == 'cuda':
+            torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t0)
+    return state, dycore, call_s
+
+
+def held_suarez_model_phase(dev, card, launch_counts, size=T42,
+                            steps=T42_STEPS):
+    """Phase 8: the fused Held-Suarez model, f32, ``steps`` steps after one
+    warm-up step, timed; fails on a non-finite field or T outside
+    (150, 350) K."""
+    import torch
+    from climt_tpu_torch.dycore.compiled import build_held_suarez_model
+
+    dycore, init_fn, step_fn, run_fn = build_held_suarez_model(
+        dtype=torch.float32, device=dev, **size)
+    carry, _ = step_fn(init_fn(0))              # warm-up step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    carry = run_fn(carry, steps)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sht = dycore.sht
+    T = sht.synthesize(carry[1]['T'])
+    u, v = sht.uv_from_vort_div(carry[1]['vort'], carry[1]['div'])
+    ps = torch.exp(sht.synthesize(carry[1]['lnps']))
+    for key, val in (('T', T), ('u', u), ('v', v), ('ps', ps)):
+        if not bool(torch.isfinite(val).all()):
+            fail('Held-Suarez model: NaN or inf in %s' % key)
+    shape = (size['nz'], size['nlat'], size['nlon'])
+    if not (tuple(T.shape) == shape
+            and 150.0 < float(T.min()) and float(T.max()) < 350.0):
+        fail('Held-Suarez model: temperature out of range [%g, %g]' % (
+            float(T.min()), float(T.max())))
+    points = size['nlon'] * size['nlat'] * size['nz']
+    phase(8, 'Held-Suarez %dx%dx%d f32, dt %g s, %d steps: %.6f s/step, '
+          '%.6g gridpoint-steps/s; peak memory %.3f GB; T in [%.1f, %.1f] '
+          'K, max |u| %.2f m/s; %s; on %s' % (
+              size['nlon'], size['nlat'], size['nz'], size['timestep'],
+              steps, step_s, points / step_s, peak_gb, float(T.min()),
+              float(T.max()), float(u.abs().max()), launch_counts(), card))
+
+
+def climatology_phase(dev, card, launch_counts, days=30):
+    """Phase 9: tests/test_dycore_multistep.py's Held-Suarez climatology
+    (64x32x20, dt 1200 s, f64) and its three checks (:35-71)."""
+    import numpy as np
+    import torch
+    from climt_tpu_torch.dycore.compiled import build_held_suarez_model
+
+    dycore, init_fn, _, run_fn = build_held_suarez_model(
+        nlon=64, nlat=32, nz=20, timestep=1200.0, dtype=torch.float64,
+        device=dev)
+    steps = days * 72
+    t0 = time.perf_counter()
+    carry = run_fn(init_fn(0), steps)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    sht = dycore.sht
+    spec = carry[1]
+    T = sht.synthesize(spec['T']).cpu().numpy()
+    u, v = (x.cpu().numpy() for x in sht.uv_from_vort_div(spec['vort'],
+                                                          spec['div']))
+    ps = np.exp(sht.synthesize(spec['lnps']).cpu().numpy())
+    if not (np.isfinite(T).all() and np.isfinite(u).all()
+            and np.isfinite(v).all() and np.isfinite(ps).all()):
+        fail('climatology: non-finite state after %d days' % days)
+    if not (150.0 < T.min() and T.max() < 350.0 and np.abs(u).max() < 150.0
+            and 8.0e4 < ps.min() and ps.max() < 1.2e5):
+        fail('climatology: out of bounds: T [%g, %g], max |u| %g, ps '
+             '[%g, %g]' % (T.min(), T.max(), np.abs(u).max(), ps.min(),
+                           ps.max()))
+    w = sht.weights[:, None]
+    mean_ps = (w * ps).sum() / (w.sum() * ps.shape[1])
+    if not abs(mean_ps - 1.0e5) < 500.0:
+        fail('climatology: global mean ps %g is not within 500 Pa of 1e5'
+             % mean_ps)
+    uz = u.mean(axis=2)                        # zonal mean, top-down
+    lat = np.degrees(np.arcsin(sht.mu))
+    mid = (np.abs(lat) > 20.0) & (np.abs(lat) < 70.0)
+    upper = uz[:uz.shape[0] // 2, :][:, mid]
+    if not (upper.max() > 10.0 and upper.mean() > 0.0):
+        fail('climatology: no westerly jet aloft (max %g, mean %g m/s)'
+             % (upper.max(), upper.mean()))
+    phase(9, 'Held-Suarez 64x32x20 f64, %d days (%d steps of 1200 s) in '
+          '%.2f s (%.6f s/step): T in [%.1f, %.1f] K, max |u| %.1f m/s, '
+          'global mean ps %.1f Pa, upper midlatitude zonal-mean u max %.1f '
+          'mean %.2f m/s; %s; on %s' % (
+              days, steps, run_s, run_s / steps, T.min(), T.max(),
+              np.abs(u).max(), mean_ps, upper.max(), upper.mean(),
+              launch_counts(), card))
+
+
+def component_api_phase(dev, card, launch_counts, size=(128, 64, 20),
+                        n_calls=96):
+    """Phase 10: examples/held_suarez.py's body on ``dev``, ``n_calls``
+    calls at ``size``, timed per call, with the share of a call spent
+    outside the SpectralDycore step; then 8 calls at 32x16x10 on the CPU
+    and on ``dev``, held against each other within EXAMPLE_TOL."""
+    import torch
+
+    state, gfs, call_s = held_suarez_example(dev, n_calls, *size)
+    for name in GFS_OUTPUTS:
+        values = state[name].values
+        if not (isinstance(values, torch.Tensor)
+                and values.device.type == dev.type):
+            fail('component API: %s does not live on %s' % (name, dev))
+        if not bool(torch.isfinite(values).all()):
+            fail('component API: NaN or inf in %s' % name)
+    T = state['air_temperature'].values
+    if not (150.0 < float(T.min()) and float(T.max()) < 350.0):
+        fail('component API: temperature out of range')
+    steady = sorted(call_s[1:])
+    call_med = steady[len(steady) // 2]
+    # the same SpectralDycore step alone, on the dycore's leapfrog memory
+    prev = gfs._prev
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        gfs._dycore.step(prev, prev)
+    torch.cuda.synchronize()
+    step_alone = (time.perf_counter() - t0) / 20
+    phase(10, 'component API %dx%dx%d f64, %d calls of 15 min: first call '
+          '%.4f s (builds the SpectralDycore, forward start), then median '
+          '%.4f s/call [min %.4f, max %.4f]; the SpectralDycore step alone '
+          '%.4f s, so %.0f%% of a call is outside it; max |u| %.2f m/s; %s; '
+          'on %s' % (size + (n_calls, call_s[0], call_med, steady[0],
+                             steady[-1], step_alone,
+                             100.0 * (1.0 - step_alone / call_med),
+                             float(state['eastward_wind'].values.abs().max()),
+                             launch_counts(), card)))
+    del state, gfs, prev
+    small = {where: held_suarez_example(where, 8, 32, 16, 10)[0]
+             for where in (torch.device('cpu'), dev)}
+    worst = 0.0
+    for name in GFS_OUTPUTS:
+        err, scale = max_rel_err(small[dev][name].values.cpu(),
+                                 small[torch.device('cpu')][name].values)
+        if not err <= EXAMPLE_TOL * scale:
+            fail('component API: %s on %s differs from the CPU by %g > %g * '
+                 '%g' % (name, dev, err, EXAMPLE_TOL, scale))
+        worst = max(worst, err / scale if scale else err)
+    phase(10, 'component API 32x16x10 f64, 8 calls, %s against the CPU: '
+          'largest difference %.3g of max (limit %g)' % (dev, worst,
+                                                          EXAMPLE_TOL))
+
+
 def max_rel_err(a, b):
     """max |a - b| and the scale max |b| of two tensors."""
     return float((a - b).abs().max()), float(b.abs().max())
@@ -137,6 +336,7 @@ def main():
     import numpy as np
     import torch
 
+    t_start = time.perf_counter()
     # ---- phase 1: device ---------------------------------------------
     if not torch.cuda.is_available():
         fail('torch.cuda.is_available() is False: this needs a CUDA GPU')
@@ -473,6 +673,18 @@ def main():
     phase(7, 'standalone LW+SW radiation nz=%d ncol=%d: %.4g columns/s '
           'on %s' % (nz, ncol, rad_cols, card))
 
+    # ---- phases 8-10: Held-Suarez, fused and on the component API ------
+    def launch_counts():
+        return 'kernel launches A=%d B=%d' % (
+            rtrn_kernel.rtrn_lw_cuda.launches,
+            fused_mix.mix_groups_cuda.launches)
+
+    for run_phase in (held_suarez_model_phase, climatology_phase,
+                      component_api_phase):
+        fused_mix.mix_groups_cuda.launches = 0
+        rtrn_kernel.rtrn_lw_cuda.launches = 0
+        run_phase(dev, card, launch_counts)
+
     kernels = [
         dict(name='mix_groups_cuda', route='cuda',
              source='climt_tpu_torch/csrc/mix_rows.cu',
@@ -483,6 +695,8 @@ def main():
              replaces='climt_tpu/components/rrtmg/pallas_rtrn.py:195',
              launches=launches['A'], **report['A']),
     ]
+    print('chip_smoke: all phases in %.1f s, the nvcc build included'
+          % (time.perf_counter() - t_start), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

@@ -1,8 +1,8 @@
-"""PyTorch + CUDA port of climt_tpu's fused moist GCM.
+"""PyTorch + CUDA port of climt_tpu.
 
 The package mirrors ``climt_tpu``'s layout (``core/``, ``ops/``,
-``dycore/``, ``components/rrtmg/``) module for module, so that every
-ported function has one JAX counterpart to be tested against.  It imports
+``dycore/``, ``components/``) module for module, so that every ported
+function has one JAX counterpart to be tested against.  It imports
 ``torch`` and never ``jax`` or ``climt_tpu``; constants and numpy-only
 helpers it needs from the JAX package are copied with their source line
 named beside them, and the RRTMG tables are read by path (``data.py``).
@@ -11,5 +11,64 @@ The two radiation kernels that the JAX package writes in Pallas are
 hand-written CUDA here (``csrc/``), built with ``nvcc`` for ``sm_90a`` at
 first use (``_build.py``).  Importing the package compiles nothing.
 
-Entry point: ``climt_tpu_torch.dycore.moist_gcm.build_moist_gcm``.
+Entry points: climt's component API under the names ``climt_tpu``
+exports (``import climt_tpu_torch as ct``; ``ct.get_grid``,
+``ct.get_default_state``, ``ct.HeldSuarez``, ``ct.GFSDynamicalCore``, the
+steppers and wrappers), and the fused models
+``climt_tpu_torch.dycore.moist_gcm.build_moist_gcm`` and
+``climt_tpu_torch.dycore.compiled.build_held_suarez_model``.  Whatever
+builds on a device takes ``device=`` and defaults to the CUDA card.
 """
+
+from .core.base_components import (
+    ComponentBase, ConstantDiagnosticComponent, ConstantTendencyComponent,
+    DiagnosticComponent, ImplicitTendencyComponent, Stepper,
+    TendencyComponent,
+)
+from .core.constants import (
+    ConstantNotFoundError, constant_names, get_constant,
+    get_constants_string, list_available_constants, reset_constants,
+    set_constant, set_constants_from_dict,
+)
+from .core.dataarray import DataArray
+from .core.grid import (
+    HybridSigmaPressureDiagnosticComponent, gaussian_latitudes, get_grid,
+    hybrid_sigma_pressure_coefficients,
+)
+from .core.initialization import (
+    ConstantDefaultValue, PressureFunctionDiagnosticComponent,
+    aggregate_input_properties, default_values, get_default_state,
+    get_init_diagnostic, init_ozone,
+)
+from .core.properties import (
+    InvalidPropertyDictError, InvalidStateError,
+    combine_component_properties, extract_arrays, restore_arrays,
+)
+from .core.steppers import (
+    AdamsBashforth, Leapfrog, SSPRungeKutta, TendencyStepper,
+)
+from .core.units import (
+    UnitError, conversion_factor, is_valid_unit, units_are_compatible,
+    units_are_same,
+)
+from .core.util import (
+    bolton_dqsat_dT, bolton_q_sat, calculate_q_sat, get_interface_values,
+    mass_to_volume_mixing_ratio, numpy_version_of, torch_version_of,
+)
+from .core.wrappers import (
+    ScalingWrapper, TimeDifferencingWrapper, UpdateFrequencyWrapper,
+)
+from .core.tracers import (
+    TracerPacker, get_tracer_names, get_tracer_unit_dict, register_tracer,
+    reset_packers, reset_tracers,
+)
+from .components.held_suarez import HeldSuarez
+from .dycore.gfs import GFSDynamicalCore
+from .dycore.spectral_dynamics import SpectralDycore
+
+__version__ = '0.1.0'
+
+# climt overrides the model-top pressure at import; the JAX package does
+# the same (climt_tpu/__init__.py:74), and so must this one, or the grids
+# differ.
+set_constant('top_of_model_pressure', 20., 'Pa')

@@ -1,12 +1,14 @@
-"""Carry the moist GCM's state between the JAX model and this port.
+"""Carry a model's state between the JAX package and this port.
 
 The carry of both ``build_moist_gcm`` models is ``(prev, now, grids, aux,
 k)``: ``prev``/``now`` dicts of complex spectral fields (nz or 1 leading
 levels, (M+1, N+1) trailing), ``grids`` and ``aux`` dicts of real grid
-fields, ``k`` the step index.  The JAX carry fetched with ``np.asarray``
-on every leaf (a nested tuple of dicts of numpy arrays) converts to the
-port's carry and back.  The model has no trainable weights; its tables
-come from the same files in both packages.
+fields, ``k`` the step index.  The carry of both
+``build_held_suarez_model`` models is ``(prev, now, prev_grids)``, dicts
+of the same kinds.  A JAX carry fetched with ``np.asarray`` on every leaf
+(a tuple of dicts of numpy arrays, and the step index) converts to the
+port's carry and back.  The models have no trainable weights; their
+tables come from the same files in both packages.
 """
 
 from __future__ import annotations
@@ -24,17 +26,16 @@ def _to_tensor(x, device, dtype):
 
 
 def carry_from_numpy(carry_np, device, dtype):
-    """(prev, now, grids, aux, k) of numpy arrays -> the port's carry."""
-    prev, now, grids, aux, k = carry_np
-    dicts = tuple({name: _to_tensor(v, device, dtype)
-                   for name, v in d.items()}
-                  for d in (prev, now, grids, aux))
-    return dicts + (int(np.asarray(k)),)
+    """A carry of numpy arrays -> the port's carry: each dict's arrays
+    become tensors, a step index a Python int."""
+    return tuple({name: _to_tensor(v, device, dtype)
+                  for name, v in part.items()} if isinstance(part, dict)
+                 else int(np.asarray(part)) for part in carry_np)
 
 
 def carry_to_numpy(carry):
-    """The port's carry -> (prev, now, grids, aux, k) of numpy arrays."""
-    prev, now, grids, aux, k = carry
-    dicts = tuple({name: v.detach().cpu().numpy() for name, v in d.items()}
-                  for d in (prev, now, grids, aux))
-    return dicts + (np.int32(k),)
+    """The port's carry -> the same tuple of dicts of numpy arrays, with a
+    step index as an int32."""
+    return tuple({name: v.detach().cpu().numpy()
+                  for name, v in part.items()} if isinstance(part, dict)
+                 else np.int32(part) for part in carry)

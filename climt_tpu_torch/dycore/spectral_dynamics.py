@@ -126,6 +126,11 @@ class SpectralDycore(nn.Module):
                 (number_of_damped_levels - lev) / number_of_damped_levels)
         buf('rayleigh', damp)
 
+    def set_surface_geopotential(self, phi_s_grid):
+        """Set the (nlat, nlon) surface geopotential field (:238)."""
+        self.phi_s = torch.as_tensor(phi_s_grid, dtype=self.dtype,
+                                     device=self.phi_s.device)
+
     # ------------------------------------------------------------------
     def spectral_state_from_grid(self, u, v, T, q, lnps):
         """Grid (nz, nlat, nlon) top-down fields -> spectral state dict."""
@@ -134,6 +139,14 @@ class SpectralDycore(nn.Module):
         vort, div = self.sht.vort_div_analysis(U, V)
         return {'vort': vort, 'div': div, 'T': self.sht.analyze(T),
                 'q': self.sht.analyze(q), 'lnps': self.sht.analyze(lnps)}
+
+    def grid_state_from_spectral(self, spec):
+        """Grid (u, v, T, q, lnps) of a spectral state (:259)."""
+        sht = self.sht
+        u, v = sht.uv_from_vort_div(spec['vort'], spec['div'])
+        return {'u': u, 'v': v, 'T': sht.synthesize(spec['T']),
+                'q': sht.synthesize(spec['q']),
+                'lnps': sht.synthesize(spec['lnps'])}
 
     def _vertical_structures(self, ps):
         """Pressure structure from surface pressure (nlat, nlon)."""
@@ -145,10 +158,11 @@ class SpectralDycore(nn.Module):
             [torch.full_like(alpha[:1], math.log(2.0)), alpha[1:]], dim=0)
         return p_half, dp, ln_ratio, alpha
 
-    def explicit_tendencies(self, spec, phys=None):
+    def explicit_tendencies(self, spec, phys=None, physics_fn=None):
         """Full nonlinear tendencies at the centre time level
         (spectral_dynamics.py:283).  ``phys`` optionally carries grid
-        physics tendencies {du, dv, dT, dq} (top-down)."""
+        physics tendencies {du, dv, dT, dq} (top-down); ``physics_fn``
+        instead computes them from the synthesized grid fields."""
         sht = self.sht
         u, v = sht.uv_from_vort_div(spec['vort'], spec['div'])
         vort_g = sht.synthesize(spec['vort'])
@@ -161,6 +175,11 @@ class SpectralDycore(nn.Module):
         dlnps_dx, dlnps_dy = sht.gradient(spec['lnps'])
         p_half, dp, ln_ratio, alpha = self._vertical_structures(ps)
         Tv = T_g * (1.0 + 0.608 * q_g)
+        if physics_fn is not None:
+            if phys is not None:
+                raise ValueError('pass phys or physics_fn, not both')
+            phys = physics_fn({'u': u, 'v': v, 'T': T_g, 'q': q_g, 'ps': ps,
+                               'p_half': p_half, 'dp': dp})
 
         v_dot_gradlnps = u * dlnps_dx[None] + v * dlnps_dy[None]
         S = dp * div_g + ps[None] * self.dB[:, None, None] * v_dot_gradlnps
@@ -240,12 +259,19 @@ class SpectralDycore(nn.Module):
         return torch.complex(torch.einsum('j,jmn->mn', vec, x.real),
                              torch.einsum('j,jmn->mn', vec, x.imag))
 
-    def step(self, prev, now, phys=None):
+    def step(self, prev, now, phys=None, dt=None, physics_fn=None,
+             prev_grids=None):
         """One semi-implicit leapfrog step (spectral_dynamics.py:435).
 
+        ``physics_fn`` is evaluated on ``prev_grids`` when given (lagged
+        physics), else on the centre grids; ``dt`` defaults to the
+        construction timestep, for which the implicit inverses are exact.
         Returns (filtered_now, new, now_grids)."""
-        dt = self.dt
-        tend, now_grids = self.explicit_tendencies(now, phys)
+        dt = self.dt if dt is None else dt
+        if physics_fn is not None and prev_grids is not None:
+            phys = physics_fn(prev_grids)
+            physics_fn = None
+        tend, now_grids = self.explicit_tendencies(now, phys, physics_fn)
 
         two_dt = 2.0 * dt
         T_expl = prev['T'] + two_dt * tend['T']
@@ -293,12 +319,13 @@ class SpectralDycore(nn.Module):
                 'q': sht.synthesize(spec['q']), 'ps': ps,
                 'p_half': p_half, 'dp': dp}
 
-    def initial_step(self, now, phys=None):
-        """Forward start: (now, state at t+dt) by a half-then-full step."""
-        dt = self.dt
-        tend, _ = self.explicit_tendencies(now, phys)
+    def initial_step(self, now, phys=None, dt=None, physics_fn=None):
+        """Forward start: (now, state at t+dt) by a half-then-full step
+        (:555); ``physics_fn`` is evaluated on both."""
+        dt = self.dt if dt is None else dt
+        tend, _ = self.explicit_tendencies(now, phys, physics_fn)
         half = {k: now[k] + 0.5 * dt * tend[k] for k in now}
-        tend2, _ = self.explicit_tendencies(half, phys)
+        tend2, _ = self.explicit_tendencies(half, phys, physics_fn)
         new = {k: now[k] + dt * tend2[k] for k in now}
         for key in ('vort', 'div', 'T', 'q'):
             new[key] = new[key] * self.hyperdiff_factor_start[None]

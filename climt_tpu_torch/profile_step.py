@@ -1,24 +1,28 @@
-"""Device profile of the T85 moist GCM's steps on one GPU.
+"""Device profile of a fused model's steps on one GPU.
 
-    python -m climt_tpu_torch.profile_step
+    python -m climt_tpu_torch.profile_step [--model moist|held_suarez]
 
-Runs the T85 model (256x128x28, f32, rad_every=6, rad_col_chunk=8192)
-for steps 0-5, then traces step 6 (a radiation refresh) and step 7 (a
-step that reuses the stored heating rates) with ``torch.profiler``.  For
-each it prints the wall time, the summed kernel time, the device busy
-share (kernel time over wall time: one stream, so kernels do not
-overlap), the number of kernel launches, and the kernels that take the
-most device time.  Wall times include the profiler's own overhead.
+``moist`` (the default) runs the T85 moist GCM (256x128x28, f32,
+rad_every=6, rad_col_chunk=8192) for steps 0-5, then traces step 6 (a
+radiation refresh) and step 7 (a step that reuses the stored heating
+rates).  ``held_suarez`` runs the T42 Held-Suarez model of ``bench.py``
+(128x64x28, f32, dt 600 s) for 5 steps, then traces step 5 and step 6.
+For each traced step it prints the wall time, the summed kernel time, the
+device busy share (kernel time over wall time: one stream, so kernels do
+not overlap), the number of kernel launches, and the kernels that take
+the most device time.  Wall times include the profiler's own overhead.
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from .dycore.compiled import build_held_suarez_model
 from .dycore.moist_gcm import build_moist_gcm
 
 
@@ -27,26 +31,42 @@ def _kernel_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def main():
+def _build(model, dev):
+    """(step_fn, carry, warm-up steps, labels of the traced steps)."""
+    if model == 'moist':
+        _, init_fn, step_fn, _ = build_moist_gcm(
+            nlon=256, nlat=128, nz=28, timestep=600.0, dtype=torch.float32,
+            rad_every=6, rad_col_chunk=8192, device=dev)
+        return step_fn, init_fn(0), 6, ('radiation step (k=6)',
+                                        'plain step (k=7)')
+    _, init_fn, step_fn, _ = build_held_suarez_model(
+        nlon=128, nlat=64, nz=28, timestep=600.0, dtype=torch.float32,
+        device=dev)
+    return step_fn, init_fn(0), 5, ('held-suarez T42 step (k=5)',
+                                    'held-suarez T42 step (k=6)')
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--model', choices=('moist', 'held_suarez'),
+                        default='moist')
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('needs a CUDA GPU')
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    dev = torch.device('cuda:0')
-    _, init_fn, step_fn, _ = build_moist_gcm(
-        nlon=256, nlat=128, nz=28, timestep=600.0, dtype=torch.float32,
-        rad_every=6, rad_col_chunk=8192, device=dev)
-    carry = init_fn(0)
-    for _ in range(6):
-        carry, _ = step_fn(carry)
+    step_fn, carry, warm, labels = _build(args.model,
+                                          torch.device('cuda:0'))
+    for _ in range(warm):
+        carry, _ = step_fn(carry, None)
     torch.cuda.synchronize()
-    for label in ('radiation step (k=6)', 'plain step (k=7)'):
+    for label in labels:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            carry, _ = step_fn(carry)
+            carry, _ = step_fn(carry, None)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernels = _kernel_events(prof)

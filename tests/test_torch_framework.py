@@ -1,0 +1,410 @@
+"""climt_tpu_torch's component framework (units, DataArray, constants,
+properties, grid, default state, steppers, wrappers, tracers) against the
+JAX package, on the CPU at float64."""
+
+from datetime import timedelta
+
+import numpy as np
+import pytest
+import torch
+
+import climt_tpu as jct
+import climt_tpu_torch as tct
+from climt_tpu.core import properties as jprops
+from climt_tpu.core import tracers as jtracers
+from climt_tpu.core import units as junits
+from climt_tpu.core.dataarray import DataArray as JDataArray
+from climt_tpu_torch.core import constants as tconstants
+from climt_tpu_torch.core import properties as tprops
+from climt_tpu_torch.core import tracers as ttracers
+from climt_tpu_torch.core import units as tunits
+from climt_tpu_torch.core.dataarray import DataArray as TDataArray
+
+from torch_helpers import rel_err
+
+NX, NY, NZ = 32, 16, 10
+DT = timedelta(minutes=15)
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_registries():
+    """The port keeps its own constants and tracer registries; reset them
+    as tests/conftest.py resets the JAX package's constants."""
+    for reset in (_reset_port, _reset_jax_tracers):
+        reset()
+    yield
+    for reset in (_reset_port, _reset_jax_tracers):
+        reset()
+
+
+def _reset_port():
+    tconstants.reset_constants()
+    tconstants.set_constant('top_of_model_pressure', 20., 'Pa')
+    ttracers.reset_tracers()
+    ttracers.reset_packers()
+
+
+def _reset_jax_tracers():
+    jtracers.reset_tracers()
+    jtracers.reset_packers()
+
+
+def _values(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _perturbed_states(components_t, components_j, seed=0):
+    """The default states of both packages at NX x NY x NZ with the same
+    random winds, temperature and humidity written into them."""
+    st = tct.get_default_state(
+        components_t, grid_state=tct.get_grid(nx=NX, ny=NY, nz=NZ))
+    sj = jct.get_default_state(
+        components_j, grid_state=jct.get_grid(nx=NX, ny=NY, nz=NZ))
+    rng = np.random.RandomState(seed)
+    shape = st['air_temperature'].shape
+    fields = {'eastward_wind': 10.0 * rng.randn(*shape),
+              'northward_wind': 5.0 * rng.randn(*shape),
+              'air_temperature': 260.0 + 20.0 * rng.rand(*shape),
+              'specific_humidity': 1e-3 * rng.rand(*shape)}
+    for name, value in fields.items():
+        if name in st:
+            st[name].values[:] = value
+            sj[name].values[:] = value
+    return st, sj
+
+
+# -- units and constants -------------------------------------------------------
+
+UNIT_PAIRS = [
+    ('m s^-1', 'm/s'), ('m s^-2', 'm s^-1 s^-1'), ('degK', 'K'),
+    ('degK s^-1', 'K/day'), ('J/kg/degK', 'J kg^-1 K^-1'), ('Pa', 'hPa'),
+    ('mm day^-1', 'm s^-1'), ('kg m^-2 s^-1', 'W m^-2'), ('degC', 'degK'),
+    ('degrees_north', 'radians'), ('kg/kg', 'g/kg'), ('m^2 s^-2', 'J/kg'),
+    ('micrometer', 'm'), ('mole/mole', 'dimensionless'), ('s^-1', '1/s'),
+    ('W/m^2/K^4', 'W m^-2 K^-4'), ('kg/(m**2*s)', 'kg m^-2 s^-1'),
+]
+
+
+def _outcome(fn, *args):
+    """fn(*args), or the name of the ValueError (UnitError) it raised."""
+    try:
+        return fn(*args)
+    except ValueError as err:
+        return type(err).__name__
+
+
+def test_units_match_jax():
+    for a, b in UNIT_PAIRS:
+        for name in ('units_are_same', 'units_are_compatible',
+                     'conversion_factor', 'is_valid_unit'):
+            args = (a,) if name == 'is_valid_unit' else (a, b)
+            assert (_outcome(getattr(tunits, name), *args)
+                    == _outcome(getattr(junits, name), *args)), (name, a, b)
+
+
+def test_constants_registry():
+    assert tct.get_constant('top_of_model_pressure', 'Pa') == 20.0
+    assert tct.get_constant('top_of_model_pressure', 'hPa') == 0.2
+    assert set(tct.constant_names()) == set(jct.constant_names())
+    for name in jct.constant_names():
+        units = jct.core.constants._constants[name][1]
+        assert (tct.get_constant(name, units)
+                == jct.get_constant(name, units)), name
+    tct.set_constant('planetary_radius', 3.4e6, 'm')
+    assert tct.get_constant('planetary_radius', 'km') == 3400.0
+    assert jct.get_constant('planetary_radius', 'm') == 6.371e6
+    tct.reset_constants()
+    assert tct.get_constant('planetary_radius', 'm') == 6.371e6
+    with pytest.raises(tct.ConstantNotFoundError):
+        tct.get_constant('top_of_model_pressure', 'Pa')
+
+
+# -- DataArray -----------------------------------------------------------------
+
+@pytest.mark.parametrize('kind', ['numpy', 'tensor'])
+def test_dataarray_matches_jax(kind):
+    rng = np.random.RandomState(1)
+    raw = 250.0 + 30.0 * rng.rand(4, 3, 5)
+    dims = ('mid_levels', 'lat', 'lon')
+    j = JDataArray(raw.copy(), dims, {'units': 'degK'})
+    t = TDataArray(raw.copy() if kind == 'numpy' else torch.tensor(raw),
+                   dims, {'units': 'degK'})
+    pairs = [
+        (t.to_units('degC'), j.to_units('degC')),
+        (t.transpose('lon', 'mid_levels', 'lat'),
+         j.transpose('lon', 'mid_levels', 'lat')),
+        (t.transpose(), j.transpose()),
+        (t[1], j[1]), (t[:, 0], j[:, 0]), (t[..., 2:4], j[..., 2:4]),
+        (t[None, 0, :, 1], j[None, 0, :, 1]),
+        (t.mean(), j.mean()), (t.sum(axis=0), j.sum(axis=0)),
+        (t.min(axis=-1), j.min(axis=-1)), (t.max(axis=(0, 2)),
+                                           j.max(axis=(0, 2))),
+        (t.max(), j.max()),
+        (t + 1.0, j + 1.0), (2.0 * t, 2.0 * j), (t - t, j - j),
+        (t / t.values, j / j.values), (-t, -j),
+    ]
+    for a, b in pairs:
+        assert a.dims == b.dims
+        assert a.units == b.units
+        np.testing.assert_allclose(_values(a.values), np.asarray(b.values),
+                                   rtol=1e-15)
+    np.testing.assert_array_equal(np.asarray(t), raw)
+    assert t.shape == j.shape and t.size == j.size and len(t) == len(j)
+    c = t.copy()
+    c += 1.0
+    np.testing.assert_array_equal(_values(t.values), raw)
+    np.testing.assert_array_equal(_values(c.values), raw + 1.0)
+    c[0] = np.zeros((3, 5))
+    assert float(_values(c.values)[0].max()) == 0.0
+    np.testing.assert_array_equal(_values(t > 260.0), raw > 260.0)
+
+
+def test_dataarray_mixes_numpy_and_tensor():
+    """A numpy operand meets a tensor on the tensor's device and dtype."""
+    a = TDataArray(np.arange(6.0).reshape(2, 3), ('x', 'y'))
+    b = TDataArray(torch.ones(2, 3, dtype=torch.float32), ('x', 'y'))
+    for out in (a + b, b + a, a - b, b * a.values):
+        assert isinstance(out.values, torch.Tensor)
+        assert out.values.dtype == torch.float32
+    a += b
+    assert isinstance(a.values, torch.Tensor)
+    np.testing.assert_array_equal(_values(a.values),
+                                  np.arange(6.0).reshape(2, 3) + 1.0)
+
+
+# -- properties --------------------------------------------------------------
+
+def _reordered(state, order):
+    """Each field of ``state`` transposed (order='transposed') or with its
+    dims reversed (order='reversed')."""
+    out = {}
+    for name, value in state.items():
+        if not hasattr(value, 'dims') or value.ndim < 2:
+            out[name] = value
+        elif order == 'reversed':
+            out[name] = value.transpose()
+        else:
+            dims = value.dims[1:] + value.dims[:1]
+            out[name] = value.transpose(*dims)
+    return out
+
+
+@pytest.mark.parametrize('order', ['as_built', 'transposed', 'reversed'])
+def test_extract_and_restore_match_jax(order):
+    st, sj = _perturbed_states([tct.HeldSuarez(device='cpu')],
+                               [jct.HeldSuarez()])
+    props_t = tct.HeldSuarez(device='cpu').input_properties
+    props_j = jct.HeldSuarez.input_properties
+    if order != 'as_built':
+        st = _reordered(st, order)
+    raw_t, wild_t = tprops.extract_arrays(st, props_t)
+    raw_j, wild_j = jprops.extract_arrays(sj, props_j)
+    assert wild_t.dims == wild_j.dims and wild_t.shape == wild_j.shape
+    assert set(raw_t) == set(raw_j)
+    for name in props_j:
+        np.testing.assert_array_equal(_values(raw_t[name]),
+                                      np.asarray(raw_j[name]))
+    # and the same on tensors
+    st_tensor = {k: TDataArray(torch.tensor(np.asarray(v)), v.dims, v.attrs)
+                 if isinstance(v, TDataArray) else v for k, v in st.items()}
+    raw_tt, _ = tprops.extract_arrays(st_tensor, props_t)
+    for name in props_j:
+        assert isinstance(raw_tt[name], torch.Tensor)
+        np.testing.assert_array_equal(_values(raw_tt[name]),
+                                      np.asarray(raw_j[name]))
+    # restore the raw inputs under the tendency layout
+    out_props = {'air_temperature': {'units': 'degK'},
+                 'surface_air_pressure': {'units': 'hPa'}}
+    rest_t = tprops.restore_arrays(raw_tt, out_props, wild_t, props_t)
+    rest_j = jprops.restore_arrays(raw_j, out_props, wild_j, props_j)
+    for name in out_props:
+        assert rest_t[name].dims == rest_j[name].dims
+        assert rest_t[name].units == rest_j[name].units
+        np.testing.assert_array_equal(_values(rest_t[name].values),
+                                      np.asarray(rest_j[name].values))
+
+
+# -- grid and default state -------------------------------------------------------
+
+@pytest.mark.parametrize('kwargs', [
+    dict(nz=28),
+    dict(nx=NX, ny=NY, nz=NZ),
+    dict(nx=12, ny=6, nz=5, latitude_grid='regular'),
+    dict(nx=8, ny=4, nz=20, p_surf_in_Pa=9.5e4),
+])
+def test_get_grid_matches_jax(kwargs):
+    gt = tct.get_grid(**kwargs)
+    gj = jct.get_grid(**kwargs)
+    assert set(gt) == set(gj)
+    for name, vj in gj.items():
+        vt = gt[name]
+        if name == 'time':
+            assert vt == vj
+            continue
+        assert vt.dims == vj.dims and vt.units == vj.units, name
+        assert isinstance(vt.values, np.ndarray), name
+        assert rel_err(vt.values, vj.values) <= 1e-12, name
+
+
+def test_get_default_state_matches_jax():
+    st = tct.get_default_state(
+        [tct.HeldSuarez(device='cpu'),
+         tct.GFSDynamicalCore(number_of_damped_levels=5, device='cpu')],
+        grid_state=tct.get_grid(nx=NX, ny=NY, nz=NZ))
+    sj = jct.get_default_state(
+        [jct.HeldSuarez(), jct.GFSDynamicalCore(number_of_damped_levels=5)],
+        grid_state=jct.get_grid(nx=NX, ny=NY, nz=NZ))
+    assert set(st) == set(sj)
+    for name, vj in sj.items():
+        vt = st[name]
+        if name == 'time':
+            assert vt == vj
+            continue
+        assert vt.dims == vj.dims and vt.units == vj.units, name
+        assert isinstance(vt.values, np.ndarray), name
+        np.testing.assert_allclose(vt.values, vj.values, rtol=1e-12,
+                                   err_msg=name)
+
+
+def test_default_state_initializers_match_jax():
+    """The pressure-function and RRTMG default initializers the Held-Suarez
+    state does not reach."""
+    grid_t = tct.get_grid(nx=4, ny=2, nz=NZ)
+    grid_j = jct.get_grid(nx=4, ny=2, nz=NZ)
+    for name in ('mole_fraction_of_ozone_in_air',
+                 'longwave_optical_depth_on_interface_levels',
+                 'surface_longwave_emissivity', 'cloud_asymmetry_parameter',
+                 'soil_temperature', 'snow_and_ice_temperature'):
+        ot = tct.get_init_diagnostic(name)(grid_t)
+        oj = jct.get_init_diagnostic(name)(grid_j)
+        assert ot[name].dims == oj[name].dims, name
+        np.testing.assert_allclose(_values(ot[name].values),
+                                   np.asarray(oj[name].values), rtol=1e-12,
+                                   err_msg=name)
+
+
+# -- steppers and wrappers ---------------------------------------------------------
+
+@pytest.mark.parametrize('stepper', ['AdamsBashforth', 'Leapfrog',
+                                     'SSPRungeKutta'])
+def test_stepper_matches_jax(stepper):
+    st, sj = _perturbed_states([tct.HeldSuarez(device='cpu')],
+                               [jct.HeldSuarez()])
+    if stepper == 'Leapfrog':
+        # the JAX Leapfrog fails on a state that holds 'time' from its
+        # second call (steppers.py:189); the port's steps one, below
+        del st['time'], sj['time']
+    step_t = getattr(tct, stepper)([tct.HeldSuarez(device='cpu')])
+    step_j = getattr(jct, stepper)([jct.HeldSuarez()])
+    for _ in range(3):
+        _, new_t = step_t(st, DT)
+        _, new_j = step_j(sj, DT)
+        st.update(new_t)
+        sj.update(new_j)
+    for name in ('eastward_wind', 'northward_wind', 'air_temperature'):
+        assert isinstance(st[name].values, torch.Tensor)
+        assert st[name].dims == sj[name].dims
+        assert rel_err(st[name].values, sj[name].values) <= 1e-12, name
+
+
+def test_leapfrog_steps_a_state_with_time():
+    """The port's Leapfrog passes 'time' through unfiltered, and the
+    state's arrays step as they do without it."""
+    runs = []
+    for keep_time in (True, False):
+        st, _ = _perturbed_states([tct.HeldSuarez(device='cpu')],
+                                  [jct.HeldSuarez()])
+        if not keep_time:
+            del st['time']
+        stepper = tct.Leapfrog([tct.HeldSuarez(device='cpu')])
+        for _ in range(3):
+            _, new = stepper(st, DT)
+            st.update(new)
+        runs.append(st)
+    assert 'time' in runs[0]
+    for name in ('eastward_wind', 'northward_wind', 'air_temperature'):
+        np.testing.assert_array_equal(_values(runs[0][name].values),
+                                      _values(runs[1][name].values))
+
+
+def _wrapped(pkg, kind, device_kw):
+    hs = pkg.HeldSuarez(**device_kw)
+    if kind == 'scaling':
+        return pkg.ScalingWrapper(
+            hs, input_scale_factors={'air_temperature': 1.01},
+            tendency_scale_factors={'eastward_wind': 0.5})
+    if kind == 'update_frequency':
+        return pkg.UpdateFrequencyWrapper(hs, timedelta(minutes=30))
+    return pkg.TimeDifferencingWrapper(pkg.GFSDynamicalCore(
+        [hs], number_of_damped_levels=5, moist=False, **device_kw))
+
+
+@pytest.mark.parametrize('kind', ['scaling', 'update_frequency',
+                                  'time_differencing'])
+def test_wrapper_matches_jax(kind):
+    wt = _wrapped(tct, kind, {'device': 'cpu'})
+    wj = _wrapped(jct, kind, {})
+    st, sj = _perturbed_states([wt], [wj])
+    if kind == 'time_differencing':
+        # the dycore also outputs these; the wrapper differences them
+        for pkg, s in ((tct, st), (jct, sj)):
+            for name in ('divergence_of_wind',
+                         'atmosphere_relative_vorticity'):
+                s.update(pkg.get_init_diagnostic(name)(s))
+    for _ in range(3):
+        if kind == 'time_differencing':
+            out_t, out_j = wt(st, DT), wj(sj, DT)
+        else:
+            out_t, out_j = wt(st), wj(sj)
+        tend_t, tend_j = out_t[0], out_j[0]
+        assert set(tend_t) == set(tend_j)
+        for name, vj in tend_j.items():
+            vt = tend_t[name]
+            assert vt.dims == vj.dims and vt.units == vj.units, name
+            assert rel_err(vt.values, vj.values) <= 1e-10, name
+        for s in (st, sj):
+            s['time'] = s['time'] + DT
+            s['air_temperature'].values[:] += 0.5
+
+
+def test_tracers_match_jax():
+    for pkg in (ttracers, jtracers):
+        pkg.register_tracer('tracer_one', 'kg/kg')
+        pkg.register_tracer('tracer_two', 'g/kg')
+        with pytest.raises(ValueError):
+            pkg.register_tracer('tracer_one', 'g/kg')
+    assert ttracers.get_tracer_names() == jtracers.get_tracer_names()
+    assert ttracers.get_tracer_unit_dict() == jtracers.get_tracer_unit_dict()
+    dims = ['tracer', 'mid_levels', 'lat', 'lon']
+    pt = ttracers.TracerPacker(None, dims)
+    pj = jtracers.TracerPacker(None, dims)
+    rng = np.random.RandomState(2)
+    f1, f2 = rng.rand(2, NZ, NY, NX)
+    state_j = {'tracer_one': JDataArray(f1, dims[1:], {'units': 'kg/kg'}),
+               'tracer_two': JDataArray(f2, dims[1:], {'units': 'kg/kg'})}
+    for values in (f1, torch.tensor(f1)):
+        state_t = {'tracer_one': TDataArray(values, dims[1:],
+                                            {'units': 'kg/kg'}),
+                   'tracer_two': TDataArray(f2, dims[1:],
+                                            {'units': 'kg/kg'})}
+        packed_t, packed_j = pt.pack(state_t), pj.pack(state_j)
+        assert isinstance(packed_t, type(values))
+        np.testing.assert_allclose(_values(packed_t), np.asarray(packed_j),
+                                   rtol=1e-15)
+        out_t = pt.unpack(packed_t, state_t)
+        out_j = pj.unpack(np.asarray(packed_j), state_j)
+        for name in ('tracer_one', 'tracer_two'):
+            assert out_t[name].dims == out_j[name].dims
+            assert out_t[name].units == out_j[name].units
+            np.testing.assert_allclose(_values(out_t[name].values),
+                                       np.asarray(out_j[name].values),
+                                       rtol=1e-15)
+    # a registered tracer reaches the port's dycore, which does not
+    # transport tracers (queue 1 item 13) and says so
+    dycore = tct.GFSDynamicalCore(device='cpu')
+    state = tct.get_default_state(
+        [dycore], grid_state=tct.get_grid(nx=NX, ny=NY, nz=NZ))
+    with pytest.raises(NotImplementedError, match='item 13'):
+        dycore(state, DT)

@@ -7,9 +7,13 @@ without jax it runs as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+from datetime import timedelta
+
 import numpy as np
 import pytest
 import torch
+
+import climt_tpu_torch as ct
 
 from climt_tpu_torch.components.rrtmg import fused_mix, rtrn_kernel
 from climt_tpu_torch.components.rrtmg import lw_spectral as TL
@@ -129,3 +133,21 @@ def test_t85_chunk_radiation_makes_few_kernel_b_launches(cuda):
     port_lw(c, torch.float32, cuda)
     port_sw(c, torch.float32, cuda)
     assert 0 < fused_mix.mix_groups_cuda.launches - before <= 10
+
+
+@pytest.mark.gpu
+def test_component_api_runs_on_the_card(cuda):
+    """examples/held_suarez.py's component path, 3 calls at 32x16x10: the
+    state's numpy arrays come back as CUDA tensors."""
+    dycore = ct.GFSDynamicalCore([ct.HeldSuarez(device=cuda)],
+                                 number_of_damped_levels=5, moist=False,
+                                 device=cuda)
+    state = ct.get_default_state(
+        [dycore], grid_state=ct.get_grid(nx=32, ny=16, nz=10))
+    for _ in range(3):
+        _, new_state = dycore(state, timedelta(minutes=15))
+        state.update(new_state)
+    assert new_state
+    for name, value in new_state.items():
+        assert value.values.is_cuda, name
+        assert bool(torch.isfinite(value.values).all()), name
