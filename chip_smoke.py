@@ -28,10 +28,11 @@ Phases, each of which fails loudly (no exception is turned into exit 0):
      (64x32x20, dt 1200 s, f64, 30 days = 2160 steps) and that file's
      three checks: physical bounds, global mean surface pressure within
      500 Pa of 1e5, a westerly jet aloft in midlatitudes;
- 10. examples/held_suarez.py's body on the component API
-     (``import climt_tpu_torch as ct``): 128x64x20, 96 calls of 15 min on
-     the card, timed per call; then 8 calls at 32x16x10 on the CPU and on
-     the card, held against each other at float64.
+ 10. examples/held_suarez.py, its text with climt_tpu replaced by
+     climt_tpu_torch (``import climt_tpu_torch as ct``) and verbose=False:
+     128x64x20, 96 calls of 15 min on the card, timed per call; then 8
+     calls at 32x16x10 on the CPU and on the card, held against each other
+     at float64.
 The line before the last is a JSON object with each kernel's launches,
 error, time, bound, plain and library times; the last line is
 {"ok": true, "device": {...}}.
@@ -151,37 +152,64 @@ def embedding_bag_call(layout, idx, w, torch):
     return fn, check
 
 
-def held_suarez_example(device, n_calls, nx, ny, nz, dt_minutes=15):
-    """examples/held_suarez.py's main() with climt_tpu_torch as ct and
-    ``device`` given to HeldSuarez and GFSDynamicalCore, for n_calls
-    calls.  Returns (state, dycore, seconds of each call)."""
-    from datetime import timedelta
+def held_suarez_example(n_calls, nx, ny, nz, device=None, dt_minutes=15):
+    """Run examples/held_suarez.py's main() from the file's own text, with
+    ``climt_tpu`` replaced by ``climt_tpu_torch``, for n_calls calls of
+    dt_minutes, with verbose=False: its printout calls np.asarray on
+    ``.values``, which on the card are CUDA tensors.  The file names no
+    device, so on the card it runs as written; ``device`` (the CPU, for the
+    comparison) is given to its HeldSuarez and GFSDynamicalCore through
+    the module's globals.  Each dycore call is timed.  Returns (state,
+    dycore, seconds of each call)."""
+    import functools
+    import re
+    import types
 
-    import numpy as np
     import torch
 
-    import climt_tpu_torch as ct
-    from climt_tpu_torch.dycore.gfs import GFSDynamicalCore
+    with open(os.path.join(HERE, 'examples', 'held_suarez.py')) as f:
+        source = re.sub(r'\bclimt_tpu\b', 'climt_tpu_torch', f.read())
+    example = {'__name__': 'held_suarez_example'}
+    exec(compile(source, 'examples/held_suarez.py', 'exec'), example)
+    made, call_s = [], []
 
-    held_suarez = ct.HeldSuarez(device=device)
-    dycore = GFSDynamicalCore([held_suarez], number_of_damped_levels=5,
-                              moist=False, device=device)
-    grid = ct.get_grid(nx=nx, ny=ny, nz=nz)
-    state = ct.get_default_state([dycore], grid_state=grid)
-    rng = np.random.RandomState(42)
-    state['air_temperature'].values[:] += 0.1 * rng.randn(
-        *state['air_temperature'].shape)
-    timestep = timedelta(minutes=dt_minutes)
-    call_s = []
-    for _ in range(n_calls):
-        t0 = time.perf_counter()
-        diagnostics, new_state = dycore(state, timestep)
-        state.update(new_state)
-        state['time'] += timestep
-        if torch.device(device).type == 'cuda':
+    class TimedDycore(example['GFSDynamicalCore']):
+        def __init__(self, *args, **kwargs):
+            if device is not None:
+                kwargs['device'] = device
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+        def __call__(self, state, timestep):
+            t0 = time.perf_counter()
+            out = super().__call__(state, timestep)
             torch.cuda.synchronize()
-        call_s.append(time.perf_counter() - t0)
-    return state, dycore, call_s
+            call_s.append(time.perf_counter() - t0)
+            return out
+
+    example['GFSDynamicalCore'] = TimedDycore
+    if device is not None:
+        ct = example['ct']
+        example['ct'] = types.SimpleNamespace(**dict(
+            vars(ct), HeldSuarez=functools.partial(ct.HeldSuarez,
+                                                   device=device)))
+    state = example['main'](n_days=n_calls * dt_minutes / 1440.0, nx=nx,
+                            ny=ny, nz=nz, dt_minutes=dt_minutes,
+                            verbose=False)
+    if len(call_s) != n_calls:
+        fail('the example made %d dycore calls, not %d' % (len(call_s),
+                                                           n_calls))
+    return state, made[0], call_s
+
+
+def wall_s(fn, reps, torch):
+    """Mean host seconds of fn() over reps calls, the card synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
 
 
 def held_suarez_model_phase(dev, card, launch_counts, size=T42,
@@ -275,13 +303,14 @@ def climatology_phase(dev, card, launch_counts, days=30):
 
 def component_api_phase(dev, card, launch_counts, size=(128, 64, 20),
                         n_calls=96):
-    """Phase 10: examples/held_suarez.py's body on ``dev``, ``n_calls``
-    calls at ``size``, timed per call, with the share of a call spent
-    outside the SpectralDycore step; then 8 calls at 32x16x10 on the CPU
-    and on ``dev``, held against each other within EXAMPLE_TOL."""
+    """Phase 10: examples/held_suarez.py on the card, ``n_calls`` calls at
+    ``size``, timed per call, with the shares of a call spent outside the
+    SpectralDycore step and outside the dycore's own transforms; then 8
+    calls at 32x16x10 on the CPU and on ``dev``, held against each other
+    within EXAMPLE_TOL."""
     import torch
 
-    state, gfs, call_s = held_suarez_example(dev, n_calls, *size)
+    state, gfs, call_s = held_suarez_example(n_calls, *size)
     for name in GFS_OUTPUTS:
         values = state[name].values
         if not (isinstance(values, torch.Tensor)
@@ -294,25 +323,44 @@ def component_api_phase(dev, card, launch_counts, size=(128, 64, 20),
         fail('component API: temperature out of range')
     steady = sorted(call_s[1:])
     call_med = steady[len(steady) // 2]
-    # the same SpectralDycore step alone, on the dycore's leapfrog memory
-    prev = gfs._prev
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        gfs._dycore.step(prev, prev)
-    torch.cuda.synchronize()
-    step_alone = (time.perf_counter() - t0) / 20
-    phase(10, 'component API %dx%dx%d f64, %d calls of 15 min: first call '
-          '%.4f s (builds the SpectralDycore, forward start), then median '
-          '%.4f s/call [min %.4f, max %.4f]; the SpectralDycore step alone '
-          '%.4f s, so %.0f%% of a call is outside it; max |u| %.2f m/s; %s; '
-          'on %s' % (size + (n_calls, call_s[0], call_med, steady[0],
-                             steady[-1], step_alone,
-                             100.0 * (1.0 - step_alone / call_med),
-                             float(state['eastward_wind'].values.abs().max()),
-                             launch_counts(), card)))
-    del state, gfs, prev
-    small = {where: held_suarez_example(where, 8, 32, 16, 10)[0]
+    # the dycore's share of a call, on its leapfrog memory and the final
+    # state: the SpectralDycore step alone, and the step with the analysis
+    # of the input fields and the synthesis of the outputs that
+    # GFSDynamicalCore.array_call wraps around it
+    dyc, prev = gfs._dycore, gfs._prev
+
+    def topdown(name):
+        return torch.flip(state[name].transpose(
+            'mid_levels', 'lat', 'lon').values, [0])
+
+    fields = [topdown(name) for name in ('eastward_wind', 'northward_wind',
+                                         'air_temperature',
+                                         'specific_humidity')]
+    fields.append(torch.log(state['surface_air_pressure'].values))
+
+    def dynamics():
+        _, new, _ = dyc.step(prev, dyc.spectral_state_from_grid(*fields))
+        dyc.grid_state_from_spectral(new)
+        dyc.sht.synthesize(new['vort'])
+        dyc.sht.synthesize(new['div'])
+
+    step_alone = wall_s(lambda: dyc.step(prev, prev), 20, torch)
+    dynamics_s = wall_s(dynamics, 20, torch)
+    phase(10, 'component API %dx%dx%d f64, examples/held_suarez.py as '
+          'written (verbose=False), %d calls of 15 min: first call %.4f s '
+          '(builds the SpectralDycore, forward start), then median %.4f '
+          's/call [min %.4f, max %.4f]; SpectralDycore.step alone %.4f s '
+          '(%.0f%% of a call outside it); with the analysis and synthesis '
+          'of the call %.4f s (%.0f%% of a call outside them: marshalling, '
+          'HeldSuarez, the physics round trip); max |u| %.2f m/s; %s; on '
+          '%s' % (size + (n_calls, call_s[0], call_med, steady[0],
+                          steady[-1], step_alone,
+                          100.0 * (1.0 - step_alone / call_med), dynamics_s,
+                          100.0 * (1.0 - dynamics_s / call_med),
+                          float(state['eastward_wind'].values.abs().max()),
+                          launch_counts(), card)))
+    del state, gfs, dyc, prev, fields
+    small = {where: held_suarez_example(8, 32, 16, 10, device=where)[0]
              for where in (torch.device('cpu'), dev)}
     worst = 0.0
     for name in GFS_OUTPUTS:

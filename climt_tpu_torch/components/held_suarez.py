@@ -15,21 +15,22 @@ from ..core.dataarray import as_tensor
 from ..core.util import resolve_device
 
 
-def held_suarez_forcing(u, v, T, p, ps, latitude,
+def held_suarez_forcing(u, v, T, p, ps, sinlat2, coslat2,
                         sigma_b, k_f, k_a, k_s, delta_T_y, delta_theta_z,
                         p0, kappa):
-    """(du, dv, dT) of (ncol, nz) columns; ``ps`` and ``latitude``
-    (degrees) are (ncol,) (held_suarez.py:19)."""
-    lat_rad = torch.deg2rad(latitude)[:, None]
-    sigma = p / ps[:, None]
+    """(du, dv, dT) of the winds, temperature and pressure ``p``;
+    ``ps`` (surface pressure) and ``sinlat2``, ``coslat2`` (sin^2 and
+    cos^2 of latitude) broadcast against them (held_suarez.py:19).  Both
+    the component and the fused model (dycore/compiled.py) call it."""
+    sigma = p / ps
 
     Teq = torch.clamp(
-        (315.0 - delta_T_y * torch.sin(lat_rad) ** 2
-         - delta_theta_z * torch.log(p / p0) * torch.cos(lat_rad) ** 2)
+        (315.0 - delta_T_y * sinlat2
+         - delta_theta_z * torch.log(p / p0) * coslat2)
         * (p / p0) ** kappa, min=200.0)
 
     sigma_factor = torch.clamp((sigma - sigma_b) / (1.0 - sigma_b), min=0.0)
-    k_t = k_a + (k_s - k_a) * sigma_factor * torch.cos(lat_rad) ** 4
+    k_t = k_a + (k_s - k_a) * sigma_factor * coslat2 ** 2
     k_v = k_f * sigma_factor
 
     return -k_v * u, -k_v * v, -k_t * (T - Teq)
@@ -82,12 +83,15 @@ class HeldSuarez(TendencyComponent):
         cpd = get_constant(
             'heat_capacity_of_dry_air_at_constant_pressure', 'J/kg/degK')
         rd = get_constant('gas_constant_of_dry_air', 'J/kg/degK')
+        u, v, T, p, ps, latitude = (
+            as_tensor(raw_state[name], self.device)
+            for name in ('eastward_wind', 'northward_wind',
+                         'air_temperature', 'air_pressure',
+                         'surface_air_pressure', 'latitude'))
+        lat_rad = torch.deg2rad(latitude)[:, None]
         du, dv, dT = held_suarez_forcing(
-            *(as_tensor(raw_state[name], self.device)
-              for name in ('eastward_wind', 'northward_wind',
-                           'air_temperature', 'air_pressure',
-                           'surface_air_pressure', 'latitude')),
-            self._sigma_b, self._k_f, self._k_a, self._k_s,
+            u, v, T, p, ps[:, None], torch.sin(lat_rad) ** 2,
+            torch.cos(lat_rad) ** 2, self._sigma_b, self._k_f, self._k_a, self._k_s,
             self._delta_T_y, self._delta_theta_z, p0, rd / cpd)
         return ({'eastward_wind': du, 'northward_wind': dv,
                  'air_temperature': dT}, {})

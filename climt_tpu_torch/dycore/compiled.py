@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..components.held_suarez import held_suarez_forcing
 from ..core.grid import hybrid_sigma_pressure_coefficients
 from ..core.util import resolve_device
 from .spectral_dynamics import SpectralDycore
@@ -27,27 +28,17 @@ def held_suarez_physics_fn(dycore, sigma_b=0.7, k_f=1.0 / 86400.0,
     like = dycore.coslat
     coslat2 = torch.as_tensor(np.cos(lat_rad) ** 2, dtype=like.dtype,
                               device=like.device)[None, :, None]
-    coslat4 = coslat2 ** 2
     sinlat2 = torch.as_tensor(np.sin(lat_rad) ** 2, dtype=like.dtype,
                               device=like.device)[None, :, None]
-    kappa = dycore.kappa
 
     def physics(gs):
         p = 0.5 * (gs['p_half'][1:] + gs['p_half'][:-1])
-        sigma = p / gs['ps'][None]
-        Teq = torch.clamp(
-            (315.0 - delta_T_y * sinlat2
-             - delta_theta_z * torch.log(p / p0) * coslat2)
-            * (p / p0) ** kappa, min=200.0)
-        sf = torch.clamp((sigma - sigma_b) / (1.0 - sigma_b), min=0.0)
-        k_t = k_a + (k_s - k_a) * sf * coslat4
-        k_v = k_f * sf
-        return {
-            'du': -k_v * gs['u'],
-            'dv': -k_v * gs['v'],
-            'dT': -k_t * (gs['T'] - Teq),
-            'dq': torch.zeros_like(gs['q']),
-        }
+        du, dv, dT = held_suarez_forcing(
+            gs['u'], gs['v'], gs['T'], p, gs['ps'][None], sinlat2, coslat2,
+            sigma_b, k_f, k_a, k_s, delta_T_y, delta_theta_z, p0,
+            dycore.kappa)
+        return {'du': du, 'dv': dv, 'dT': dT,
+                'dq': torch.zeros_like(gs['q'])}
 
     return physics
 
@@ -89,8 +80,8 @@ def build_held_suarez_model(nlon=128, nlat=64, nz=28, timestep=600.0,
 
     def step_fn(carry, _=None):
         prev, now, prev_grids = carry
-        filtered, new, now_grids = dycore.step(
-            prev, now, physics_fn=physics, prev_grids=prev_grids)
+        filtered, new, now_grids = dycore.step(prev, now,
+                                               phys=physics(prev_grids))
         return (filtered, new, now_grids), None
 
     def run_fn(carry, n_steps):

@@ -223,7 +223,7 @@ class GFSDynamicalCore(Stepper):
 
         if self._prev is None:
             # leapfrog start: forward half/full step from the initial state
-            _, new = dyc.initial_step(spec_in, dt=dt)
+            _, new = dyc.initial_step(spec_in)
             self._prev = spec_in
         else:
             # continue the leapfrog: the centre state is the externally

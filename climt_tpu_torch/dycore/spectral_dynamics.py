@@ -259,19 +259,14 @@ class SpectralDycore(nn.Module):
         return torch.complex(torch.einsum('j,jmn->mn', vec, x.real),
                              torch.einsum('j,jmn->mn', vec, x.imag))
 
-    def step(self, prev, now, phys=None, dt=None, physics_fn=None,
-             prev_grids=None):
-        """One semi-implicit leapfrog step (spectral_dynamics.py:435).
-
-        ``physics_fn`` is evaluated on ``prev_grids`` when given (lagged
-        physics), else on the centre grids; ``dt`` defaults to the
-        construction timestep, for which the implicit inverses are exact.
+    def step(self, prev, now, phys=None):
+        """One semi-implicit leapfrog step of the construction timestep
+        (spectral_dynamics.py:435), for which the implicit inverses and the
+        hyperdiffusion factors are built.  Lagged physics is the caller's:
+        it passes ``phys`` computed on the previous grids.
         Returns (filtered_now, new, now_grids)."""
-        dt = self.dt if dt is None else dt
-        if physics_fn is not None and prev_grids is not None:
-            phys = physics_fn(prev_grids)
-            physics_fn = None
-        tend, now_grids = self.explicit_tendencies(now, phys, physics_fn)
+        dt = self.dt
+        tend, now_grids = self.explicit_tendencies(now, phys)
 
         two_dt = 2.0 * dt
         T_expl = prev['T'] + two_dt * tend['T']
@@ -319,10 +314,11 @@ class SpectralDycore(nn.Module):
                 'q': sht.synthesize(spec['q']), 'ps': ps,
                 'p_half': p_half, 'dp': dp}
 
-    def initial_step(self, now, phys=None, dt=None, physics_fn=None):
-        """Forward start: (now, state at t+dt) by a half-then-full step
-        (:555); ``physics_fn`` is evaluated on both."""
-        dt = self.dt if dt is None else dt
+    def initial_step(self, now, phys=None, physics_fn=None):
+        """Forward start: (now, state at t+dt) by a half-then-full step of
+        the construction timestep (:555); ``physics_fn`` is evaluated on
+        both."""
+        dt = self.dt
         tend, _ = self.explicit_tendencies(now, phys, physics_fn)
         half = {k: now[k] + 0.5 * dt * tend[k] for k in now}
         tend2, _ = self.explicit_tendencies(half, phys, physics_fn)

@@ -1,9 +1,12 @@
 """climt_tpu_torch's Held-Suarez forcing, GFSDynamicalCore and fused
 Held-Suarez model against the JAX package, on the CPU at float64."""
 
+import functools
 import importlib.util
 import os
+import re
 import sys
+import types
 from datetime import timedelta
 
 import jax
@@ -205,37 +208,30 @@ def test_convert_round_trip():
             assert rel_err(tpart[key], jpart[key]) <= 1e-10, key
 
 
-def _port_example(n_days, nx, ny, nz, dt_minutes, device):
-    """examples/held_suarez.py's main() with climt_tpu_torch as ct and
-    ``device`` given to HeldSuarez and GFSDynamicalCore."""
-    ct = tct
-    from climt_tpu_torch.dycore.gfs import GFSDynamicalCore
-    held_suarez = ct.HeldSuarez(device=device)
-    dycore = GFSDynamicalCore([held_suarez], number_of_damped_levels=5,
-                              moist=False, device=device)
+def _port_example(device, **kw):
+    """examples/held_suarez.py's main(), run from the file's own text with
+    climt_tpu replaced by climt_tpu_torch, its printout included;
+    ``device`` is given to its HeldSuarez and GFSDynamicalCore through
+    the module's globals.  Returns (state, number of dycore calls)."""
+    with open(os.path.join(EXAMPLES, 'held_suarez.py')) as f:
+        source = re.sub(r'\bclimt_tpu\b', 'climt_tpu_torch', f.read())
+    example = {'__name__': 'held_suarez_example_torch'}
+    exec(compile(source, 'examples/held_suarez.py', 'exec'), example)
+    calls = []
 
-    grid = ct.get_grid(nx=nx, ny=ny, nz=nz)
-    state = ct.get_default_state([dycore], grid_state=grid)
-    rng = np.random.RandomState(42)
-    state['air_temperature'].values[:] += 0.1 * rng.randn(
-        *state['air_temperature'].shape)
+    class OnDevice(example['GFSDynamicalCore']):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, device=device, **kwargs)
 
-    timestep = timedelta(minutes=dt_minutes)
-    n_steps = int(n_days * 86400 / timestep.total_seconds())
-    for i in range(n_steps):
-        diagnostics, new_state = dycore(state, timestep)
-        state.update(new_state)
-        state['time'] += timestep
-        if i % (n_steps // 10 or 1) == 0:
-            u = np.asarray(state['eastward_wind'].values)
-            T = np.asarray(state['air_temperature'].values)
-            ps = np.asarray(state['surface_air_pressure'].values)
-            print('day {:6.2f}  u_max={:6.1f} m/s  T range=[{:6.1f},{:6.1f}]'
-                  '  ps range=[{:8.0f},{:8.0f}]'.format(
-                      i * dt_minutes / 60 / 24, np.abs(u).max(),
-                      T.min(), T.max(), ps.min(), ps.max()))
-            assert not np.isnan(u).any(), 'NaN in winds'
-    return state, n_steps
+        def __call__(self, state, timestep):
+            calls.append(timestep)
+            return super().__call__(state, timestep)
+
+    example['GFSDynamicalCore'] = OnDevice
+    example['ct'] = types.SimpleNamespace(**dict(
+        vars(tct), HeldSuarez=functools.partial(tct.HeldSuarez,
+                                                device=device)))
+    return example['main'](**kw), len(calls)
 
 
 def test_example_body_matches_jax_example():
