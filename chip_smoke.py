@@ -9,9 +9,12 @@ Phases, each of which fails loudly (no exception is turned into exit 0):
   2. build the CUDA kernels of climt_tpu_torch/csrc/ with nvcc, one
      process per source;
   3. kernel B (band-fused gather-sum): the one-table synthetic case, then
-     the six groups that one T85 radiation chunk launches (nz=28, the
-     first 8192 columns of the T85 initial state), each against its plain
-     version, timed beside its bound and F.embedding_bag per band;
+     the six float32 groups that one T85 radiation chunk launches (nz=28,
+     the first 8192 columns of the T85 initial state), then the six
+     float64 groups of the first radiation call of
+     examples/full_radiation_gcm_energy_balanced.py at its own 128x62x28
+     (28 x 7936 cells), each against its plain version, timed beside its
+     bound and F.embedding_bag per band;
   4. kernel A (LW flux integration) against its plain version, with
      clouds, at nz=28 and nz=60, ncol=8192, timed beside its bound;
   5. the moist GCM at 32x16x10, float32, 7 steps on the GPU against the
@@ -32,7 +35,18 @@ Phases, each of which fails loudly (no exception is turned into exit 0):
      climt_tpu_torch (``import climt_tpu_torch as ct``) and verbose=False:
      128x64x20, 96 calls of 15 min on the card, timed per call; then 8
      calls at 32x16x10 on the CPU and on the card, held against each other
-     at float64.
+     at float64;
+ 11. examples/full_radiation_gcm_energy_balanced.py the same way at its
+     own 128x62x28, float64, dt 600 s, 13 calls (RRTMG refreshed at calls
+     0, 6 and 12 through UpdateFrequencyWrapper): s/call of refresh and
+     other calls, peak memory, both kernels' launches per refresh (kernel
+     B float64 must run, kernel A must not), every field finite, T in
+     (150, 350) K;
+ 12. the same example at 16x8x8 for 7 calls on the card against the CPU,
+     within 10 times the spread that a one-ulp change of the initial
+     temperature makes on the CPU.
+The examples run through tests/torch_helpers.py:port_example, which the
+CPU tests use too.
 The line before the last is a JSON object with each kernel's launches,
 error, time, bound, plain and library times; the last line is
 {"ok": true, "device": {...}}.
@@ -55,9 +69,10 @@ T85_STEPS = 12
 # summation order and transcendental roundoff of the card.
 SMALL_TOL = dict(T=0.01, u=0.02, v=0.02, q=5e-6, ps=15.0)
 # H100 SXM peaks (NVIDIA's data sheet): device memory bytes/s and
-# float32 operations/s outside the tensor cores
+# float32 and float64 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12
 # kernel A's float32 operations per (g, layer, column), both sweeps: the
 # layer terms (about 30 with the cloudy branch) and the two recurrences
 # (about 6), twice, plus the exp
@@ -71,6 +86,8 @@ T42_STEPS = 1000
 # (tests/test_torch_held_suarez.py), and the card differs from the CPU
 # only in summation order
 EXAMPLE_TOL = 1e-9
+FULL_RADIATION = 'full_radiation_gcm_energy_balanced'
+FULL_RADIATION_CALLS = 13
 GFS_OUTPUTS = ('eastward_wind', 'northward_wind', 'air_temperature',
                'specific_humidity', 'surface_air_pressure', 'air_pressure',
                'air_pressure_on_interface_levels', 'divergence_of_wind',
@@ -101,25 +118,88 @@ def cuda_ms(fn, reps, torch):
     return start.elapsed_time(stop) / reps
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_per_s=FP32_OPS_PER_S):
     """(ms, 'bytes' or 'operations'): the least time the card could take
-    to move nbytes and do ops float32 operations."""
+    to move nbytes and do ops operations at ops_per_s."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / FP32_OPS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     return max(by_bytes, by_ops), ('bytes' if by_bytes >= by_ops
                                    else 'operations')
 
 
 def group_cost(layout, ncell):
     """Bytes and operations kernel B needs for one group: every weight,
-    every index of a table of more than one row, the output and the
-    packed tables once; one multiply-add per (term, cell, g)."""
-    nbytes = (ncell * sum(4 + (4 if rows > 1 else 0)
+    every index (4 bytes) of a table of more than one row, the output and
+    the packed tables once, weights, outputs and tables in the layout's
+    type; one multiply-add per (term, cell, g)."""
+    size = layout.table.element_size()
+    nbytes = (ncell * sum(size + (4 if rows > 1 else 0)
                           for _, rows in layout.terms)
-              + 4 * ncell * layout.width
-              + 4 * sum(b[6] for b in layout.bands))
+              + size * ncell * layout.width
+              + size * sum(b[6] for b in layout.bands))
     ops = 2 * ncell * sum(b[0] * b[3] for b in layout.bands)
     return nbytes, ops
+
+
+def kernel_b_groups(groups, tol, card, torch):
+    """Phase 3 on one set of kernel-B groups {name: (layout, idx, w)}: each
+    against its plain version within tol of max, timed beside its bound,
+    the plain version and F.embedding_bag per band.  Returns the summed
+    record with one entry per group."""
+    from climt_tpu_torch.components.rrtmg import fused_mix
+
+    total = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                 bound_ms=0.0, groups={})
+    dtype = None
+    for gname, (layout, idx, w) in groups.items():
+        dtype = w.dtype
+        ncell = idx[0].numel()
+        out = fused_mix.mix_groups_cuda(layout, idx, w)
+        ref = fused_mix.mix_groups_plain(layout, idx, w)
+        lib_fn, lib_check = embedding_bag_call(layout, idx, w, torch)
+        torch.cuda.synchronize()
+        err, scale = max_rel_err(out, ref)
+        lib_err = lib_check(out)
+        if not err <= tol * scale:
+            fail('kernel B disagrees on %s (%s): max abs err %g > %g * %g'
+                 % (gname, dtype, err, tol, scale))
+        if not lib_err <= 1e-5 * scale:
+            fail('embedding_bag yardstick disagrees on %s by %g'
+                 % (gname, lib_err))
+        ms = cuda_ms(lambda: fused_mix.mix_groups_cuda(layout, idx, w), 20,
+                     torch)
+        plain_ms = cuda_ms(
+            lambda: fused_mix.mix_groups_plain(layout, idx, w), 3, torch)
+        library_ms = cuda_ms(lib_fn, 10, torch)
+        nbytes, ops = group_cost(layout, ncell)
+        bound_ms, bound_by = bound(
+            nbytes, ops, FP64_OPS_PER_S if dtype == torch.float64
+            else FP32_OPS_PER_S)
+        rec = dict(cells=ncell, terms=layout.nterms, bands=len(layout.bands),
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, mbytes=nbytes / 1e6,
+                   share=bound_ms / ms)
+        total['groups'][gname] = rec
+        for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms'):
+            total[key] += rec[key]
+        total['max_abs_err'] = max(total['max_abs_err'], err)
+        phase(3, 'kernel B %s %s: %d cells, %d bands, %d terms: max abs err '
+              '%.3g (max %.3g, limit %g of max); %.4f ms, plain %.4f ms, '
+              'embedding_bag %.4f ms, bound %.4f ms (%s, %.1f MB), %.0f%% of '
+              'bound' % (gname, str(dtype).replace('torch.', ''), ncell,
+                         len(layout.bands), layout.nterms, err, scale, tol,
+                         ms, plain_ms, library_ms, bound_ms, bound_by,
+                         nbytes / 1e6, 100.0 * bound_ms / ms))
+        del out, ref, lib_fn, lib_check
+    total['share'] = total['bound_ms'] / total['ms']
+    total['bound_by'] = 'bytes'
+    phase(3, 'kernel B %s, 6 groups (6 launches): %.4f ms, plain %.4f ms, '
+          'embedding_bag %.4f ms, bound %.4f ms, %.0f%% of bound; on %s'
+          % (str(dtype).replace('torch.', ''), total['ms'],
+             total['plain_ms'], total['library_ms'], total['bound_ms'],
+             100.0 * total['share'], card))
+    return total
 
 
 def embedding_bag_call(layout, idx, w, torch):
@@ -152,54 +232,30 @@ def embedding_bag_call(layout, idx, w, torch):
     return fn, check
 
 
+def run_example(name, n_calls, device=None, **kw):
+    """examples/<name>.py's main() for n_calls dycore calls, from the
+    file's own text with ``climt_tpu`` replaced by ``climt_tpu_torch``
+    (tests/torch_helpers.py:port_example) and verbose=False: the
+    printouts call np.asarray on ``.values``, which on the card are CUDA
+    tensors.  The files name no device, so on the card they run as
+    written; ``device`` (the CPU, for the comparisons) is given to every
+    component they build.  Returns (state, the dycore, seconds of each
+    call)."""
+    from torch_helpers import EXAMPLE_BIND, port_example
+
+    main, calls = port_example(name, device, EXAMPLE_BIND)
+    state = main(verbose=False, **kw)
+    if len(calls.seconds) != n_calls:
+        fail('%s made %d dycore calls, not %d' % (name, len(calls.seconds),
+                                                  n_calls))
+    return state, calls.dycores[0], calls.seconds
+
+
 def held_suarez_example(n_calls, nx, ny, nz, device=None, dt_minutes=15):
-    """Run examples/held_suarez.py's main() from the file's own text, with
-    ``climt_tpu`` replaced by ``climt_tpu_torch``, for n_calls calls of
-    dt_minutes, with verbose=False: its printout calls np.asarray on
-    ``.values``, which on the card are CUDA tensors.  The file names no
-    device, so on the card it runs as written; ``device`` (the CPU, for the
-    comparison) is given to its HeldSuarez and GFSDynamicalCore through
-    the module's globals.  Each dycore call is timed.  Returns (state,
-    dycore, seconds of each call)."""
-    import functools
-    import re
-    import types
-
-    import torch
-
-    with open(os.path.join(HERE, 'examples', 'held_suarez.py')) as f:
-        source = re.sub(r'\bclimt_tpu\b', 'climt_tpu_torch', f.read())
-    example = {'__name__': 'held_suarez_example'}
-    exec(compile(source, 'examples/held_suarez.py', 'exec'), example)
-    made, call_s = [], []
-
-    class TimedDycore(example['GFSDynamicalCore']):
-        def __init__(self, *args, **kwargs):
-            if device is not None:
-                kwargs['device'] = device
-            super().__init__(*args, **kwargs)
-            made.append(self)
-
-        def __call__(self, state, timestep):
-            t0 = time.perf_counter()
-            out = super().__call__(state, timestep)
-            torch.cuda.synchronize()
-            call_s.append(time.perf_counter() - t0)
-            return out
-
-    example['GFSDynamicalCore'] = TimedDycore
-    if device is not None:
-        ct = example['ct']
-        example['ct'] = types.SimpleNamespace(**dict(
-            vars(ct), HeldSuarez=functools.partial(ct.HeldSuarez,
-                                                   device=device)))
-    state = example['main'](n_days=n_calls * dt_minutes / 1440.0, nx=nx,
-                            ny=ny, nz=nz, dt_minutes=dt_minutes,
-                            verbose=False)
-    if len(call_s) != n_calls:
-        fail('the example made %d dycore calls, not %d' % (len(call_s),
-                                                           n_calls))
-    return state, made[0], call_s
+    """examples/held_suarez.py for n_calls calls of dt_minutes."""
+    return run_example('held_suarez', n_calls, device,
+                       n_days=n_calls * dt_minutes / 1440.0, nx=nx, ny=ny,
+                       nz=nz, dt_minutes=dt_minutes)
 
 
 def wall_s(fn, reps, torch):
@@ -375,6 +431,128 @@ def component_api_phase(dev, card, launch_counts, size=(128, 64, 20),
                                                           EXAMPLE_TOL))
 
 
+def finite_float_fields(state, torch):
+    """{name: values} of every floating field of an example's state, as
+    tensors; fails on a non-finite value."""
+    import numpy as np
+
+    out = {}
+    for name, value in state.items():
+        values = getattr(value, 'values', None)
+        if values is None:
+            continue
+        if isinstance(values, np.ndarray):
+            if values.dtype.kind != 'f':
+                continue
+            values = torch.as_tensor(values)
+        if not values.is_floating_point():
+            continue
+        if not bool(torch.isfinite(values).all()):
+            fail('%s: NaN or inf in %s' % (FULL_RADIATION, name))
+        out[name] = values
+    return out
+
+
+def full_radiation_phase(dev, card, launch_counts, counters):
+    """Phase 11: examples/full_radiation_gcm_energy_balanced.py on the
+    card at its own 128x62x28, float64, dt 600 s, 13 calls; both kernels'
+    launch counts are set to 0 just before and read just after.  Returns
+    {kernel: launches}."""
+    import torch
+
+    for counter in counters.values():
+        counter.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, _, call_s = run_example(FULL_RADIATION, FULL_RADIATION_CALLS,
+                                   n_steps=FULL_RADIATION_CALLS)
+    launches = {k: c.launches for k, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fields = finite_float_fields(state, torch)
+    T = fields['air_temperature']
+    if not (T.is_cuda and T.dtype == torch.float64
+            and tuple(T.shape) == (28, 62, 128)):
+        fail('%s: air_temperature is %s %s on %s' % (
+            FULL_RADIATION, T.dtype, tuple(T.shape), T.device))
+    if not (150.0 < float(T.min()) and float(T.max()) < 350.0):
+        fail('%s: temperature out of range [%g, %g]' % (
+            FULL_RADIATION, float(T.min()), float(T.max())))
+    refreshes = [k for k in range(FULL_RADIATION_CALLS) if k % 6 == 0]
+    if launches['B'] == 0 or launches['A'] != 0:
+        fail('%s: kernel launches A=%d B=%d; RRTMG at float64 must run '
+             'kernel B and never kernel A' % (FULL_RADIATION, launches['A'],
+                                               launches['B']))
+
+    def median(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2]
+
+    other = [s for k, s in enumerate(call_s) if k not in refreshes]
+    phase(11, '%s 128x62x28 f64, dt 600 s, %d calls: refresh calls %s s '
+          '(median %.4f), other calls median %.4f s [min %.4f, max %.4f]; '
+          'peak memory %.2f GB; per refresh kernel B %g, kernel A %g '
+          'launches; T in [%.1f, %.1f] K, max |u| %.2f m/s; on %s' % (
+              FULL_RADIATION, FULL_RADIATION_CALLS,
+              ' '.join('%.4f' % call_s[k] for k in refreshes),
+              median([call_s[k] for k in refreshes]), median(other),
+              min(other), max(other), peak_gb,
+              launches['B'] / len(refreshes), launches['A'] / len(refreshes),
+              float(T.min()), float(T.max()),
+              float(fields['eastward_wind'].abs().max()), card))
+    return launches
+
+
+def full_radiation_card_vs_cpu_phase(dev, card, launch_counts):
+    """Phase 12: the example at 16x8x8 for 7 calls on the card against the
+    CPU, within 10 times the largest relative change (max |a - b| / max
+    |b| over the fields) that raising the initial temperature by one ulp
+    makes in the same CPU run."""
+    import numpy as np
+    import torch
+
+    import climt_tpu_torch
+
+    def small(device, nudge=False):
+        made = climt_tpu_torch.get_default_state
+
+        def nudged(*args, **kwargs):
+            state = made(*args, **kwargs)
+            T = state['air_temperature'].values
+            T[:] = np.nextafter(T, np.inf)
+            return state
+
+        if nudge:
+            climt_tpu_torch.get_default_state = nudged
+        try:
+            return finite_float_fields(run_example(
+                FULL_RADIATION, 7, device, n_steps=7, nx=16, ny=8,
+                nz=8)[0], torch)
+        finally:
+            climt_tpu_torch.get_default_state = made
+
+    def largest(a, b):
+        worst = 0.0
+        for name, ref in b.items():
+            err, scale = max_rel_err(a[name].cpu(), ref.cpu())
+            worst = max(worst, err / scale if scale else err)
+        return worst
+
+    cpu = torch.device('cpu')
+    host = small(cpu)
+    spread = largest(small(cpu, nudge=True), host)
+    limit = 10.0 * spread
+    worst = largest(small(dev), host)
+    if not worst <= limit:
+        fail('%s 16x8x8: the card differs from the CPU by %.3g of max, more '
+             'than %.3g (10 x the one-ulp spread %.3g)' % (
+                 FULL_RADIATION, worst, limit, spread))
+    phase(12, '%s 16x8x8 f64, 7 calls, %s against the CPU: largest '
+          'difference %.3g of max; limit %.3g = 10 x %.3g, the largest '
+          'change that one ulp more initial temperature makes on the CPU; '
+          '%s; on %s' % (FULL_RADIATION, dev, worst, limit, spread,
+                         launch_counts(), card))
+
+
 def max_rel_err(a, b):
     """max |a - b| and the scale max |b| of two tensors."""
     return float((a - b).abs().max()), float(b.abs().max())
@@ -391,6 +569,7 @@ def main():
     if not os.path.isdir(os.path.join(HERE, 'climt_tpu_torch')):
         fail('climt_tpu_torch/ is not beside chip_smoke.py')
     sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.join(HERE, 'tests'))
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -468,53 +647,36 @@ def main():
         + LW.taumol_lw_terms(cs, wx, f32)
         + SW.taumol_sw_terms(css, -1, *model.solar_config[:6], f32)))
     del grids, aux, inputs, cs, css
-    report['B'] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-                       library_ms=0.0, bound_ms=0.0, groups={})
-    for gname, group in groups.items():
-        layout, idx, w = group.finish()
-        ncell = idx[0].numel()
-        out = fused_mix.mix_groups_cuda(layout, idx, w)
-        ref = fused_mix.mix_groups_plain(layout, idx, w)
-        lib_fn, lib_check = embedding_bag_call(layout, idx, w, torch)
-        torch.cuda.synchronize()
-        err, scale = max_rel_err(out, ref)
-        lib_err = lib_check(out)
-        if not err <= 1e-6 * scale:
-            fail('kernel B disagrees on %s: max abs err %g > 1e-6 * %g'
-                 % (gname, err, scale))
-        if not lib_err <= 1e-5 * scale:
-            fail('embedding_bag yardstick disagrees on %s by %g'
-                 % (gname, lib_err))
-        ms = cuda_ms(lambda: fused_mix.mix_groups_cuda(layout, idx, w), 20,
-                     torch)
-        plain_ms = cuda_ms(
-            lambda: fused_mix.mix_groups_plain(layout, idx, w), 3, torch)
-        library_ms = cuda_ms(lib_fn, 10, torch)
-        nbytes, ops = group_cost(layout, ncell)
-        bound_ms, bound_by = bound(nbytes, ops)
-        rec = dict(cells=ncell, terms=layout.nterms, bands=len(layout.bands),
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, mbytes=nbytes / 1e6,
-                   share=bound_ms / ms)
-        report['B']['groups'][gname] = rec
-        for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms'):
-            report['B'][key] += rec[key]
-        report['B']['max_abs_err'] = max(report['B']['max_abs_err'], err)
-        phase(3, 'kernel B %s: %d cells, %d bands, %d terms: max abs err '
-              '%.3g (max %.3g); %.4f ms, plain %.4f ms, embedding_bag %.4f '
-              'ms, bound %.4f ms (%s, %.1f MB), %.0f%% of bound' % (
-                  gname, ncell, len(layout.bands), layout.nterms, err, scale,
-                  ms, plain_ms, library_ms, bound_ms, bound_by,
-                  nbytes / 1e6, 100.0 * bound_ms / ms))
-        del layout, idx, w, out, ref, lib_fn, lib_check
-    rb = report['B']
-    rb['share'] = rb['bound_ms'] / rb['ms']
-    rb['bound_by'] = 'bytes'
-    phase(3, 'kernel B, one T85 chunk (6 launches): %.4f ms, plain %.4f '
-          'ms, embedding_bag %.4f ms, bound %.4f ms, %.0f%% of bound; on %s'
-          % (rb['ms'], rb['plain_ms'], rb['library_ms'], rb['bound_ms'],
-             100.0 * rb['share'], card))
+    report['B'] = kernel_b_groups(
+        {name: group.finish() for name, group in groups.items()}, 1e-6,
+        card, torch)
     del groups
+    torch.cuda.empty_cache()
+
+    # the six float64 groups of the full-radiation example's first call
+    # at 128x62x28, captured as the components run them
+    captured = {}
+    run_group = fused_mix.Group.run
+
+    def capture(group):
+        layout, idx, w = group.finish()
+        if w.dtype == torch.float64:
+            key = group.key[0]
+            captured[key if isinstance(key, str) else key[0]] = (
+                layout, idx.clone(), w.clone())
+        return run_group(group)
+
+    fused_mix.Group.run = capture
+    try:
+        run_example(FULL_RADIATION, 1, n_steps=1)
+    finally:
+        fused_mix.Group.run = run_group
+    if len(captured) != 6:
+        fail('the full-radiation example ran %d float64 kernel-B groups, '
+             'not 6: %s' % (len(captured), sorted(captured)))
+    # float64 sums in another order than the plain version's: a few ulps
+    report['B_f64'] = kernel_b_groups(captured, 1e-12, card, torch)
+    del captured
     torch.cuda.empty_cache()
 
     # ---- phase 4: kernel A -------------------------------------------
@@ -702,11 +864,11 @@ def main():
             play, plev, tlay, tlev, tsfc, h2o, o3, co2, zero, zero, o2,
             zero, zero, zero, zero, emis, zero, z16, zero, zero,
             torch.full_like(play, 25.0), torch.full_like(play, 10.0), z16,
-            9.80665, 6.022140857e23, 1004.64)
+            9.80665, 6.022140857e23, 1004.64, use_tables=False)
         sw = SW.rrtmg_sw_fluxes(
             play, plev, tlay, h2o, o3, co2, zero, zero, o2, alb, alb, alb,
             alb, mu0, zero, (z14,) * 4, (z14,) * 3, 1.0, -1, 0.0, -1, solar,
-            9.80665, 6.022140857e23, 1004.64, icld=0)
+            9.80665, 6.022140857e23, 1004.64, icld=0, use_tables=False)
         return lw[2] + sw[4]
 
     hr = rad()
@@ -721,17 +883,23 @@ def main():
     phase(7, 'standalone LW+SW radiation nz=%d ncol=%d: %.4g columns/s '
           'on %s' % (nz, ncol, rad_cols, card))
 
-    # ---- phases 8-10: Held-Suarez, fused and on the component API ------
+    # ---- phases 8-12: Held-Suarez, fused and on the component API, and
+    # the full-radiation GCM on the component API -----------------------
+    counters = {'A': rtrn_kernel.rtrn_lw_cuda,
+                'B': fused_mix.mix_groups_cuda}
+
     def launch_counts():
-        return 'kernel launches A=%d B=%d' % (
-            rtrn_kernel.rtrn_lw_cuda.launches,
-            fused_mix.mix_groups_cuda.launches)
+        return 'kernel launches A=%d B=%d' % (counters['A'].launches,
+                                              counters['B'].launches)
 
     for run_phase in (held_suarez_model_phase, climatology_phase,
                       component_api_phase):
-        fused_mix.mix_groups_cuda.launches = 0
-        rtrn_kernel.rtrn_lw_cuda.launches = 0
+        for counter in counters.values():
+            counter.launches = 0
         run_phase(dev, card, launch_counts)
+    launches_f64 = full_radiation_phase(dev, card, launch_counts, counters)
+    torch.cuda.empty_cache()
+    full_radiation_card_vs_cpu_phase(dev, card, launch_counts)
 
     kernels = [
         dict(name='mix_groups_cuda', route='cuda',
@@ -742,6 +910,12 @@ def main():
              source='climt_tpu_torch/csrc/rtrn_lw.cu',
              replaces='climt_tpu/components/rrtmg/pallas_rtrn.py:195',
              launches=launches['A'], **report['A']),
+        # the float64 instantiation of kernel B: the RRTMG components on
+        # the full-radiation example (phase 11)
+        dict(name='mix_groups_cuda[float64]', route='cuda',
+             source='climt_tpu_torch/csrc/mix_rows.cu',
+             replaces='climt_tpu/components/rrtmg/fused_mix.py:76',
+             launches=launches_f64['B'], **report['B_f64']),
     ]
     print('chip_smoke: all phases in %.1f s, the nvcc build included'
           % (time.perf_counter() - t_start), flush=True)

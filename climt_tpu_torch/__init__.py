@@ -13,7 +13,10 @@ first use (``_build.py``).  Importing the package compiles nothing.
 
 Entry points: climt's component API under the names ``climt_tpu``
 exports (``import climt_tpu_torch as ct``; ``ct.get_grid``,
-``ct.get_default_state``, ``ct.HeldSuarez``, ``ct.GFSDynamicalCore``, the
+``ct.get_default_state``, ``ct.GFSDynamicalCore``, the physics
+components ``HeldSuarez``, ``RRTMGLongwave``, ``RRTMGShortwave``,
+``EmanuelConvection``, ``SimplePhysics``, ``SlabSurface``,
+``GrayLongwaveRadiation`` and ``Frierson06LongwaveOpticalDepth``, the
 steppers and wrappers), and the fused models
 ``climt_tpu_torch.dycore.moist_gcm.build_moist_gcm`` and
 ``climt_tpu_torch.dycore.compiled.build_held_suarez_model``.  Whatever
@@ -62,7 +65,17 @@ from .core.tracers import (
     TracerPacker, get_tracer_names, get_tracer_unit_dict, register_tracer,
     reset_packers, reset_tracers,
 )
+from .components.emanuel_convection import (
+    EmanuelConvection, EmanuelConvectionPython,
+)
 from .components.held_suarez import HeldSuarez
+from .components.radiation import (
+    Frierson06LongwaveOpticalDepth, GrayLongwaveRadiation,
+)
+from .components.rrtmg.longwave import RRTMGLongwave
+from .components.rrtmg.shortwave import RRTMGShortwave
+from .components.simple_physics import SimplePhysics
+from .components.slab_surface import SlabSurface
 from .dycore.gfs import GFSDynamicalCore
 from .dycore.spectral_dynamics import SpectralDycore
 

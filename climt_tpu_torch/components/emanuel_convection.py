@@ -7,12 +7,20 @@ masks, the (level x level) mixing matrix is dense, and the few
 sequential vertical recurrences (minimum-MSE search, running CAPE,
 running SMIN, the precipitating downdraft) are Python loops over levels
 with all columns batched.  Arrays are (ncol, nz), bottom-up.
+``EmanuelConvection`` is the climt component over it, computing on its
+``device``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..core.base_components import (ImplicitTendencyComponent,
+                                    timestep_seconds)
+from ..core.constants import get_constant
+from ..core.dataarray import as_tensor
+from ..core.util import bolton_q_sat, resolve_device
 
 _EPMAX = 0.999
 
@@ -664,3 +672,144 @@ def emanuel_convect(T, q, qs, u, v, p, ph, cbmf_in, dt, nl, params):
         'cape': torch.where(active, cape, 0.0),
         'iflag': torch.where(active & any_cfl, 4, iflag),
     }
+
+
+class EmanuelConvection(ImplicitTendencyComponent):
+    """Emanuel & Zivkovic-Rothman (1999) convection scheme (:796), on
+    ``device`` (the CUDA card unless the caller asks for another)."""
+
+    input_properties = {
+        'air_temperature': {'dims': ['*', 'mid_levels'], 'units': 'degK'},
+        'specific_humidity': {'dims': ['*', 'mid_levels'],
+                              'units': 'kg/kg'},
+        'eastward_wind': {'dims': ['*', 'mid_levels'], 'units': 'm s^-1'},
+        'northward_wind': {'dims': ['*', 'mid_levels'],
+                           'units': 'm s^-1'},
+        'air_pressure': {'dims': ['*', 'mid_levels'], 'units': 'mbar'},
+        'air_pressure_on_interface_levels': {
+            'dims': ['*', 'interface_levels'], 'units': 'mbar'},
+        'cloud_base_mass_flux': {'dims': ['*'], 'units': 'kg m^-2 s^-1'},
+    }
+
+    diagnostic_properties = {
+        'convective_state': {'dims': ['*'], 'units': 'dimensionless'},
+        'convective_precipitation_rate': {'dims': ['*'],
+                                          'units': 'mm day^-1'},
+        'convective_downdraft_velocity_scale': {'dims': ['*'],
+                                                'units': 'm s^-1'},
+        'convective_downdraft_temperature_scale': {'dims': ['*'],
+                                                   'units': 'degK'},
+        'convective_downdraft_specific_humidity_scale': {
+            'dims': ['*'], 'units': 'kg/kg'},
+        'cloud_base_mass_flux': {'dims': ['*'], 'units': 'kg m^-2 s^-1'},
+        'atmosphere_convective_available_potential_energy': {
+            'dims': ['*'], 'units': 'J kg^-1'},
+        'air_temperature_tendency_from_convection': {
+            'dims': ['*', 'mid_levels'], 'units': 'degK day^-1'},
+    }
+
+    tendency_properties = {
+        'air_temperature': {'units': 'degK s^-1'},
+        'specific_humidity': {'units': 'kg/kg s^-1'},
+        'eastward_wind': {'units': 'm s^-2'},
+        'northward_wind': {'units': 'm s^-2'},
+    }
+
+    def __init__(self,
+                 minimum_convecting_layer=1,
+                 autoconversion_water_content_threshold=0.0011,
+                 autoconversion_temperature_threshold=-55,
+                 entrainment_mixing_coefficient=1.5,
+                 downdraft_area_fraction=0.05,
+                 precipitation_fraction_outside_cloud=0.12,
+                 speed_water_droplets=50.0,
+                 speed_snow=5.5,
+                 rain_evaporation_coefficient=1.0,
+                 snow_evaporation_coefficient=0.8,
+                 convective_momentum_transfer_coefficient=0.7,
+                 downdraft_surface_velocity_coefficient=10.0,
+                 convection_bouyancy_threshold=0.9,
+                 mass_flux_relaxation_rate=0.1,
+                 mass_flux_damping_rate=0.1,
+                 reference_mass_flux_timescale=300.,
+                 device='cuda',
+                 **kwargs):
+        if not 0 <= convective_momentum_transfer_coefficient <= 1:
+            raise ValueError(
+                'Momentum transfer coefficient must be between 0 and 1.')
+        if not 0 <= downdraft_area_fraction <= 1:
+            raise ValueError(
+                'Downdraft fraction must be between 0 and 1.')
+        if not 0 <= precipitation_fraction_outside_cloud <= 1:
+            raise ValueError(
+                'Outside cloud precipitation fraction must be between '
+                '0 and 1.')
+        self.device = resolve_device(device)
+        self._options = dict(
+            minorig=minimum_convecting_layer - 1,
+            elcrit=autoconversion_water_content_threshold,
+            tlcrit=autoconversion_temperature_threshold,
+            entp=entrainment_mixing_coefficient,
+            sigd=downdraft_area_fraction,
+            sigs=precipitation_fraction_outside_cloud,
+            omtrain=speed_water_droplets,
+            omtsnow=speed_snow,
+            coeffr=rain_evaporation_coefficient,
+            coeffs=snow_evaporation_coefficient,
+            cu=convective_momentum_transfer_coefficient,
+            beta=downdraft_surface_velocity_coefficient,
+            dtmax=convection_bouyancy_threshold,
+            alpha=mass_flux_relaxation_rate,
+            damp=mass_flux_damping_rate,
+            delt0=reference_mass_flux_timescale,
+        )
+        super().__init__(**kwargs)
+
+    def array_call(self, raw_state, timestep):
+        params = dict(self._options)
+        for key, name, units in (
+                ('g', 'gravitational_acceleration', 'm/s^2'),
+                ('cpd', 'heat_capacity_of_dry_air_at_constant_pressure',
+                 'J/kg/degK'),
+                ('cpv', 'heat_capacity_of_vapor_phase', 'J/kg/degK'),
+                ('rd', 'gas_constant_of_dry_air', 'J/kg/degK'),
+                ('rv', 'gas_constant_of_vapor_phase', 'J/kg/degK'),
+                ('lv0', 'latent_heat_of_condensation', 'J/kg'),
+                ('rowl', 'density_of_liquid_phase', 'kg/m^3'),
+                ('cl', 'specific_enthalpy_of_vapor_phase', 'J/kg')):
+            params[key] = get_constant(name, units)
+        T, q, u, v, p, ph, cbmf = (
+            as_tensor(raw_state[name], self.device) for name in (
+                'air_temperature', 'specific_humidity', 'eastward_wind',
+                'northward_wind', 'air_pressure',
+                'air_pressure_on_interface_levels', 'cloud_base_mass_flux'))
+        # the reference passes (Cpd, Cpv) where bolton_q_sat takes the gas
+        # constants (:910-912); kept for parity
+        q_sat = bolton_q_sat(T, p * 100.0, params['cpd'], params['cpv'])
+        out = emanuel_convect(T, q, q_sat, u, v, p, ph, cbmf,
+                              timestep_seconds(timestep), T.shape[1] - 3,
+                              params)
+        tendencies = {
+            'air_temperature': out['ft'],
+            'specific_humidity': out['fq'],
+            'eastward_wind': out['fu'],
+            'northward_wind': out['fv'],
+        }
+        diagnostics = {
+            'convective_state': out['iflag'].to(T.dtype),
+            'convective_precipitation_rate': out['precip'],
+            'convective_downdraft_velocity_scale': out['wd'],
+            'convective_downdraft_temperature_scale': out['tprime'],
+            'convective_downdraft_specific_humidity_scale': out['qprime'],
+            'cloud_base_mass_flux': out['cbmf'],
+            'atmosphere_convective_available_potential_energy':
+                out['cape'],
+            'air_temperature_tendency_from_convection':
+                out['ft'] * 86400.0,
+        }
+        return tendencies, diagnostics
+
+
+class EmanuelConvectionPython(EmanuelConvection):
+    """The reference's name for its pure-Python Emanuel backend (:939):
+    the same component under both names."""

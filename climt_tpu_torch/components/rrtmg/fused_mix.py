@@ -9,7 +9,8 @@ owns the output columns [goff_b, goff_b + ng_b) and the terms
 
 where table_t is the part (key species [absa; absb], selfref, forref, a
 minor-gas k-table, a one-row cross-section, ...) that term t reads.  The
-terms of a band are summed in float32 in term order.
+terms of a band are summed in the working type, float32 or float64, in
+term order.
 
 TPU kernel replaced: climt_tpu/components/rrtmg/fused_mix.py:76
 (``fused_mix_rows``, Pallas body ``_mix_kernel`` :54), at the granularity
@@ -19,18 +20,22 @@ further and puts all bands of one output (LW taug, LW fracs, SW taug, SW
 taur, SW solar source, the LW Planck functions) into one launch, so a
 radiation call of one column chunk makes 6 launches of kernel B.
 
-Bound on the card: bytes.  Each term streams 4 bytes of weight and, when
-its table has more than one row, 4 bytes of index per cell; the output is
-written once; the packed tables (at most 116 KB per band) stay in L1/L2.
-``csrc/mix_rows.cu`` runs one thread per cell and one block per (band,
-128-cell tile), the band fastest so that the blocks writing one tile's
-output rows run together: the thread loads each term's index and weight
-once (coalesced along cells), reads table rows as float4, keeps the ng
-sums in registers and stages its row through shared memory so that the
-block writes the band's slice of the output in contiguous runs.
+Bound on the card: bytes.  Each term streams one weight (4 bytes in
+float32, 8 in float64) and, when its table has more than one row, 4 bytes
+of index per cell; the output is written once; the packed tables (at most
+116 KB per band in float32) stay in L1/L2.  ``csrc/mix_rows.cu`` runs one
+thread per cell and one block per (band, 128-cell tile), the band fastest
+so that the blocks writing one tile's output rows run together: the thread
+loads each term's index and weight once (coalesced along cells), reads
+table rows 16 bytes at a time, keeps the ng sums in registers and stages
+its row through shared memory so that the block writes the band's slice
+of the output in contiguous runs.  The kernel is one template with a
+float32 and a float64 instantiation: the fused moist GCM runs in float32,
+the climt components (``RRTMGLongwave``, ``RRTMGShortwave``) at their
+state's float64.
 
 Layout (``Layout``): built once per output, dtype and device and cached.
-Every part's table is padded to a multiple of 4 floats per row and packed
+Every part's table is padded to a multiple of 4 elements per row and packed
 band by band into one flat buffer; each band has a descriptor (ng, padded
 ng, first term, term count, output offset, table offset and length) and
 each term one (flat offset of its part's row 0, its part's row count).
@@ -123,18 +128,23 @@ def mix_groups_plain(layout, idx, w):
     return out
 
 
+_ENTRY = {torch.float32: 'climt_mix_groups_f32',
+          torch.float64: 'climt_mix_groups_f64'}
+
+
 def mix_groups_cuda(layout, idx, w):
     """Launch kernel B on one group.  idx (T, *S) int32 and w (T, *S)
-    float32, contiguous, on the layout's CUDA device.  Returns (*S, width)
-    float32."""
+    float32 or float64 (the layout's table type), contiguous, on the
+    layout's CUDA device.  Returns (*S, width) in that type."""
     table = layout.table
     if not (table.is_cuda and idx.device == table.device
             and w.device == table.device):
         raise ValueError('mix_groups_cuda: all tensors must be on one CUDA '
                          'device')
-    if table.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError('mix_groups_cuda takes float32 tables and weights, '
-                        'got %s, %s' % (table.dtype, w.dtype))
+    if table.dtype not in _ENTRY or w.dtype != table.dtype:
+        raise TypeError('mix_groups_cuda takes float32 or float64 tables '
+                        'and weights of one type, got %s, %s' % (
+                            table.dtype, w.dtype))
     if idx.dtype != torch.int32:
         raise TypeError('mix_groups_cuda takes int32 indices, got %s'
                         % idx.dtype)
@@ -145,12 +155,11 @@ def mix_groups_cuda(layout, idx, w):
         raise ValueError('mix_groups_cuda takes contiguous tensors')
     cells = tuple(idx.shape[1:])
     ncell = math.prod(cells)
-    out = torch.empty(cells + (layout.width,), dtype=torch.float32,
+    out = torch.empty(cells + (layout.width,), dtype=table.dtype,
                       device=table.device)
     if ncell == 0:
         return out
-    lib = _build.library()
-    rc = lib.climt_mix_groups_f32(
+    rc = getattr(_build.library(), _ENTRY[table.dtype])(
         table.data_ptr(), layout.band_desc.data_ptr(), len(layout.bands),
         layout.term_desc.data_ptr(), idx.data_ptr(), w.data_ptr(), ncell,
         layout.width, out.data_ptr(),
@@ -275,15 +284,13 @@ def mix_rows_plain(table, idx, w):
 
 
 def mix_rows_cuda(table, idx, w):
-    """Kernel B on one table: table (R, ng) f32, idx (T, *S) int32, w
-    (T, *S) f32, all contiguous on one CUDA device.  Returns (*S, ng)."""
+    """Kernel B on one table: table (R, ng) and w (T, *S) of one type,
+    float32 or float64, idx (T, *S) int32, all contiguous on one CUDA
+    device.  Returns (*S, ng)."""
     if not (table.is_cuda and idx.device == table.device
             and w.device == table.device):
         raise ValueError('mix_rows_cuda: all tensors must be on one CUDA '
                          'device')
-    if table.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError('mix_rows_cuda takes float32 table and weights, '
-                        'got %s, %s' % (table.dtype, w.dtype))
     if table.dim() != 2 or idx.dim() < 1 or idx.shape != w.shape:
         raise ValueError('mix_rows_cuda: shapes table %s, idx %s, w %s' % (
             tuple(table.shape), tuple(idx.shape), tuple(w.shape)))
@@ -292,7 +299,7 @@ def mix_rows_cuda(table, idx, w):
 
 def mix_rows(table, idx, w):
     """sum_t w[t] * table[clip(idx[t])]: the plain version for CPU
-    tensors, kernel B for CUDA tensors (which must be float32)."""
+    tensors, kernel B for CUDA tensors (float32 or float64)."""
     if table.device.type == 'cpu':
         return mix_rows_plain(table, idx, w)
     return mix_rows_cuda(table.contiguous(), idx.to(torch.int32).contiguous(),

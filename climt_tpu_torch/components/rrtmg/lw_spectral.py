@@ -1,14 +1,19 @@
 """RRTMG-LW 140-g-point correlated-k radiative transfer in PyTorch
 (climt_tpu/components/rrtmg/lw_spectral.py).
 
-Ported for the moist GCM's configuration: analytic transmittance
-(``use_tables=False``), band clouds through ``cldprop_lw`` with
-inflag 2 / iceflag 1 / liqflag 1 (what the GCM passes), no dF/dTs, no
-McICA.  Every table interpolation of taumol (and setcoef's Planck
-functions) is a term of a kernel-B group (``fused_mix.Group``): a direct
-gather over the merged [absa; absb] table, the JAX package's f64 path, with
-one launch for all bands of taug and one for the Planck fractions; the
-flux integration goes through kernel A (``rtrn_kernel.rtrn_lw_fused``).
+The whole pipeline inatm -> setcoef -> taumol -> cldprop -> rtrn, in any
+float type: the Pade-table transmittance (``use_tables=True``, the
+default, as in JAX) or the analytic one, band clouds for every
+inflag/iceflag/liqflag of ``cldprop_lw``, McICA per-g-point clouds
+(``cldprmc_lw``, ``per_g_cloud``) and dF_up/dT_s (``idrv``).  Every table
+interpolation of taumol (and setcoef's Planck functions) is a term of a
+kernel-B group (``fused_mix.Group``): a direct gather over the merged
+[absa; absb] table, the JAX package's f64 path, with one launch for all
+bands of taug and one for the Planck fractions.  The flux integration
+goes through kernel A (``rtrn_kernel.rtrn_lw_fused``) exactly where the
+JAX package takes its Pallas kernel (lw_spectral.py:772-773): float32,
+analytic transmittance, no idrv, band clouds; every other configuration
+runs the general sweep here in plain PyTorch, as JAX runs it in XLA.
 
 Layout as in the JAX module: layers bottom-up, columns trailing, g-points
 innermost, taug (nz, ncol, 140).  The tables are the same surrogate
@@ -17,15 +22,31 @@ k-distribution files (docs/RRTMG_LW_STATUS.md).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ... import data
 from . import fused_mix
-from .rtrn_kernel import NG, NGB, rtrn_lw_fused
+from .rtrn_kernel import NG, NGB, lw_sweeps, rtrn_lw_fused
 
 ONEMINUS = 1.0 - 1.0e-6
 AMD, AMW = 28.9660, 18.0160      # molecular weights (g/mol), inatm
+
+# Pade transmittance lookup, copied from lw_spectral.py:69-81
+NTBL, PADE, EXPEPS = 10000, 0.278, 1.0e-20
+BPADE = 1.0 / PADE
+_t = np.arange(1, NTBL) / NTBL
+TAU_TBL = np.concatenate([[0.0], BPADE * _t / (1.0 - _t), [1.0e10]])
+EXP_TBL = np.concatenate(
+    [[1.0], np.maximum(np.exp(-TAU_TBL[1:-1]), EXPEPS), [EXPEPS]])
+with np.errstate(divide='ignore', invalid='ignore'):
+    _tfn = 1.0 - 2.0 * (1.0 / TAU_TBL[1:-1]
+                        - EXP_TBL[1:-1] / (1.0 - EXP_TBL[1:-1]))
+TFN_TBL = np.concatenate(
+    [[0.0], np.where(TAU_TBL[1:-1] < 0.06, TAU_TBL[1:-1] / 6.0, _tfn),
+     [1.0]])
 
 # Cloud band mapping icb for ncbands 1/5/16 (lw_spectral.py:85-87)
 ICB = np.array([[1] * 16,
@@ -160,9 +181,8 @@ def planck_terms(tavel, tz, tbound):
 
 def setcoef_lw(pavel, tavel, tz, tbound, semiss, coldry, wkl, wbroad,
                idrv=False):
-    """Interpolation indices/factors and Planck values (:246)."""
-    if idrv:
-        raise NotImplementedError('idrv (dF/dTs) is not ported')
+    """Interpolation indices/factors and Planck values (:246); with idrv
+    also the surface Planck derivative ``dplankbnd_dt`` (:342-346)."""
     t = load_support(pavel.dtype, pavel.device)
     preflog, tref, chi = t['preflog'], t['tref'], t['chi_mls']
     stpfac = 296.0 / 1013.0
@@ -224,7 +244,7 @@ def setcoef_lw(pavel, tavel, tz, tbound, semiss, coldry, wkl, wbroad,
     planklev = plnk[nlay:nlay + nlev].view(tz.shape + (16,))
     plankbnd = semiss.T * plnk[nlay + nlev:]
 
-    return dict(
+    out = dict(
         trop=trop, jp=jp, jp0=jp0, jt0=jt0, jt10=jt10,
         fac00=compfp * (1.0 - ft), fac10=compfp * ft,
         fac01=fp * (1.0 - ft1), fac11=fp * ft1,
@@ -235,6 +255,12 @@ def setcoef_lw(pavel, tavel, tz, tbound, semiss, coldry, wkl, wbroad,
         coldry=coldry, chi=chi,
         planklay=planklay, planklev=planklev, plankbnd=plankbnd,
         **cols, **rats)
+    if idrv:
+        ind = torch.clamp(_trunc_int(tbound - 159.0), 1, 180)
+        frac = tbound - 159.0 - ind
+        lo, hi = t['totplnkderiv'][ind - 1], t['totplnkderiv'][ind]
+        out['dplankbnd_dt'] = semiss.T * (lo + frac[..., None] * (hi - lo))
+    return out
 
 
 def _eta(specparm, n_eta):
@@ -476,82 +502,236 @@ def taumol_lw(cs, wx, dtype):
     return taug_g.run(), fracs_g.run()
 
 
-def _cloud_abs_coeffs(ciwp, clwp, rei, rel):
-    """Per-band ice/liquid absorption coefficients for iceflag 1 and
-    liqflag 1, mapped through icb onto the 16 bands (:615)."""
+def _cloud_abs_coeffs(iceflag, liqflag, ciwp, clwp, rei, rel):
+    """Per-band ice/liquid mass absorption coefficients, mapped through
+    the icb pattern onto the 16 bands: (nz, ncol, 16) each (:615)."""
     t = load_support(ciwp.dtype, ciwp.device)
+    shape = tuple(ciwp.shape) + (16,)
     rei_safe = torch.clamp(rei, min=1.0e-20)
-    a = t['absice1']                                 # (2, 5)
-    absice = a[0] + a[1] / rei_safe[..., None]       # (nz, ncol, 5)
+    if iceflag == 0:
+        a = t['absice0']
+        absice = (a[0] + a[1] / rei_safe)[..., None].expand(shape)
+        ice_ncb = 1
+    elif iceflag == 1:
+        a = t['absice1']                             # (2, 5)
+        absice = a[0] + a[1] / rei_safe[..., None]   # (nz, ncol, 5)
+        ice_ncb = 5
+    else:
+        table = t['absice2' if iceflag == 2 else 'absice3']   # (43|46, 16)
+        nidx = table.shape[0]
+        factor = (rei - 2.0) / 3.0
+        index = torch.clamp(_trunc_int(factor), 1, nidx - 1)
+        fint = factor - index
+        lo = table[index - 1]
+        hi = table[torch.clamp(index, 0, nidx - 1)]
+        absice = lo + fint[..., None] * (hi - lo)
+        ice_ncb = 16
     absice = torch.where((ciwp > 0.0)[..., None], absice, 0.0)
-    table = t['absliq1']                             # (58, 16)
-    index = torch.clamp(_trunc_int(rel - 1.5), 1, 57)
-    fint = rel - 1.5 - index
-    lo = table[index - 1]
-    hi = table[index]
-    absliq = lo + fint[..., None] * (hi - lo)
+
+    if liqflag == 0:
+        absliq = t['absliq0'].reshape(1).expand(tuple(ciwp.shape) + (1,))
+        liq_ncb = 1
+    else:
+        table = t['absliq1']                         # (58, 16)
+        index = torch.clamp(_trunc_int(rel - 1.5), 1, 57)
+        fint = rel - 1.5 - index
+        lo = table[index - 1]
+        hi = table[index]
+        absliq = lo + fint[..., None] * (hi - lo)
+        liq_ncb = 16
     absliq = torch.where((clwp > 0.0)[..., None], absliq, 0.0)
+
     dev = ciwp.device
-    absice16 = absice[..., torch.as_tensor(ICB[1], device=dev)]
-    absliq16 = absliq[..., torch.as_tensor(ICB[2], device=dev)]
+    ice_ind = {1: 0, 5: 1, 16: 2}[ice_ncb]
+    liq_ind = {1: 0, 16: 2}[liq_ncb]
+    absice16 = absice[..., torch.as_tensor(ICB[ice_ind], device=dev)]
+    absliq16 = absliq[..., torch.as_tensor(ICB[liq_ind], device=dev)]
     return absice16, absliq16
+
+
+def _cloudy_mask(cldfrac, ciwp, clwp, tauc):
+    cldmin = 1.0e-6
+    cwp = ciwp + clwp
+    tauctot = torch.sum(tauc, dim=-1)
+    return (cldfrac >= cldmin) & ((cwp >= cldmin) | (tauctot >= cldmin))
 
 
 def cldprop_lw(inflag, iceflag, liqflag, cldfrac, tauc, ciwp, clwp,
                rei, rel):
-    """Cloud optical depth per LW band, (nz, ncol, 16) (:672), for the
-    GCM's inflag=2, iceflag=1, liqflag=1."""
-    if (inflag, iceflag, liqflag) != (2, 1, 1):
-        raise NotImplementedError(
-            'cldprop_lw: only inflag=2, iceflag=1, liqflag=1 are ported')
-    cldmin = 1.0e-6
-    cwp = ciwp + clwp
-    tauctot = torch.sum(tauc, dim=-1)
-    cloudy = (cldfrac >= cldmin) & ((cwp >= cldmin) | (tauctot >= cldmin))
-    absice16, absliq16 = _cloud_abs_coeffs(ciwp, clwp, rei, rel)
+    """Cloud optical depth per LW band, (nz, ncol, 16), already mapped
+    through the icb pattern (:672): direct input (inflag 0), one cloud
+    type (1), or ice and liquid with iceflag 0-3 and liqflag 0-1 (2)."""
+    cloudy = _cloudy_mask(cldfrac, ciwp, clwp, tauc)[..., None]
+    if inflag == 0:
+        return torch.where(cloudy, tauc, 0.0)
+    if inflag == 1:
+        abscld1 = _support_scalar('abscld1')
+        tau = (abscld1 * (ciwp + clwp))[..., None].expand(
+            tuple(ciwp.shape) + (16,))
+        return torch.where(cloudy, tau, 0.0)
+    absice16, absliq16 = _cloud_abs_coeffs(iceflag, liqflag, ciwp, clwp,
+                                           rei, rel)
     tau = ciwp[..., None] * absice16 + clwp[..., None] * absliq16
-    return torch.where(cloudy[..., None], tau, 0.0)
+    return torch.where(cloudy, tau, 0.0)
 
 
-def rtrn_lw(taug, fracs, planklay, planklev, plankbnd, semiss, pwvcm,
-            cldfrac, taucld_band, pz, heatfac):
-    """Random-overlap radiative transfer (:732) with analytic
-    transmittance and band clouds (``use_tables=False``, no idrv), through
-    kernel A.  Returns (totuflux, totdflux, htr, totuclfl, totdclfl,
-    htrc)."""
-    dtype, device = taug.dtype, taug.device
-    t = load_support(dtype, device)
-    ngb = torch.as_tensor(NGB, dtype=torch.int64, device=device)
+def cldprmc_lw(inflag, iceflag, liqflag, cldfmc, ciwpmc, clwpmc, taucmc,
+               rei, rel):
+    """Per-g-point McICA cloud optical depth, (nz, ncol, 140) (:693): the
+    optics of cldprop applied to each subcolumn."""
+    if inflag == 0:
+        return taucmc
+    if inflag == 1:
+        return _support_scalar('abscld1') * (ciwpmc + clwpmc)
+    ngb = torch.as_tensor(NGB, dtype=torch.int64, device=ciwpmc.device)
+    # the coefficients' masks see "any subcolumn has water"
+    absice16, absliq16 = _cloud_abs_coeffs(
+        iceflag, liqflag, torch.amax(ciwpmc, -1), torch.amax(clwpmc, -1),
+        rei, rel)
+    return ciwpmc * absice16[..., ngb] + clwpmc * absliq16[..., ngb]
 
-    # diffusivity angle per band (rtrn.f90:260-268)
+
+@functools.lru_cache()
+def _pade_tables(dtype, device):
+    return tuple(torch.as_tensor(x, dtype=dtype, device=device)
+                 for x in (TAU_TBL, EXP_TBL, TFN_TBL))
+
+
+def _tbl_index(od):
+    """Row of the Pade tables for optical depth ``od`` (:724-725)."""
+    return _trunc_int(NTBL * (od / (BPADE + od)) + 0.5).long()
+
+
+def _tbl_lookup(od, use_tables=True):
+    """(quantized od, absorptance 1 - exp(-od), source factor tfn) through
+    the Pade lookup tables, or analytically with use_tables=False
+    (:712)."""
+    if not use_tables:
+        od_safe = torch.clamp(od, min=1.0e-12)
+        expo = torch.exp(-od_safe)
+        tfn = torch.where(
+            od_safe < 0.06, od_safe / 6.0,
+            1.0 - 2.0 * (1.0 / od_safe - expo / (1.0 - expo)))
+        return od, 1.0 - expo, tfn
+    itr = _tbl_index(od)
+    tau_tbl, exp_tbl, tfn_tbl = _pade_tables(od.dtype, od.device)
+    return tau_tbl[itr], 1.0 - exp_tbl[itr], tfn_tbl[itr]
+
+
+def _secdiff(pwvcm, t):
+    """Diffusivity secant per band and column, (16, ncol)
+    (rtrn.f90:260-268)."""
     fixed = np.zeros(16, bool)
     fixed[[0, 3]] = True
     fixed[9:] = True
     sec = (t['secdiff_a0'][:, None] + t['secdiff_a1'][:, None]
            * torch.exp(t['secdiff_a2'][:, None] * pwvcm[None]))
     sec = torch.clamp(sec, 1.5, 1.8)
-    secdiff = torch.where(torch.as_tensor(fixed, device=device)[:, None],
-                          1.66, sec)                 # (16, ncol)
+    return torch.where(torch.as_tensor(fixed, device=pwvcm.device)[:, None],
+                       1.66, sec)
 
-    wtdiff = _support_scalar('wtdiff')
+
+def rtrn_lw(taug, fracs, planklay, planklev, plankbnd, semiss, pwvcm,
+            cldfrac, taucld_band, pz, heatfac, idrv=False,
+            dplankbnd_dt=None, per_g_cloud=False, use_tables=True):
+    """Random-overlap radiative transfer (:732).  taucld_band (nz, ncol,
+    16) band cloud optical depth, or with per_g_cloud (nz, ncol, 140)
+    McICA subcolumns whose cldfrac is per g-point 0/1.
+
+    Returns (totuflux, totdflux, htr, totuclfl, totdclfl, htrc) and, with
+    idrv, (duflx_dt, duflxc_dt): fluxes (nz+1, ncol), heating (nz, ncol).
+    Kernel A takes exactly the configurations the JAX package gives its
+    Pallas kernel (:772-773): float32, analytic, no idrv, band clouds."""
+    dtype, device = taug.dtype, taug.device
+    t = load_support(dtype, device)
+    ngb = torch.as_tensor(NGB, dtype=torch.int64, device=device)
+    secdiff = _secdiff(pwvcm, t)                     # (16, ncol)
     rec_6 = _support_scalar('rec_6')
     fluxfac = np.pi * 2.0e4
-    dwave_g = t['delwave'][ngb] * wtdiff * fluxfac
+    dwave_g = t['delwave'][ngb] * _support_scalar('wtdiff') * fluxfac
 
-    totuflux, totdflux, totuclfl, totdclfl = rtrn_lw_fused(
-        taug, fracs, planklay, planklev, plankbnd, semiss, secdiff,
-        cldfrac, taucld_band, dwave_g, rec_6)
+    if (dtype == torch.float32 and not use_tables and not idrv
+            and not per_g_cloud):
+        fluxes = rtrn_lw_fused(
+            taug, fracs, planklay, planklev, plankbnd, semiss, secdiff,
+            cldfrac, taucld_band, dwave_g, rec_6)
+    else:
+        fluxes = _rtrn_lw_general(
+            taug, fracs, planklay, planklev, plankbnd, semiss, secdiff,
+            cldfrac, taucld_band, dwave_g, rec_6, dplankbnd_dt if idrv
+            else None, per_g_cloud, use_tables)
+    totuflux, totdflux, totuclfl, totdclfl = fluxes[:4]
     fnet = totuflux - totdflux
     fnetc = totuclfl - totdclfl
     dpz = pz[:-1] - pz[1:]
     htr = heatfac * (fnet[:-1] - fnet[1:]) / dpz
     htrc = heatfac * (fnetc[:-1] - fnetc[1:]) / dpz
-    return totuflux, totdflux, htr, totuclfl, totdclfl, htrc
+    return (totuflux, totdflux, htr, totuclfl, totdclfl, htrc) + fluxes[4:]
+
+
+def _rtrn_lw_general(taug, fracs, planklay, planklev, plankbnd, semiss,
+                     secdiff, cldfrac, taucld, dwave_g, rec_6, dplankbnd_dt,
+                     per_g_cloud, use_tables):
+    """The XLA path of rtrn_lw (:787-940) with Python loops over z, in any
+    dtype: Pade tables or analytic transmittance, band or per-g clouds,
+    and the dF_up/dT_s sweep when ``dplankbnd_dt`` is given.  Returns
+    (totuflux, totdflux, totuclfl, totdclfl[, duflx_dt, duflxc_dt])."""
+    ngb = torch.as_tensor(NGB, dtype=torch.int64, device=taug.device)
+    sec_g = secdiff.T[:, ngb]                          # (ncol, 140)
+    odepth = torch.clamp(sec_g * taug, min=0.0)        # (nz, ncol, 140)
+    blay = planklay[..., ngb]
+    bup = planklev[1:][..., ngb] - blay
+    bdn = planklev[:-1][..., ngb] - blay
+    if per_g_cloud:
+        odcld = sec_g * taucld
+        cldf = cldfrac
+    else:
+        odcld = (taucld * secdiff.T)[..., ngb]
+        cldf = cldfrac[..., None].expand_as(odcld)
+    cloudy = cldf >= 1.0e-6
+    odcld = torch.where(cloudy, odcld, 0.0)
+
+    # gas-only quantities with the od < 0.06 quadratic/table split
+    odt, a_tbl, tfn_tbl = _tbl_lookup(odepth, use_tables)
+    small = odepth <= 0.06
+    atrans = torch.where(small, odepth - 0.5 * odepth * odepth, a_tbl)
+    tfacgas = torch.where(small, rec_6 * odepth, tfn_tbl)
+    odtot = torch.where(small, odepth, odt) + odcld
+    _, atot_tbl, tfactot_tbl = _tbl_lookup(odtot, use_tables)
+    small_tot = odtot < 0.06
+    atot = torch.where(small_tot, odtot - 0.5 * odtot * odtot, atot_tbl)
+    tfactot = torch.where(small_tot, rec_6 * odtot, tfactot_tbl)
+
+    efclfrac = torch.where(cloudy, (1.0 - torch.exp(-odcld)) * cldf, 0.0)
+    rad0 = fracs[0] * plankbnd[:, ngb]
+    urad, drad, curad, cdrad = lw_sweeps(
+        atrans, atot, fracs * (blay + tfacgas * bdn),
+        fracs * (blay + tfacgas * bup), fracs * (blay + tfactot * bdn),
+        fracs * (blay + tfactot * bup), efclfrac, cldf, cloudy, rad0,
+        1.0 - semiss.T[:, ngb])
+
+    def to_flux(levels):
+        return torch.einsum('lcg,g->lc', torch.stack(levels), dwave_g)
+
+    out = (to_flux(urad), to_flux(drad), to_flux(curad), to_flux(cdrad))
+    if dplankbnd_dt is None:
+        return out
+    # dF_up/dT_s: the surface term transmitted up through each layer
+    d_rad0 = fracs[0] * dplankbnd_dt[:, ngb]
+    trans_clear = 1.0 - atrans
+    trans_layer = torch.where(
+        cloudy, (1.0 - atot) * cldf + trans_clear * (1.0 - cldf),
+        trans_clear)
+    d_lu, d_clru = [d_rad0], [d_rad0]
+    for z in range(taug.shape[0]):
+        d_lu.append(d_lu[-1] * trans_layer[z])
+        d_clru.append(d_clru[-1] * trans_clear[z])
+    return out + (to_flux(d_lu), to_flux(d_clru))
 
 
 def gas_coefs_lw(play, plev, tlay, tlev, tsfc, emis, h2ovmr, o3vmr,
                  co2vmr, ch4vmr, n2ovmr, o2vmr, cfc11vmr, cfc12vmr,
-                 cfc22vmr, ccl4vmr, grav, avogad):
+                 cfc22vmr, ccl4vmr, grav, avogad, idrv=False):
     """inatm and setcoef of rrtmg_lw_fluxes (:977-989): the interpolation
     coefficients ``cs``, the cross-section amounts ``wx`` and the
     precipitable water ``pwvcm`` that taumol and rtrn read."""
@@ -562,7 +742,8 @@ def gas_coefs_lw(play, plev, tlay, tlev, tsfc, emis, h2ovmr, o3vmr,
     wx = {name: coldry * v * 1.0e-20
           for name, v in (('ccl4', ccl4vmr), ('cfc11', cfc11vmr),
                           ('cfc12', cfc12vmr), ('cfc22', cfc22vmr))}
-    cs = setcoef_lw(play, tlay, tlev, tsfc, emis, coldry, wkl, wbroad)
+    cs = setcoef_lw(play, tlay, tlev, tsfc, emis, coldry, wkl, wbroad,
+                    idrv=idrv)
     cs['pavel'] = play
     return cs, wx, pwvcm
 
@@ -572,27 +753,30 @@ def rrtmg_lw_fluxes(play, plev, tlay, tlev, tsfc, h2ovmr, o3vmr, co2vmr,
                     ccl4vmr, emis, cldfrac, taucld, ciwp, clwp, rei, rel,
                     tauaer, grav, avogad, cpdair, inflag=2, iceflag=1,
                     liqflag=1, idrv=False, per_g_cloud=False,
-                    use_tables=False):
+                    cldfrac_g=None, taucld_g=None, use_tables=True):
     """Full LW pipeline inatm -> setcoef -> taumol -> cldprop -> rtrn
     (:959).  Profiles (nz, ncol) bottom-up, plev/tlev (nz+1, ncol), tsfc
-    (ncol,), emis (16, ncol), taucld/tauaer (nz, ncol, 16).
+    (ncol,), emis (16, ncol), taucld/tauaer (nz, ncol, 16).  With
+    per_g_cloud, the McICA subcolumns cldfrac_g/taucld_g (nz, ncol, 140)
+    replace cldfrac/taucld.
 
-    Returns (uflx, dflx, hr, uflxc, dflxc, hrc): fluxes (nz+1, ncol)
-    W/m^2, heating rates (nz, ncol) K/day."""
-    if use_tables or idrv or per_g_cloud:
-        raise NotImplementedError(
-            'rrtmg_lw_fluxes: only use_tables=False, idrv=False, band '
-            'clouds are ported')
+    Returns (uflx, dflx, hr, uflxc, dflxc, hrc[, duflx_dt, duflxc_dt]):
+    fluxes (nz+1, ncol) W/m^2, heating rates (nz, ncol) K/day."""
     cs, wx, pwvcm = gas_coefs_lw(
         play, plev, tlay, tlev, tsfc, emis, h2ovmr, o3vmr, co2vmr, ch4vmr,
-        n2ovmr, o2vmr, cfc11vmr, cfc12vmr, cfc22vmr, ccl4vmr, grav, avogad)
+        n2ovmr, o2vmr, cfc11vmr, cfc12vmr, cfc22vmr, ccl4vmr, grav, avogad,
+        idrv=idrv)
     taug, fracs = taumol_lw(cs, wx, play.dtype)
     ngb = torch.as_tensor(NGB, dtype=torch.int64, device=play.device)
     taug = taug + tauaer[..., ngb]
     heatfac = grav * 8.64e4 / (cpdair * 1.0e2)
-    taucld_band = cldprop_lw(inflag, iceflag, liqflag, cldfrac, taucld,
-                             ciwp, clwp, rei, rel)
+    if per_g_cloud:
+        cldfrac, taucld_band = cldfrac_g, taucld_g
+    else:
+        taucld_band = cldprop_lw(inflag, iceflag, liqflag, cldfrac, taucld,
+                                 ciwp, clwp, rei, rel)
     return rtrn_lw(taug, fracs, cs['planklay'], cs['planklev'],
                    cs['plankbnd'], emis, pwvcm, cldfrac, taucld_band,
-                   plev, heatfac)
-
+                   plev, heatfac, idrv=idrv,
+                   dplankbnd_dt=cs.get('dplankbnd_dt'),
+                   per_g_cloud=per_g_cloud, use_tables=use_tables)

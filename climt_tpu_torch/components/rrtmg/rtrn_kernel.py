@@ -64,6 +64,52 @@ def _absorptance_and_source(od, small, rec_6):
             torch.where(small, rec_6 * od, tfn))
 
 
+def lw_sweeps(atrans, atot, bbdgas, bbugas, bbdtot, bbutot, efclfrac,
+              cldf, cloudy, rad0, reflect):
+    """The two sweeps of the random-overlap transfer, all-sky and clear
+    (lw_spectral.py:832-887), Python loops over z.  Layer terms (nz, ncol,
+    g); rad0 the surface source and reflect 1 - emissivity, (ncol, g).
+    Returns the radiance lists (urad, drad, curad, cdrad) on the nz + 1
+    interfaces, surface first; ``lw_spectral``'s general sweep shares it.
+    """
+    nz = atrans.shape[0]
+    gassrc_dn = bbdgas * atrans
+    gassrc_up = bbugas * atrans
+    zero = torch.zeros_like(rad0)
+    drad = [None] * (nz + 1)
+    cdrad = [None] * (nz + 1)
+    drad[nz] = zero
+    cdrad[nz] = zero
+    rad, radc = zero, zero
+    for z in range(nz - 1, -1, -1):
+        rad_cloudy = (rad - rad * (atrans[z] + efclfrac[z]
+                                   * (1.0 - atrans[z]))
+                      + gassrc_dn[z] + cldf[z] * (bbdtot[z] * atot[z]
+                                                  - gassrc_dn[z]))
+        rad_clear = rad + (bbdgas[z] - rad) * atrans[z]
+        rad = torch.where(cloudy[z], rad_cloudy, rad_clear)
+        radc = radc + (bbdgas[z] - radc) * atrans[z]
+        drad[z] = rad
+        cdrad[z] = radc
+
+    # surface source + reflection (rtrn.f90:460-476)
+    radu = rad0 + reflect * rad
+    raduc = rad0 + reflect * radc
+    urad = [radu]
+    curad = [raduc]
+    for z in range(nz):
+        rad_cloudy = (radu - radu * (atrans[z] + efclfrac[z]
+                                     * (1.0 - atrans[z]))
+                      + gassrc_up[z] + cldf[z] * (bbutot[z] * atot[z]
+                                                  - gassrc_up[z]))
+        rad_clear = radu + (bbugas[z] - radu) * atrans[z]
+        radu = torch.where(cloudy[z], rad_cloudy, rad_clear)
+        raduc = raduc + (bbugas[z] - raduc) * atrans[z]
+        urad.append(radu)
+        curad.append(raduc)
+    return urad, drad, curad, cdrad
+
+
 def rtrn_lw_plain(taug, fracs, planklay, planklev, plankbnd, semiss,
                   secdiff, cldfrac, taucld_band, dwave_g, rec_6):
     """Plain PyTorch version: the XLA path of rtrn_lw, lw_spectral.py:
@@ -88,48 +134,12 @@ def rtrn_lw_plain(taug, fracs, planklay, planklev, plankbnd, semiss,
     atrans, tfacgas = _absorptance_and_source(odepth, odepth <= 0.06, rec_6)
     atot, tfactot = _absorptance_and_source(odtot, odtot < 0.06, rec_6)
 
-    bbdgas = fracs * (blay + tfacgas * bdn)
-    bbugas = fracs * (blay + tfacgas * bup)
-    bbdtot = fracs * (blay + tfactot * bdn)
-    bbutot = fracs * (blay + tfactot * bup)
-    gassrc_dn = bbdgas * atrans
-    gassrc_up = bbugas * atrans
     efclfrac = torch.where(cloudy, (1.0 - torch.exp(-odcld)) * cldf, 0.0)
-
-    zero = torch.zeros((ncol, NGPT), dtype=taug.dtype, device=taug.device)
-    drad = [None] * (nz + 1)
-    cdrad = [None] * (nz + 1)
-    drad[nz] = zero
-    cdrad[nz] = zero
-    rad, radc = zero, zero
-    for z in range(nz - 1, -1, -1):
-        rad_cloudy = (rad - rad * (atrans[z] + efclfrac[z]
-                                   * (1.0 - atrans[z]))
-                      + gassrc_dn[z] + cldf[z] * (bbdtot[z] * atot[z]
-                                                  - gassrc_dn[z]))
-        rad_clear = rad + (bbdgas[z] - rad) * atrans[z]
-        rad = torch.where(cloudy[z], rad_cloudy, rad_clear)
-        radc = radc + (bbdgas[z] - radc) * atrans[z]
-        drad[z] = rad
-        cdrad[z] = radc
-
-    # surface source + reflection (rtrn.f90:460-476)
-    rad0 = fracs[0] * plankbnd[:, ngb]
-    reflect = 1.0 - semiss.T[:, ngb]
-    radu = rad0 + reflect * rad
-    raduc = rad0 + reflect * radc
-    urad = [radu]
-    curad = [raduc]
-    for z in range(nz):
-        rad_cloudy = (radu - radu * (atrans[z] + efclfrac[z]
-                                     * (1.0 - atrans[z]))
-                      + gassrc_up[z] + cldf[z] * (bbutot[z] * atot[z]
-                                                  - gassrc_up[z]))
-        rad_clear = radu + (bbugas[z] - radu) * atrans[z]
-        radu = torch.where(cloudy[z], rad_cloudy, rad_clear)
-        raduc = raduc + (bbugas[z] - raduc) * atrans[z]
-        urad.append(radu)
-        curad.append(raduc)
+    urad, drad, curad, cdrad = lw_sweeps(
+        atrans, atot, fracs * (blay + tfacgas * bdn),
+        fracs * (blay + tfacgas * bup), fracs * (blay + tfactot * bdn),
+        fracs * (blay + tfactot * bup), efclfrac, cldf, cloudy,
+        fracs[0] * plankbnd[:, ngb], 1.0 - semiss.T[:, ngb])
 
     def to_flux(levels):
         return torch.einsum('lcg,g->lc', torch.stack(levels), dwave_g)

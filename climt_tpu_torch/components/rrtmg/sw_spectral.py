@@ -1,17 +1,21 @@
 """RRTMG-SW 112-g-point correlated-k radiative transfer in PyTorch
 (climt_tpu/components/rrtmg/sw_spectral.py).
 
-Ported for the moist GCM's configuration: clear sky (``icld=0``, so no
-``cldprop_sw`` runs), no McICA, analytic transmittance
-(``use_tables=False``).  taumol's interpolations, Rayleigh depths and
-solar sources are terms of three kernel-B groups (``fused_mix.Group``,
-the key species over the merged [absa; absb] table), one launch each for
-all bands; the delta-scaled two-stream solver and the adding method
-(``vrtqdr_sw``) are plain torch with Python loops over levels.  Layers
-bottom-up, columns trailing.
+The whole driver in any float type: the Pade-table exponential
+(``use_tables=True``, the default, as in JAX) or the analytic one, cloud
+optics for every flag of ``cldprop_sw`` (Hu & Stamnes liquid; Ebert-Curry,
+Key and Fu ice), clear and total sky for ``icld`` 0-3, McICA per-g-point
+clouds (``spcvmc_sw``), and ECMWF or direct aerosol optics.  taumol's
+interpolations, Rayleigh depths and solar sources are terms of three
+kernel-B groups (``fused_mix.Group``, the key species over the merged
+[absa; absb] table), one launch each for all bands; the delta-scaled
+two-stream solver and the adding method (``vrtqdr_sw``) are plain torch
+with Python loops over levels.  Layers bottom-up, columns trailing.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -25,6 +29,10 @@ NG = [6, 12, 8, 8, 10, 10, 2, 10, 8, 6, 6, 8, 6, 12]
 NSPA = [9, 9, 9, 9, 1, 9, 9, 1, 9, 1, 0, 1, 9, 1]
 NSPB = [1, 5, 1, 1, 1, 5, 1, 0, 1, 0, 0, 1, 5, 1]
 NGB = np.concatenate([np.full(n, b) for b, n in enumerate(NG)])
+# band wavenumber edges, bands 16..29 (sw_spectral.py:56)
+WAVENUM2 = np.array([3250., 4000., 4650., 5150., 6150., 7700., 8050.,
+                     12850., 16000., 22650., 29000., 38000., 50000.,
+                     2600.])
 
 ONEMINUS = 1.0 - 1.0e-6
 # NRLSSI2 integration constants (sw_spectral.py:62-66)
@@ -34,7 +42,14 @@ SVAR_F_AVG, SVAR_S_AVG = 0.1568113, 909.21910
 SVAR_CPRIM = FINT + SINT + IINT
 RRSW_SCON = 1.36822e+03
 AMD, AMW = 28.9660, 18.0160
-EXPEPS = 1.0e-20
+
+# exponential transmittance lookup, copied from sw_spectral.py:70-75
+NTBL, OD_LO, PADE, EXPEPS = 10000, 0.06, 0.278, 1.0e-20
+BPADE = 1.0 / PADE
+_tfn = np.arange(1, NTBL) / NTBL
+EXP_TBL = np.concatenate(
+    [[1.0], np.maximum(np.exp(-BPADE * _tfn / (1.0 - _tfn)), EXPEPS),
+     [EXPEPS]])
 
 # Band definitions, bands 16..29, copied from sw_spectral.py:88 (BANDS);
 # keys as documented there.
@@ -363,13 +378,29 @@ def taumol_sw(cs, isolvar, svar_f, svar_s, svar_i,
         svar_i_bnd, dtype))
 
 
-def _exp_transmittance(tau):
-    """exp(-tau) clamped at the Pade table's EXPEPS floor (:474, with
-    use_tables=False)."""
-    return torch.clamp(torch.exp(-torch.clamp(tau, max=500.0)), min=EXPEPS)
+@functools.lru_cache()
+def _exp_table(dtype, device):
+    return torch.as_tensor(EXP_TBL, dtype=dtype, device=device)
 
 
-def reftra_sw(tau, omega, g, mu0, active):
+def _tbl_index(ze1):
+    """Row of the exponential table for ze1 (:493-494)."""
+    return _trunc_int(NTBL * (ze1 / (BPADE + ze1)) + 0.5).long()
+
+
+def _exp_transmittance(tau, use_tables=True):
+    """exp(-tau) through the Pade lookup table, a quadratic below OD_LO
+    (:474); with use_tables=False exp(-tau) itself, clamped at the
+    table's EXPEPS floor."""
+    ze1 = torch.clamp(tau, max=500.0)
+    if not use_tables:
+        return torch.clamp(torch.exp(-ze1), min=EXPEPS)
+    small = 1.0 - ze1 + 0.5 * ze1 * ze1
+    lut = _exp_table(tau.dtype, tau.device)[_tbl_index(ze1)]
+    return torch.where(ze1 <= OD_LO, small, lut)
+
+
+def reftra_sw(tau, omega, g, mu0, active, use_tables=True):
     """Two-stream reflectance/transmittance, kmodts=2 (:499).
     Returns (ref, refd, tra, trad)."""
     eps = 1.0e-8
@@ -386,7 +417,7 @@ def reftra_sw(tau, omega, g, mu0, active):
     za = gamma1 * mu0
     za1 = za - gamma3
     zgt = gamma1 * tau
-    ze2c = _exp_transmittance(tau / mu0)
+    ze2c = _exp_transmittance(tau / mu0, use_tables)
     ref_c = torch.where(ze2c == 1.0, 0.0,
                         (zgt - za1 * (1.0 - ze2c)) / (1.0 + zgt))
     tra_c = 1.0 - ref_c
@@ -413,9 +444,9 @@ def reftra_sw(tau, omega, g, mu0, active):
     zt3 = zrk2 * (gamma4 + za1n * mu0)
     zbeta = (gamma1 - zrk) / zrkg
 
-    zem1 = _exp_transmittance(torch.clamp(zrk * tau, max=500.0))
+    zem1 = _exp_transmittance(torch.clamp(zrk * tau, max=500.0), use_tables)
     zep1 = 1.0 / zem1
-    zem2 = _exp_transmittance(torch.clamp(tau / mu0, max=500.0))
+    zem2 = _exp_transmittance(torch.clamp(tau / mu0, max=500.0), use_tables)
     zep2 = 1.0 / zem2
 
     zdenr = zr4 * zep1 + zr5 * zem1
@@ -479,47 +510,191 @@ def vrtqdr_sw(ref, refd, tra, trad, dbt, tdbt, alb_dir, alb_dif):
     return fd, fu
 
 
-def spcvrt_sw(taug, taur, sflux, adjflux_band, mu0, alb_dir_band,
-              alb_dif_band, cldfrac, tauc_b, ssac_b, asmc_b,
-              taua_b, ssaa_b, asma_b):
-    """Two-stream solver over all g-points (:760), clear sky (icld=0).
-    Returns (fd, fu, fd_clear, fu_clear): (nz+1, ncol) bottom-up."""
-    dtype, device = taug.dtype, taug.device
-    ngb = torch.as_tensor(NGB, dtype=torch.int64, device=device)
-    taug = torch.flip(taug, [0])                      # top-down
-    taur = torch.flip(taur, [0])
-    taua = torch.flip(taua_b, [0])[:, :, ngb]
-    omga = torch.flip(ssaa_b, [0])[:, :, ngb]
-    asya = torch.flip(asma_b, [0])[:, :, ngb]
+def _lin_rows(table, i0, fint):
+    """table[i0] + fint * (table[i0 + 1] - table[i0]), rows by band."""
+    lo = table[i0]
+    return lo + fint * (table[i0 + 1] - lo)
 
-    mu0b = mu0[None, :, None]
-    incflx = (torch.as_tensor(np.asarray(adjflux_band), dtype=dtype,
-                              device=device)[ngb] * sflux * mu0[:, None])
 
-    # clear-sky optics + delta scaling (spcvrt_sw.f90)
+def cldprop_sw(inflag, iceflag, liqflag, cldfrac, tauc, ssac, asmc, fsfc,
+               ciwp, clwp, rei, rel):
+    """Cloud optical properties per band (:633): direct input (inflag 0)
+    or Hu & Stamnes liquid with Ebert-Curry (iceflag 1), Key (2) or Fu
+    (3) ice (inflag 2).  Arrays (nz, ncol[, nband]); returns (taucloud,
+    ssacloud, asmcloud, taucldorig), each (nz, ncol, nband).  liqflag
+    selects nothing: the liquid optics are always Hu & Stamnes, as in
+    JAX."""
+    t = load_tables(cldfrac.dtype, cldfrac.device)
+    cldmin = 1.0e-20
+    cloudy = (cldfrac >= cldmin)[..., None]
+
+    if inflag == 0:
+        ffp = fsfc
+        ffp1 = 1.0 - ffp
+        ffpssa = 1.0 - ffp * ssac
+        ssacloud = ffp1 * ssac / ffpssa
+        taucloud = ffpssa * tauc
+        asmcloud = (asmc - ffp) / ffp1
+        sel = cloudy & (torch.sum(tauc, -1, keepdim=True) >= cldmin)
+        return (torch.where(sel, taucloud, 0.0),
+                torch.where(sel, ssacloud, 1.0),
+                torch.where(sel, asmcloud, 0.0),
+                torch.where(sel, tauc, 0.0))
+    if inflag != 2:
+        raise ValueError('shortwave cldprop supports inflag 0 or 2')
+
+    # ice optics
+    radice = rei[..., None]
+    if iceflag == 1:
+        icx = torch.as_tensor(np.searchsorted(
+            -np.array([1.43e4, 7.7e3, 5.3e3, 4.0e3]), -WAVENUM2),
+            device=cldfrac.device)          # 0..4 per band
+        extcoice = t['cld_abari'][icx] + t['cld_bbari'][icx] / radice
+        ssacoice = 1.0 - t['cld_cbari'][icx] - t['cld_dbari'][icx] * radice
+        gice = torch.clamp(t['cld_ebari'][icx] + t['cld_fbari'][icx]
+                           * radice, max=1.0 - 1e-6)
+        forwice = gice * gice
+    else:
+        names = (('extice2', 'ssaice2', 'asyice2') if iceflag == 2
+                 else ('extice3', 'ssaice3', 'asyice3', 'fdlice3'))
+        tabs = [t['cld_' + n] for n in names]
+        factor = (rei - 2.0) / 3.0
+        index = torch.clamp(_trunc_int(factor), max=42 if iceflag == 2
+                            else 45)
+        fint = (factor - index)[..., None]
+        i0 = torch.clamp(index - 1, 0, tabs[0].shape[0] - 2).long()
+        rows = [_lin_rows(tab, i0, fint) for tab in tabs]
+        extcoice, ssacoice, gice = rows[:3]
+        if iceflag == 2:
+            forwice = gice * gice
+        else:
+            forwice = torch.minimum(rows[3] + 0.5 / ssacoice, gice)
+
+    no_ice = (ciwp == 0.0)[..., None]
+    extcoice = torch.where(no_ice, 0.0, extcoice)
+    ssacoice = torch.where(no_ice, 0.0, ssacoice)
+    gice = torch.where(no_ice, 0.0, gice)
+    forwice = torch.where(no_ice, 0.0, forwice)
+
+    # liquid optics (Hu & Stamnes, radius dependent)
+    index = torch.clamp(_trunc_int(rel - 1.5), 1, 57)
+    fint = (rel - 1.5 - index)[..., None]
+    i0 = (index - 1).long()
+    ssal = t['cld_ssaliq1']
+    extcoliq = _lin_rows(t['cld_extliq1'], i0, fint)
+    ssacoliq = _lin_rows(ssal, i0, fint)
+    ssacoliq = torch.where((fint < 0.0) & (ssacoliq > 1.0), ssal[i0],
+                           ssacoliq)
+    gliq = _lin_rows(t['cld_asyliq1'], i0, fint)
+    forwliq = gliq * gliq
+    no_liq = (clwp == 0.0)[..., None]
+    extcoliq = torch.where(no_liq, 0.0, extcoliq)
+    ssacoliq = torch.where(no_liq, 0.0, ssacoliq)
+    gliq = torch.where(no_liq, 0.0, gliq)
+    forwliq = torch.where(no_liq, 0.0, forwliq)
+
+    tauliqorig = clwp[..., None] * extcoliq
+    tauiceorig = ciwp[..., None] * extcoice
+    taucldorig = tauliqorig + tauiceorig
+    den_l = 1.0 - forwliq * ssacoliq
+    ssaliq = ssacoliq * (1.0 - forwliq) / den_l
+    tauliq = den_l * tauliqorig
+    den_i = torch.where(forwice * ssacoice == 1.0, 1.0,
+                        1.0 - forwice * ssacoice)
+    ssaice = torch.where(no_ice, 0.0, ssacoice * (1.0 - forwice) / den_i)
+    tauice = den_i * tauiceorig
+    scatliq = ssaliq * tauliq
+    scatice = ssaice * tauice
+    taucloud = tauliq + tauice
+    taucloud = torch.where(taucloud == 0.0, cldmin, taucloud)
+    scatice = torch.where(scatice == 0.0, cldmin, scatice)
+    ssacloud = (scatliq + scatice) / taucloud
+    g_l = (gliq - forwliq) / torch.where(forwliq == 1.0, 1.0, 1.0 - forwliq)
+    g_i = (gice - forwice) / torch.where(forwice == 1.0, 1.0, 1.0 - forwice)
+    asmcloud = (scatliq * g_l + scatice * g_i) / (scatliq + scatice)
+
+    sel = cloudy & ((ciwp + clwp >= cldmin)[..., None])
+    return (torch.where(sel, taucloud, 0.0),
+            torch.where(sel, ssacloud, 1.0),
+            torch.where(sel, asmcloud, 0.0),
+            torch.where(sel, taucldorig, 0.0))
+
+
+def _top_down_g(x, ngb):
+    """(nz, ncol, nband) bottom-up -> (nz, ncol, 112) top-down."""
+    return torch.flip(x, [0])[:, :, ngb]
+
+
+def _incident_flux(adjflux_band, sflux, mu0, ngb):
+    adj = torch.as_tensor(np.asarray(adjflux_band), dtype=sflux.dtype,
+                          device=sflux.device)
+    return adj[ngb] * sflux * mu0[:, None]
+
+
+def _clear_optics(taur, taug, taua, omga, asya):
+    """Delta-scaled clear-sky optics (spcvrt_sw.f90): (tau, omega, g)."""
     ztauc = taur + taug + taua
     zomcc = taur * 1.0 + taua * omga
     zgcc = asya * omga * taua / torch.clamp(zomcc, min=1e-300)
     zomcc = zomcc / ztauc
     zf = zgcc * zgcc
     zwf = zomcc * zf
-    ztauc_d = (1.0 - zwf) * ztauc
-    zomcc_d = (zomcc - zwf) / (1.0 - zwf)
-    zgcc_d = (zgcc - zf) / (1.0 - zf)
-    return _spcv_core(ztauc_d, zomcc_d, zgcc_d, mu0b, alb_dir_band,
-                      alb_dif_band, incflx)
+    return ((1.0 - zwf) * ztauc, (zomcc - zwf) / (1.0 - zwf),
+            (zgcc - zf) / (1.0 - zf))
 
 
-def _spcv_core(ztauc_d, zomcc_d, zgcc_d, mu0b, alb_dir_band, alb_dif_band,
-               incflx):
-    """Two-stream tail of spcvrt (:817) for icld=0, where the total sky
-    is the clear sky: reflectivities, direct beam, one adding sweep."""
+def spcvrt_sw(taug, taur, sflux, adjflux_band, mu0, alb_dir_band,
+              alb_dif_band, cldfrac, tauc_b, ssac_b, asmc_b,
+              taua_b, ssaa_b, asma_b, icld, use_tables=True):
+    """Two-stream solver over all g-points (:760).  taug/taur (nz, ncol,
+    112) bottom-up, sflux (ncol, 112), band optics (nz, ncol, nband).
+    Returns (fd, fu, fd_clear, fu_clear): (nz+1, ncol) bottom-up."""
+    ngb = torch.as_tensor(NGB, dtype=torch.int64, device=taug.device)
+    taug = torch.flip(taug, [0])                      # top-down
+    taur = torch.flip(taur, [0])
+    taua = _top_down_g(taua_b, ngb)
+    omga = _top_down_g(ssaa_b, ngb)
+    asya = _top_down_g(asma_b, ngb)
+    mu0b = mu0[None, :, None]
+    incflx = _incident_flux(adjflux_band, sflux, mu0, ngb)
+    ztauc_d, zomcc_d, zgcc_d = _clear_optics(taur, taug, taua, omga, asya)
+    if icld == 0:
+        return _spcv_core(ztauc_d, zomcc_d, zgcc_d, None, None, None, None,
+                          mu0b, alb_dir_band, alb_dif_band, incflx, icld,
+                          use_tables)
+
+    # total-sky optics (icpr=0 path: combine unscaled, then delta scale)
+    cf = torch.flip(cldfrac, [0])[..., None]          # (nz, ncol, 1)
+    tauc = _top_down_g(tauc_b, ngb)
+    omgc = _top_down_g(ssac_b, ngb)
+    asyc = _top_down_g(asmc_b, ngb)
+    ztauo = taur + taug + taua + tauc
+    zomco = taua * omga + tauc * omgc + taur * 1.0
+    zgco = (tauc * omgc * asyc + taua * omga * asya) / torch.clamp(
+        zomco, min=1e-300)
+    zomco = zomco / ztauo
+    zfo = zgco * zgco
+    zwfo = zomco * zfo
+    return _spcv_core(ztauc_d, zomcc_d, zgcc_d, (1.0 - zwfo) * ztauo,
+                      (zomco - zwfo) / (1.0 - zwfo),
+                      (zgco - zfo) / (1.0 - zfo), cf, mu0b, alb_dir_band,
+                      alb_dif_band, incflx, icld, use_tables)
+
+
+def _spcv_core(ztauc_d, zomcc_d, zgcc_d, ztauo_d, zomco_d, zgco_d, cf,
+               mu0b, alb_dir_band, alb_dif_band, incflx, icld,
+               use_tables=True):
+    """Two-stream tail of spcvrt/spcvmc (:817): reflectivities, direct
+    beam, clear/cloudy combination and the adding sweeps.  Optics
+    top-down (nz, ncol, 112), delta-scaled; cf the cloud fraction (nz,
+    ncol, 1) or McICA's 0/1 subcolumn mask (nz, ncol, 112).  With icld 0
+    the total sky is the clear sky: one sweep, no cloud optics."""
     ncol = ztauc_d.shape[1]
     ngb = torch.as_tensor(NGB, dtype=torch.int64, device=ztauc_d.device)
     refc, refdc, trac, tradc = reftra_sw(
         ztauc_d, zomcc_d, zgcc_d, mu0b,
-        torch.ones_like(ztauc_d, dtype=torch.bool))
-    zdbtc = _exp_transmittance(ztauc_d / mu0b)
+        torch.ones_like(ztauc_d, dtype=torch.bool), use_tables)
+    zdbtc = _exp_transmittance(ztauc_d / mu0b, use_tables)
     ones_lvl = torch.ones((1, ncol, NGPT), dtype=ztauc_d.dtype,
                           device=ztauc_d.device)
     ztdbtc = torch.cat([ones_lvl, torch.cumprod(zdbtc, dim=0)], dim=0)
@@ -527,9 +702,70 @@ def _spcv_core(ztauc_d, zomcc_d, zgcc_d, mu0b, alb_dir_band, alb_dif_band,
     albd = alb_dif_band[:, ngb]
     fd_c, fu_c = vrtqdr_sw(refc, refdc, trac, tradc, zdbtc, ztdbtc,
                            albp, albd)
-    fd = torch.flip(torch.einsum('lcg,cg->lc', fd_c, incflx), [0])
-    fu = torch.flip(torch.einsum('lcg,cg->lc', fu_c, incflx), [0])
-    return fd, fu, fd, fu
+
+    def total(f):
+        return torch.flip(torch.einsum('lcg,cg->lc', f, incflx), [0])
+
+    if icld == 0:
+        fd, fu = total(fd_c), total(fu_c)
+        return fd, fu, fd, fu
+
+    refo, refdo, trao, trado = reftra_sw(
+        ztauo_d, zomco_d, zgco_d, mu0b, cf > 1e-12, use_tables)
+    zdbto = _exp_transmittance(ztauo_d / mu0b, use_tables)
+    clr = 1.0 - cf
+    zdbt = clr * zdbtc + cf * zdbto
+    ztdbt = torch.cat([ones_lvl, torch.cumprod(zdbt, dim=0)], dim=0)
+    fd_t, fu_t = vrtqdr_sw(
+        clr * refc + cf * refo, clr * refdc + cf * refdo,
+        clr * trac + cf * trao, clr * tradc + cf * trado, zdbt, ztdbt,
+        albp, albd)
+    return total(fd_t), total(fu_t), total(fd_c), total(fu_c)
+
+
+def spcvmc_sw(taug, taur, sflux, adjflux_band, mu0, alb_dir_band,
+              alb_dif_band, cldfmc_g, taucmc_g, ssacmc_g, asmcmc_g,
+              taua_b, ssaa_b, asma_b, use_tables=True):
+    """McICA two-stream solver (:876, the icpr=1 path): per-g-point
+    subcolumn cloud optics (nz, ncol, 112) bottom-up, already
+    delta-scaled, combined with the delta-scaled clear column; the 0/1
+    subcolumn mask weights clear and cloudy."""
+    ngb = torch.as_tensor(NGB, dtype=torch.int64, device=taug.device)
+    taug = torch.flip(taug, [0])
+    taur = torch.flip(taur, [0])
+    cf, tauc, omgc, asyc = (torch.flip(x, [0]) for x in (
+        cldfmc_g, taucmc_g, ssacmc_g, asmcmc_g))
+    taua = _top_down_g(taua_b, ngb)
+    omga = _top_down_g(ssaa_b, ngb)
+    asya = _top_down_g(asma_b, ngb)
+    mu0b = mu0[None, :, None]
+    incflx = _incident_flux(adjflux_band, sflux, mu0, ngb)
+    ztauc_d, zomcc_d, zgcc_d = _clear_optics(taur, taug, taua, omga, asya)
+    ztauo_d = ztauc_d + tauc
+    zomco_raw = ztauc_d * zomcc_d + tauc * omgc
+    zgco_d = (tauc * omgc * asyc + ztauc_d * zomcc_d * zgcc_d) \
+        / torch.clamp(zomco_raw, min=1e-300)
+    return _spcv_core(ztauc_d, zomcc_d, zgcc_d, ztauo_d,
+                      zomco_raw / ztauo_d, zgco_d, cf, mu0b, alb_dir_band,
+                      alb_dif_band, incflx, 1, use_tables)
+
+
+def ecmwf_aerosol_optics(ecaer):
+    """ECMWF six-type aerosol optical depth at 0.55 micron, (6, nz, ncol),
+    to band optics (taua, ssaa, asma), each (nz, ncol, nband) (:1090)."""
+    t = load_tables(ecaer.dtype, ecaer.device)
+    rsrtaua = t['aer_rsrtaua']                        # (nband, naer)
+    rsrpiza = t['aer_rsrpiza']
+    rsrasya = t['aer_rsrasya']
+    ec = torch.movedim(ecaer, 0, -1)                  # (nz, ncol, naer)
+    taua = torch.einsum('zca,ba->zcb', ec, rsrtaua)
+    zomga = torch.einsum('zca,ba->zcb', ec, rsrtaua * rsrpiza)
+    zasya = torch.einsum('zca,ba->zcb', ec, rsrtaua * rsrpiza * rsrasya)
+    asma = torch.where(zomga != 0.0,
+                       zasya / torch.where(zomga == 0, 1.0, zomga), zasya)
+    ssaa = torch.where(taua != 0.0,
+                       zomga / torch.where(taua == 0, 1.0, taua), 1.0)
+    return taua, ssaa, asma
 
 
 def earth_sun(day_of_year):
@@ -637,15 +873,14 @@ def rrtmg_sw_fluxes(play, plev, tlay, h2ovmr, o3vmr, co2vmr, ch4vmr,
                     cldfrac, cloud_optics, aerosol_optics,
                     adjes, day_of_year, scon, isolvar,
                     solar_config, grav, avogadro, cpdair, icld,
-                    per_g_cloud=False, use_tables=False):
-    """Full shortwave driver (:1018) for clear sky (icld=0) and analytic
-    transmittance (use_tables=False).  Pressures in mb, (nz, ncol)
-    bottom-up; coszen (ncol,).  Returns (swuflx, swdflx, swuflxc,
-    swdflxc) on (nz+1, ncol) levels plus (swhr, swhrc) in K/day."""
-    if icld != 0 or per_g_cloud or use_tables:
-        raise NotImplementedError(
-            'rrtmg_sw_fluxes: only icld=0, per_g_cloud=False, '
-            'use_tables=False are ported')
+                    per_g_cloud=False, cloud_g=None, use_tables=True):
+    """Full shortwave driver (:1018).  Pressures in mb, (nz, ncol)
+    bottom-up; coszen (ncol,); cloud_optics (tauc, ssac, asmc, taucorig)
+    and aerosol_optics (taua, ssaa, asma) per band (nz, ncol, nband).
+    With per_g_cloud, cloud_g = (cldfmc, taucmc, ssacmc, asmcmc), McICA
+    subcolumn optics (nz, ncol, 112), replace the band clouds and the
+    solver is spcvmc.  Returns (swuflx, swdflx, swuflxc, swdflxc) on
+    (nz+1, ncol) levels plus (swhr, swhrc) in K/day."""
     dtype = play.dtype
     (svar_f, svar_s, svar_i, svf_b, svs_b, svi_b, solvar) = solar_config
     adjflx = earth_sun(day_of_year) if day_of_year > 0 else adjes
@@ -667,9 +902,15 @@ def rrtmg_sw_fluxes(play, plev, tlay, h2ovmr, o3vmr, co2vmr, ch4vmr,
     alb_dif = torch.stack([aldif] * 9 + [asdif] * 4 + [aldif], dim=-1)
     tauc_b, ssac_b, asmc_b, _ = cloud_optics
     taua_b, ssaa_b, asma_b = aerosol_optics
-    fd, fu, fdc, fuc = spcvrt_sw(
-        taug, taur, sflux, adjflux_band, cossza, alb_dir, alb_dif,
-        cldfrac, tauc_b, ssac_b, asmc_b, taua_b, ssaa_b, asma_b)
+    if per_g_cloud:
+        fd, fu, fdc, fuc = spcvmc_sw(
+            taug, taur, sflux, adjflux_band, cossza, alb_dir, alb_dif,
+            *cloud_g, taua_b, ssaa_b, asma_b, use_tables=use_tables)
+    else:
+        fd, fu, fdc, fuc = spcvrt_sw(
+            taug, taur, sflux, adjflux_band, cossza, alb_dir, alb_dif,
+            cldfrac, tauc_b, ssac_b, asmc_b, taua_b, ssaa_b, asma_b, icld,
+            use_tables=use_tables)
 
     heatfac = grav * 86400.0 * 1.0e-5 / (cpdair * 1.0e-3)
     net = fd - fu

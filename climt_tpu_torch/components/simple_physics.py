@@ -6,11 +6,20 @@ law, and the partially implicit boundary-layer diffusion whose
 tridiagonal solve is an upward elimination plus a downward
 back-substitution (Python loops over levels here, ``lax.scan`` there).
 Level index 0 is the lowest layer; arrays are (nz, ncol).
+``SimplePhysics`` is the climt Stepper over it, computing on its
+``device``.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from ..core.base_components import Stepper, timestep_seconds
+from ..core.constants import get_constant
+from ..core.dataarray import as_tensor
+from ..core.util import resolve_device
 
 
 def _large_scale_condensation(T, q, p_mid, dp, dt, consts):
@@ -155,3 +164,125 @@ def simple_physics_step(T, q, u, v, p_mid, p_int, ps, Ts, qsurf, dt,
             T, q, u, v, p_mid, p_int, dp, za, wind, cd, dt, consts)
     return T, q, u, v, precipitation, sensible, latent
 
+
+
+class SimplePhysics(Stepper):
+    """Reed & Jablonowski (2012) surface fluxes, boundary layer and
+    large-scale condensation (:202), on ``device`` (the CUDA card unless
+    the caller asks for another)."""
+
+    input_properties = {
+        'air_temperature': {'dims': ['mid_levels', '*'], 'units': 'degK'},
+        'air_pressure': {'dims': ['mid_levels', '*'], 'units': 'Pa'},
+        'air_pressure_on_interface_levels': {
+            'dims': ['interface_levels', '*'], 'units': 'Pa'},
+        'surface_air_pressure': {'dims': ['*'], 'units': 'Pa'},
+        'surface_temperature': {'dims': ['*'], 'units': 'degK'},
+        'specific_humidity': {'dims': ['mid_levels', '*'], 'units': 'kg/kg'},
+        'northward_wind': {'dims': ['mid_levels', '*'], 'units': 'm s^-1'},
+        'eastward_wind': {'dims': ['mid_levels', '*'], 'units': 'm s^-1'},
+        'surface_specific_humidity': {'dims': ['*'], 'units': 'kg/kg'},
+        'latitude': {'dims': ['*'], 'units': 'degrees_north'},
+    }
+
+    diagnostic_properties = {
+        'stratiform_precipitation_rate': {'dims': ['*'], 'units': 'm s^-1'},
+        'surface_upward_latent_heat_flux': {'dims': ['*'],
+                                            'units': 'W m^-2'},
+        'surface_upward_sensible_heat_flux': {'dims': ['*'],
+                                              'units': 'W m^-2'},
+    }
+
+    output_properties = {
+        'air_temperature': {'units': 'degK'},
+        'specific_humidity': {'units': 'kg/kg'},
+        'northward_wind': {'units': 'm s^-1'},
+        'eastward_wind': {'units': 'm s^-1'},
+    }
+
+    def __init__(self, simulate_cyclone=False, large_scale_condensation=True,
+                 boundary_layer=True, surface_fluxes=True,
+                 use_external_surface_temperature=True,
+                 use_external_surface_specific_humidity=False,
+                 top_of_boundary_layer=85000.0,
+                 boundary_layer_influence_height=20000.0,
+                 drag_coefficient_heat_fluxes=0.0011,
+                 base_momentum_drag_coefficient=0.0007,
+                 wind_dependent_momentum_drag_coefficient=0.000065,
+                 maximum_momentum_drag_coefficient=0.002,
+                 device='cuda',
+                 **kwargs):
+        self.device = resolve_device(device)
+        self._cyclone = simulate_cyclone
+        self._lsc = large_scale_condensation
+        self._pbl = boundary_layer
+        self._surface_flux = surface_fluxes
+        self._use_ext_ts = use_external_surface_temperature
+        self._use_ext_qsurf = use_external_surface_specific_humidity
+        self._Ct = drag_coefficient_heat_fluxes
+        self._pbl_top = top_of_boundary_layer
+        self._delta_pbl = boundary_layer_influence_height
+        self._Cd0 = base_momentum_drag_coefficient
+        self._Cd1 = wind_dependent_momentum_drag_coefficient
+        self._Cm = maximum_momentum_drag_coefficient
+        super().__init__(**kwargs)
+
+    def _surface_temperature(self, raw_state, rd, a, omega):
+        """The external surface temperature, the latitude-dependent SST
+        of the moist baroclinic-wave test, or the constant 302.15 K of the
+        tropical-cyclone test (:259)."""
+        if self._use_ext_ts:
+            return as_tensor(raw_state['surface_temperature'], self.device)
+        lat = torch.deg2rad(as_tensor(raw_state['latitude'], self.device))
+        if not self._cyclone:
+            return torch.full_like(lat, 302.15)
+        zvir = (461.5 / rd) - 1.0
+        u0, T00 = 35.0, 288.0
+        latw = 2.0 * math.pi / 9.0
+        etav = (1 - 0.252) * 0.5 * math.pi
+        q0 = 0.021
+        return (T00 + math.pi * u0 / rd * 1.5 * math.sin(etav)
+                * math.cos(etav) ** 0.5 *
+                ((-2. * torch.sin(lat) ** 6
+                  * (torch.cos(lat) ** 2 + 1. / 3.) + 10. / 63.)
+                 * u0 * math.cos(etav) ** 1.5
+                 + (8. / 5. * torch.cos(lat) ** 3
+                    * (torch.sin(lat) ** 2 + 2. / 3.)
+                    - math.pi / 4.) * a * omega * 0.5)) / (
+            1. + zvir * q0 * torch.exp(-(lat / latw) ** 4))
+
+    def array_call(self, raw_state, timestep):
+        rd = get_constant('gas_constant_of_dry_air', 'J/kg/degK')
+        Ts = self._surface_temperature(
+            raw_state, rd, get_constant('planetary_radius', 'm'),
+            get_constant('planetary_rotation_rate', 's^-1'))
+        T, q, u, v, precipitation, sensible, latent = simple_physics_step(
+            *(as_tensor(raw_state[name], self.device) for name in (
+                'air_temperature', 'specific_humidity', 'eastward_wind',
+                'northward_wind', 'air_pressure',
+                'air_pressure_on_interface_levels',
+                'surface_air_pressure')),
+            Ts, as_tensor(raw_state['surface_specific_humidity'],
+                          self.device),
+            timestep_seconds(timestep),
+            get_constant('gravitational_acceleration', 'm/s^2'),
+            get_constant('heat_capacity_of_dry_air_at_constant_pressure',
+                         'J/kg/degK'),
+            rd, get_constant('gas_constant_of_vapor_phase', 'J/kg/degK'),
+            get_constant('latent_heat_of_condensation', 'J/kg'),
+            get_constant('density_of_liquid_water', 'kg/m^3'),
+            self._pbl_top, self._delta_pbl,
+            self._Ct, self._Cd0, self._Cd1, self._Cm,
+            self._lsc, self._pbl, self._surface_flux, self._use_ext_qsurf)
+        diagnostics = {
+            'stratiform_precipitation_rate': precipitation,
+            'surface_upward_sensible_heat_flux': sensible,
+            'surface_upward_latent_heat_flux': torch.clamp(latent, min=0.0),
+        }
+        new_state = {
+            'eastward_wind': u,
+            'northward_wind': v,
+            'air_temperature': T,
+            'specific_humidity': q,
+        }
+        return diagnostics, new_state

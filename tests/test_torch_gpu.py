@@ -74,11 +74,23 @@ def test_rtrn_lw_cuda_matches_plain(cuda, nz):
 
 @pytest.mark.gpu
 def test_cuda_wrappers_refuse_float64(cuda):
-    tbl = torch.zeros((4, 2), dtype=torch.float64, device=cuda)
-    idx = torch.zeros((1, 3), dtype=torch.int64, device=cuda)
-    w = torch.zeros((1, 3), dtype=torch.float64, device=cuda)
+    """Kernel A has no float64 instantiation and refuses it."""
+    args = [a.double() for a in _rtrn_args(9, 8, cuda)]
     with pytest.raises(TypeError):
-        fused_mix.mix_rows(tbl, idx, w)
+        rtrn_kernel.rtrn_lw_cuda(*args, TL._support_scalar('rec_6'))
+
+
+@pytest.mark.gpu
+def test_grouped_kernel_matches_plain_in_float64(cuda):
+    """Kernel B's float64 instantiation on the ragged bands, 9300 cells,
+    to 1e-12 of max."""
+    layout, idx, w = ragged_group(ragged_bands(cells=(31, 300)),
+                                  torch.float64, cuda)
+    before = fused_mix.mix_groups_cuda.launches
+    out = fused_mix.mix_groups_cuda(layout, idx, w)
+    assert out.dtype == torch.float64
+    assert fused_mix.mix_groups_cuda.launches == before + 1
+    assert rel_err(out, fused_mix.mix_groups_plain(layout, idx, w)) < 1e-12
 
 
 @pytest.mark.gpu
@@ -133,6 +145,37 @@ def test_t85_chunk_radiation_makes_few_kernel_b_launches(cuda):
     port_lw(c, torch.float32, cuda)
     port_sw(c, torch.float32, cuda)
     assert 0 < fused_mix.mix_groups_cuda.launches - before <= 10
+
+
+@pytest.mark.gpu
+def test_rrtmg_components_on_the_card_match_the_cpu(cuda):
+    """RRTMGLongwave and RRTMGShortwave at float64 on a cloudy 8x4x20
+    default state: kernel B runs in float64 (3 groups each), kernel A not
+    at all, and every output agrees with the CPU to 1e-9 of max."""
+    outs = {}
+    launches = {}
+    for dev in ('cpu', cuda):
+        comps = [ct.RRTMGLongwave(device=dev), ct.RRTMGShortwave(device=dev)]
+        state = ct.get_default_state(
+            comps, grid_state=ct.get_grid(nx=8, ny=4, nz=20))
+        state['cloud_area_fraction_in_atmosphere_layer'].values[5:9] = 0.6
+        state['mass_content_of_cloud_liquid_water_in_atmosphere_layer'
+              ].values[5:9] = 40.0
+        state['zenith_angle'].values[:] = 0.5
+        a0 = rtrn_kernel.rtrn_lw_cuda.launches
+        b0 = fused_mix.mix_groups_cuda.launches
+        outs[str(dev)] = [comp(state) for comp in comps]
+        launches[str(dev)] = (rtrn_kernel.rtrn_lw_cuda.launches - a0,
+                              fused_mix.mix_groups_cuda.launches - b0)
+    assert launches['cpu'] == (0, 0)
+    assert launches['cuda:0'] == (0, 6)
+    for card, host in zip(outs['cuda:0'], outs['cpu']):
+        for part_c, part_h in zip(card, host):
+            for name, value in part_h.items():
+                assert part_c[name].values.is_cuda, name
+                assert part_c[name].values.dtype == torch.float64, name
+                assert rel_err(part_c[name].values, value.values) < 1e-9, \
+                    name
 
 
 @pytest.mark.gpu

@@ -1,12 +1,9 @@
 """climt_tpu_torch's Held-Suarez forcing, GFSDynamicalCore and fused
 Held-Suarez model against the JAX package, on the CPU at float64."""
 
-import functools
 import importlib.util
 import os
-import re
 import sys
-import types
 from datetime import timedelta
 
 import jax
@@ -23,7 +20,7 @@ from climt_tpu_torch.core import constants as tconstants
 from climt_tpu_torch.core import tracers as ttracers
 from climt_tpu_torch.dycore.compiled import build_held_suarez_model as tbuild
 
-from torch_helpers import rel_err
+from torch_helpers import EXAMPLE_BIND, EXAMPLES, port_example, rel_err
 
 NX, NY, NZ = 32, 16, 10
 DT = timedelta(minutes=15)
@@ -33,8 +30,6 @@ HS_STEPS = 20
 # m/s and 0.12 Pa on the CPU (float32 roundoff of a ~290 K, 1e5 Pa
 # state); the bounds leave about 3x room (K, m/s, Pa)
 F32_BOUNDS = {'T': 5e-4, 'u': 2.5e-3, 'v': 2.5e-3, 'ps': 0.4}
-EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), 'examples')
 
 
 @pytest.fixture(autouse=True)
@@ -208,38 +203,13 @@ def test_convert_round_trip():
             assert rel_err(tpart[key], jpart[key]) <= 1e-10, key
 
 
-def _port_example(device, **kw):
-    """examples/held_suarez.py's main(), run from the file's own text with
-    climt_tpu replaced by climt_tpu_torch, its printout included;
-    ``device`` is given to its HeldSuarez and GFSDynamicalCore through
-    the module's globals.  Returns (state, number of dycore calls)."""
-    with open(os.path.join(EXAMPLES, 'held_suarez.py')) as f:
-        source = re.sub(r'\bclimt_tpu\b', 'climt_tpu_torch', f.read())
-    example = {'__name__': 'held_suarez_example_torch'}
-    exec(compile(source, 'examples/held_suarez.py', 'exec'), example)
-    calls = []
-
-    class OnDevice(example['GFSDynamicalCore']):
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, device=device, **kwargs)
-
-        def __call__(self, state, timestep):
-            calls.append(timestep)
-            return super().__call__(state, timestep)
-
-    example['GFSDynamicalCore'] = OnDevice
-    example['ct'] = types.SimpleNamespace(**dict(
-        vars(tct), HeldSuarez=functools.partial(tct.HeldSuarez,
-                                                device=device)))
-    return example['main'](**kw), len(calls)
-
-
 def test_example_body_matches_jax_example():
     """examples/held_suarez.py at 32x16x10 and n_days=0.02, as
     tests/test_examples.py runs it, in both packages."""
     kw = dict(n_days=0.02, nx=NX, ny=NY, nz=NZ, dt_minutes=15)
-    st, n_calls = _port_example(device='cpu', **kw)
-    assert n_calls == 1
+    main, calls = port_example('held_suarez', 'cpu', EXAMPLE_BIND)
+    st = main(**kw)                    # the printout included
+    assert len(calls.seconds) == 1
     spec = importlib.util.spec_from_file_location(
         'example_held_suarez', os.path.join(EXAMPLES, 'held_suarez.py'))
     module = importlib.util.module_from_spec(spec)

@@ -99,7 +99,8 @@ def test_rtrn_plain_matches_jax_xla_f64():
     x = _rtrn_inputs()
     ref = L.rtrn_lw(*[jnp.asarray(x[k]) for k in _ORDER], HEATFAC,
                     use_tables=False)
-    out = TL.rtrn_lw(*[to_torch(x[k]) for k in _ORDER], HEATFAC)
+    out = TL.rtrn_lw(*[to_torch(x[k]) for k in _ORDER], HEATFAC,
+                     use_tables=False)
     assert len(out) == len(ref) == 6
     for a, b in zip(out, ref):
         assert a.dtype == torch.float64

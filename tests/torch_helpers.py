@@ -1,13 +1,95 @@
 """Shared inputs and comparisons for the climt_tpu_torch parity tests.
 
 Inputs are made once with numpy from a seed and handed to both packages:
-JAX through ``jnp.asarray``, the port through ``to_torch``.
+JAX through ``jnp.asarray``, the port through ``to_torch``.  The module
+imports neither jax nor climt_tpu at its top, so ``chip_smoke.py`` runs the
+examples through ``port_example`` too.
 """
+
+import functools
+import importlib.util
+import os
+import re
+import sys
+import time
+import types
 
 import numpy as np
 import torch
 
 G, AVOG, CPD = 9.80665, 6.022140857e23, 1004.64
+EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'examples')
+
+
+def port_example(name, device=None, bind=()):
+    """(main, calls) of examples/<name>.py, run from the file's own text
+    with ``climt_tpu`` replaced by ``climt_tpu_torch``.  The names in
+    ``bind`` (GFSDynamicalCore and the components the example builds) are
+    given ``device=`` wherever the example reaches them, as ``ct.Name`` or
+    as a module global; with device None the example runs as written, on
+    the card.  ``calls.seconds`` gets the host seconds of each
+    GFSDynamicalCore call (the card synchronized), ``calls.dycores`` each
+    GFSDynamicalCore the example builds."""
+    with open(os.path.join(EXAMPLES, name + '.py')) as f:
+        source = re.sub(r'\bclimt_tpu\b', 'climt_tpu_torch', f.read())
+    example = {'__name__': name + '_example_torch'}
+    exec(compile(source, 'examples/%s.py' % name, 'exec'), example)
+    ct = example['ct']
+    calls = types.SimpleNamespace(seconds=[], dycores=[])
+
+    class TimedDycore(ct.GFSDynamicalCore):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            calls.dycores.append(self)
+
+        def __call__(self, state, timestep):
+            t0 = time.perf_counter()
+            out = super().__call__(state, timestep)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            calls.seconds.append(time.perf_counter() - t0)
+            return out
+
+    classes = dict(vars(ct), GFSDynamicalCore=TimedDycore)
+    if device is not None:
+        for cls in bind:
+            classes[cls] = functools.partial(classes[cls], device=device)
+    for cls in set(bind) | {'GFSDynamicalCore'}:
+        if cls in example:
+            example[cls] = classes[cls]
+    example['ct'] = types.SimpleNamespace(**classes)
+    return example['main'], calls
+
+
+# every name the examples build on a device
+EXAMPLE_BIND = ('GFSDynamicalCore', 'HeldSuarez', 'EmanuelConvection',
+                'SimplePhysics', 'RRTMGLongwave', 'RRTMGShortwave',
+                'SlabSurface', 'GrayLongwaveRadiation',
+                'Frierson06LongwaveOpticalDepth')
+
+
+def run_both_examples(name, **kw):
+    """examples/<name>.py in the port (on the CPU) and in JAX; returns
+    (port state, JAX state, number of port dycore calls)."""
+    main, calls = port_example(name, 'cpu', EXAMPLE_BIND)
+    st = main(verbose=False, **kw)
+    spec = importlib.util.spec_from_file_location(
+        'example_' + name, os.path.join(EXAMPLES, name + '.py'))
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    return st, module.main(verbose=False, **kw), len(calls.seconds)
+
+
+def assert_states_match(st, sj, tol=1e-10):
+    """Every numeric field of the JAX state, to ``tol`` of its max."""
+    assert set(st) == set(sj)
+    for name, value in sj.items():
+        if name == 'time' or np.asarray(value.values).dtype.kind != 'f':
+            continue
+        assert st[name].dims == value.dims, name
+        assert rel_err(st[name].values, value.values) <= tol, name
 
 
 def to_torch(x, dtype=torch.float64, device='cpu'):
