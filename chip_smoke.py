@@ -44,7 +44,26 @@ Phases, each of which fails loudly (no exception is turned into exit 0):
      (150, 350) K;
  12. the same example at 16x8x8 for 7 calls on the card against the CPU,
      within 10 times the spread that a one-ulp change of the initial
-     temperature makes on the CPU.
+     temperature makes on the CPU;
+ 13. examples/full_radiation_with_insolation_gcm.py (Instellation every
+     call, RRTMG refreshed at calls 0, 6 and 12) the same way at its own
+     128x62x28, float64, dt 600 s, 13 calls: s/call of refresh and other
+     calls, the Instellation call's time, peak memory, 6 kernel-B and 0
+     kernel-A launches per refresh, every field finite, T in (150, 350) K,
+     a zenith angle that changes from call to call; then at 16x8x8 for 7
+     calls on the card against the CPU under phase 12's one-ulp rule;
+ 14. examples/baroclinic_wave.py (the dry dycore from the DCMIP initial
+     state) at its own 128x64x20, 100 calls, and
+     examples/grey_radiative_convective.py (grey radiation, slab surface,
+     dry convection, condensation) at its own nz=30, 100 steps, each timed
+     on the card and held against the CPU under the one-ulp rule;
+ 15. the land-surface stack on one 128x64x28 float64 state: LandMask
+     (with topography), DataOcean with and without compute_fluxes,
+     SecondBEST and BucketHydrology (one and two layers) over the land
+     columns, SeaIce over a polar band of sea ice and LandIce over the land
+     and land-ice columns, SimpleBoundaryLayer and BergerSolarInsolation,
+     each called 10 times on the card (ms per call) and on the CPU, under
+     the one-ulp rule with a floor of 16 float64 epsilons.
 The examples run through tests/torch_helpers.py:port_example, which the
 CPU tests use too.
 The line before the last is a JSON object with each kernel's launches,
@@ -53,6 +72,7 @@ error, time, bound, plain and library times; the last line is
 It imports neither jax nor climt_tpu.
 """
 
+import datetime
 import json
 import os
 import subprocess
@@ -88,6 +108,19 @@ T42_STEPS = 1000
 EXAMPLE_TOL = 1e-9
 FULL_RADIATION = 'full_radiation_gcm_energy_balanced'
 FULL_RADIATION_CALLS = 13
+INSOLATION = 'full_radiation_with_insolation_gcm'
+BAROCLINIC = 'baroclinic_wave'
+GREY = 'grey_radiative_convective'
+EXAMPLE_CALLS = 100
+LAND_SIZE = (128, 64, 28)
+LAND_CALLS = 10
+# phase 15's floor under the one-ulp spread: LandMask's and
+# BergerSolarInsolation's outputs come from the coordinates and the time
+# alone, which the nudge leaves as they are, so their spread is 0; the
+# card's float64 sin, cos and acos differ from the CPU's by a few ulps,
+# which acos amplifies near the subsolar point (4e-15 of max measured on
+# the H100)
+SPREAD_FLOOR = 16 * 2.220446049250313e-16
 GFS_OUTPUTS = ('eastward_wind', 'northward_wind', 'air_temperature',
                'specific_humidity', 'surface_air_pressure', 'air_pressure',
                'air_pressure_on_interface_levels', 'divergence_of_wind',
@@ -248,7 +281,7 @@ def run_example(name, n_calls, device=None, **kw):
     if len(calls.seconds) != n_calls:
         fail('%s made %d dycore calls, not %d' % (name, len(calls.seconds),
                                                   n_calls))
-    return state, calls.dycores[0], calls.seconds
+    return state, calls.dycores[0] if calls.dycores else None, calls.seconds
 
 
 def held_suarez_example(n_calls, nx, ny, nz, device=None, dt_minutes=15):
@@ -431,9 +464,9 @@ def component_api_phase(dev, card, launch_counts, size=(128, 64, 20),
                                                           EXAMPLE_TOL))
 
 
-def finite_float_fields(state, torch):
-    """{name: values} of every floating field of an example's state, as
-    tensors; fails on a non-finite value."""
+def finite_float_fields(state, torch, label):
+    """{name: values} of every floating field of an example's state (or
+    a component's outputs), as tensors; fails on a non-finite value."""
     import numpy as np
 
     out = {}
@@ -441,65 +474,137 @@ def finite_float_fields(state, torch):
         values = getattr(value, 'values', None)
         if values is None:
             continue
-        if isinstance(values, np.ndarray):
+        if not isinstance(values, torch.Tensor):
+            values = np.asarray(values)
             if values.dtype.kind != 'f':
                 continue
             values = torch.as_tensor(values)
         if not values.is_floating_point():
             continue
         if not bool(torch.isfinite(values).all()):
-            fail('%s: NaN or inf in %s' % (FULL_RADIATION, name))
+            fail('%s: NaN or inf in %s' % (label, name))
         out[name] = values
     return out
 
 
-def full_radiation_phase(dev, card, launch_counts, counters):
-    """Phase 11: examples/full_radiation_gcm_energy_balanced.py on the
-    card at its own 128x62x28, float64, dt 600 s, 13 calls; both kernels'
-    launch counts are set to 0 just before and read just after.  Returns
-    {kernel: launches}."""
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def radiation_example_phase(n, name, dev, card, counters, on_call=None):
+    """Phases 11 and 13: examples/<name>.py on the card at its own
+    128x62x28, float64, dt 600 s, 13 calls; both kernels' launch counts
+    are set to 0 just before and read just after.  Fails unless every
+    refresh (calls 0, 6, 12) launched kernel B 6 times and kernel A never.
+    Returns ({kernel: launches}, the final fields)."""
     import torch
 
     for counter in counters.values():
         counter.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    state, _, call_s = run_example(FULL_RADIATION, FULL_RADIATION_CALLS,
+    state, _, call_s = run_example(name, FULL_RADIATION_CALLS,
                                    n_steps=FULL_RADIATION_CALLS)
     launches = {k: c.launches for k, c in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    fields = finite_float_fields(state, torch)
+    fields = finite_float_fields(state, torch, name)
     T = fields['air_temperature']
     if not (T.is_cuda and T.dtype == torch.float64
             and tuple(T.shape) == (28, 62, 128)):
         fail('%s: air_temperature is %s %s on %s' % (
-            FULL_RADIATION, T.dtype, tuple(T.shape), T.device))
+            name, T.dtype, tuple(T.shape), T.device))
     if not (150.0 < float(T.min()) and float(T.max()) < 350.0):
         fail('%s: temperature out of range [%g, %g]' % (
-            FULL_RADIATION, float(T.min()), float(T.max())))
+            name, float(T.min()), float(T.max())))
     refreshes = [k for k in range(FULL_RADIATION_CALLS) if k % 6 == 0]
-    if launches['B'] == 0 or launches['A'] != 0:
-        fail('%s: kernel launches A=%d B=%d; RRTMG at float64 must run '
-             'kernel B and never kernel A' % (FULL_RADIATION, launches['A'],
-                                               launches['B']))
-
-    def median(xs):
-        xs = sorted(xs)
-        return xs[len(xs) // 2]
-
+    if launches['B'] != 6 * len(refreshes) or launches['A'] != 0:
+        fail('%s: kernel launches A=%d B=%d in %d refreshes; RRTMG at '
+             'float64 must launch kernel B 6 times a refresh and never '
+             'kernel A' % (name, launches['A'], launches['B'],
+                           len(refreshes)))
     other = [s for k, s in enumerate(call_s) if k not in refreshes]
-    phase(11, '%s 128x62x28 f64, dt 600 s, %d calls: refresh calls %s s '
+    phase(n, '%s 128x62x28 f64, dt 600 s, %d calls: refresh calls %s s '
           '(median %.4f), other calls median %.4f s [min %.4f, max %.4f]; '
           'peak memory %.2f GB; per refresh kernel B %g, kernel A %g '
           'launches; T in [%.1f, %.1f] K, max |u| %.2f m/s; on %s' % (
-              FULL_RADIATION, FULL_RADIATION_CALLS,
+              name, FULL_RADIATION_CALLS,
               ' '.join('%.4f' % call_s[k] for k in refreshes),
               median([call_s[k] for k in refreshes]), median(other),
               min(other), max(other), peak_gb,
               launches['B'] / len(refreshes), launches['A'] / len(refreshes),
               float(T.min()), float(T.max()),
               float(fields['eastward_wind'].abs().max()), card))
-    return launches
+    return launches, fields
+
+
+def nudge_temperature(out):
+    """``out`` (a state or a component's diagnostics) with its air
+    temperature raised by one ulp in place."""
+    import numpy as np
+    import torch
+
+    T = out['air_temperature'].values
+    if isinstance(T, torch.Tensor):
+        T.copy_(torch.nextafter(T, torch.full_like(T, float('inf'))))
+    else:
+        T[:] = np.nextafter(T, np.inf)
+    return out
+
+
+def nudged(made):
+    """A stand-in for a function or a component class of climt_tpu_torch
+    whose result has its air temperature one ulp higher."""
+    if isinstance(made, type):
+        return type(made.__name__, (made,), {
+            '__call__': lambda self, *args: nudge_temperature(
+                made.__call__(self, *args))})
+    return lambda *args, **kwargs: nudge_temperature(made(*args, **kwargs))
+
+
+def largest_difference(a, b):
+    """The largest max |a - b| / max |b| over the fields of b."""
+    worst = 0.0
+    for name, ref in b.items():
+        err, scale = max_rel_err(a[name].cpu(), ref.cpu())
+        worst = max(worst, err / scale if scale else err)
+    return worst
+
+
+def card_vs_cpu(name, n_calls, dev, card_fields=None,
+                nudge_at='get_default_state', **kw):
+    """examples/<name>.py (n_calls dycore calls) on the card against the
+    CPU: (worst, limit, spread), where worst is the card's largest
+    difference from the CPU and limit 10 times the spread, the largest
+    difference that one ulp more initial temperature (set in what
+    climt_tpu_torch.<nudge_at> returns) makes in the same CPU run.  Fails
+    above the limit.  ``card_fields`` is a card run's final fields, where
+    the caller has one."""
+    import torch
+
+    import climt_tpu_torch
+
+    def fields(device, nudge=False):
+        made = getattr(climt_tpu_torch, nudge_at)
+        if nudge:
+            setattr(climt_tpu_torch, nudge_at, nudged(made))
+        try:
+            return finite_float_fields(run_example(
+                name, n_calls, device, **kw)[0], torch, name)
+        finally:
+            setattr(climt_tpu_torch, nudge_at, made)
+
+    cpu = torch.device('cpu')
+    host = fields(cpu)
+    spread = largest_difference(fields(cpu, nudge=True), host)
+    limit = 10.0 * spread
+    worst = largest_difference(
+        fields(dev) if card_fields is None else card_fields, host)
+    if not worst <= limit:
+        fail('%s: the card differs from the CPU by %.3g of max, more than '
+             '%.3g (10 x the one-ulp spread %.3g)' % (name, worst, limit,
+                                                      spread))
+    return worst, limit, spread
 
 
 def full_radiation_card_vs_cpu_phase(dev, card, launch_counts):
@@ -507,50 +612,269 @@ def full_radiation_card_vs_cpu_phase(dev, card, launch_counts):
     CPU, within 10 times the largest relative change (max |a - b| / max
     |b| over the fields) that raising the initial temperature by one ulp
     makes in the same CPU run."""
-    import numpy as np
-    import torch
-
-    import climt_tpu_torch
-
-    def small(device, nudge=False):
-        made = climt_tpu_torch.get_default_state
-
-        def nudged(*args, **kwargs):
-            state = made(*args, **kwargs)
-            T = state['air_temperature'].values
-            T[:] = np.nextafter(T, np.inf)
-            return state
-
-        if nudge:
-            climt_tpu_torch.get_default_state = nudged
-        try:
-            return finite_float_fields(run_example(
-                FULL_RADIATION, 7, device, n_steps=7, nx=16, ny=8,
-                nz=8)[0], torch)
-        finally:
-            climt_tpu_torch.get_default_state = made
-
-    def largest(a, b):
-        worst = 0.0
-        for name, ref in b.items():
-            err, scale = max_rel_err(a[name].cpu(), ref.cpu())
-            worst = max(worst, err / scale if scale else err)
-        return worst
-
-    cpu = torch.device('cpu')
-    host = small(cpu)
-    spread = largest(small(cpu, nudge=True), host)
-    limit = 10.0 * spread
-    worst = largest(small(dev), host)
-    if not worst <= limit:
-        fail('%s 16x8x8: the card differs from the CPU by %.3g of max, more '
-             'than %.3g (10 x the one-ulp spread %.3g)' % (
-                 FULL_RADIATION, worst, limit, spread))
+    worst, limit, spread = card_vs_cpu(FULL_RADIATION, 7, dev, n_steps=7,
+                                       nx=16, ny=8, nz=8)
     phase(12, '%s 16x8x8 f64, 7 calls, %s against the CPU: largest '
           'difference %.3g of max; limit %.3g = 10 x %.3g, the largest '
           'change that one ulp more initial temperature makes on the CPU; '
           '%s; on %s' % (FULL_RADIATION, dev, worst, limit, spread,
                          launch_counts(), card))
+
+
+def insolation_phase(dev, card, counters):
+    """Phase 13: examples/full_radiation_with_insolation_gcm.py on the card
+    at its own size (phase 11's checks), with each Instellation call timed
+    and its zenith angle kept, which must change between calls; then at
+    16x8x8 for 7 calls on the card against the CPU.  Returns {kernel:
+    launches} of the full-size run."""
+    import torch
+
+    from climt_tpu_torch.components.instellation import Instellation
+
+    seconds, zenith = [], []
+    call = Instellation.__call__
+
+    def timed_call(self, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call(self, state)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        zenith.append(out['zenith_angle'].values.clone())
+        return out
+
+    Instellation.__call__ = timed_call
+    try:
+        launches, _ = radiation_example_phase(13, INSOLATION, dev, card,
+                                              counters)
+    finally:
+        del Instellation.__call__
+    if len(zenith) != FULL_RADIATION_CALLS or not zenith[0].is_cuda:
+        fail('%s: %d Instellation calls on %s' % (
+            INSOLATION, len(zenith), zenith[0].device if zenith else None))
+    moved = max(float((z - zenith[0]).abs().max()) for z in zenith[1:])
+    if not moved > 1e-3:
+        fail('%s: the zenith angle moved by %g rad in %d calls' % (
+            INSOLATION, moved, len(zenith)))
+    phase(13, '%s: Instellation call median %.6f s [min %.6f, first %.6f]; '
+          'zenith angle moved up to %.4f rad from the first call; on %s' % (
+              INSOLATION, median(seconds[1:]), min(seconds[1:]), seconds[0],
+              moved, card))
+    worst, limit, spread = card_vs_cpu(INSOLATION, 7, dev, n_steps=7, nx=16,
+                                       ny=8, nz=8)
+    phase(13, '%s 16x8x8 f64, 7 calls, %s against the CPU: largest '
+          'difference %.3g of max; limit %.3g = 10 x the one-ulp spread '
+          '%.3g; on %s' % (INSOLATION, dev, worst, limit, spread, card))
+    return launches
+
+
+def examples_phase(dev, card):
+    """Phase 14: examples/baroclinic_wave.py at 128x64x20 (100 calls) and
+    examples/grey_radiative_convective.py at nz=30 (100 steps) on the card,
+    timed, finite, T in (150, 350) K, and held against the CPU.  The DCMIP
+    initial state replaces the default state's temperature, so the
+    baroclinic wave's one-ulp nudge goes into DcmipInitialConditions'
+    output."""
+    import torch
+
+    state, _, call_s = run_example(BAROCLINIC, EXAMPLE_CALLS,
+                                   n_steps=EXAMPLE_CALLS)
+    fields = finite_float_fields(state, torch, BAROCLINIC)
+    T, u = fields['air_temperature'], fields['eastward_wind']
+    if not (T.is_cuda and tuple(T.shape) == (20, 64, 128)
+            and 150.0 < float(T.min()) and float(T.max()) < 350.0):
+        fail('%s: air_temperature %s on %s in [%g, %g]' % (
+            BAROCLINIC, tuple(T.shape), T.device, float(T.min()),
+            float(T.max())))
+    ps = fields['surface_air_pressure']
+    worst, limit, spread = card_vs_cpu(
+        BAROCLINIC, EXAMPLE_CALLS, dev, card_fields=fields,
+        nudge_at='DcmipInitialConditions', n_steps=EXAMPLE_CALLS)
+    phase(14, '%s 128x64x20 f64, %d calls of 10 min: first call %.4f s, '
+          'then median %.4f s/call [min %.4f, max %.4f]; ps in [%.1f, %.1f] '
+          'Pa, max |u| %.2f m/s; against the CPU: largest difference %.3g '
+          'of max, limit %.3g = 10 x the one-ulp spread %.3g; on %s' % (
+              BAROCLINIC, EXAMPLE_CALLS, call_s[0], median(call_s[1:]),
+              min(call_s[1:]), max(call_s[1:]), float(ps.min()),
+              float(ps.max()), float(u.abs().max()), worst, limit, spread,
+              card))
+    del state, fields, T, u, ps
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _, _ = run_example(GREY, 0, n_steps=EXAMPLE_CALLS)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / EXAMPLE_CALLS
+    fields = finite_float_fields(state, torch, GREY)
+    T = fields['air_temperature']
+    if not (T.is_cuda and T.numel() == 30
+            and 150.0 < float(T.min()) and float(T.max()) < 350.0):
+        fail('%s: air_temperature %s on %s in [%g, %g]' % (
+            GREY, tuple(T.shape), T.device, float(T.min()), float(T.max())))
+    worst, limit, spread = card_vs_cpu(GREY, 0, dev, card_fields=fields,
+                                       n_steps=EXAMPLE_CALLS)
+    phase(14, '%s nz=30 f64, %d steps of 2 h: %.5f s/step (the state '
+          'built on the host included); T in [%.1f, %.1f] K, surface %.2f '
+          'K; against the CPU: largest difference %.3g of max, limit %.3g '
+          '= 10 x the one-ulp spread %.3g; on %s' % (
+              GREY, EXAMPLE_CALLS, step_s, float(T.min()), float(T.max()),
+              float(fields['surface_temperature'].reshape(-1)[0]), worst,
+              limit, spread, card))
+
+
+def land_surface_stack(device, nudge=False, size=LAND_SIZE,
+                       n_calls=LAND_CALLS):
+    """The land-surface components on one nx x ny x nz float64 state on
+    ``device``, each called n_calls times on its own copy of the state
+    (a stepper's outputs fed back).  area_type comes from LandMask, with
+    the sea poleward of 70 degrees made sea ice; the other fields from
+    tests/torch_helpers.py:ice_fields and a seed.  With ``nudge`` every
+    nonzero floating field but latitude and longitude starts one ulp
+    higher: the coordinates pick area types and nearest neighbours, and a
+    zero snow depth made 5e-324 would take the snow albedo.  Returns
+    ({component: its last call's outputs}, {component: seconds of each
+    call})."""
+    import numpy as np
+    import torch
+
+    import climt_tpu_torch as ct
+    from torch_helpers import ice_fields
+
+    def sync():
+        if device.type == 'cuda':
+            torch.cuda.synchronize()
+
+    comps = {
+        'LandMask': ct.LandMask(device=device),
+        'DataOcean': ct.DataOcean(device=device),
+        'DataOcean(compute_fluxes)': ct.DataOcean(device=device,
+                                                  compute_fluxes=True),
+        'SecondBEST': ct.SecondBEST(device=device),
+        'BucketHydrology': ct.BucketHydrology(device=device),
+        'BucketHydrology(num_layers=2)': ct.BucketHydrology(
+            device=device, num_layers=2),
+        'SeaIce': ct.SeaIce(device=device),
+        'LandIce': ct.LandIce(device=device),
+        'SimpleBoundaryLayer': ct.SimpleBoundaryLayer(device=device),
+        'BergerSolarInsolation': ct.BergerSolarInsolation(device=device),
+    }
+    nx, ny, nz = size
+    base = ct.get_default_state(
+        [c for label, c in comps.items()
+         if label != 'DataOcean(compute_fluxes)'],
+        grid_state=ct.get_grid(nx=nx, ny=ny, nz=nz))
+    rng = np.random.RandomState(0)
+    fields = ice_fields(base, rng)
+    shape = fields['surface_temperature'].shape
+    soil = base['soil_temperature'].shape
+    fields.update({
+        'lwe_thickness_of_soil_moisture_content': 0.2 * rng.rand(*shape),
+        'deep_soil_moisture_content': 0.55 * rng.rand(*shape),
+        'deep_soil_temperature': 280.0 + 10.0 * rng.rand(*shape),
+        'convective_precipitation_rate': 20.0 * rng.rand(*shape),
+        'stratiform_precipitation_rate': 1e-7 * rng.rand(*shape),
+        'soil_temperature': 278.0 + 10.0 * rng.rand(*soil),
+        'soil_liquid_water_content': 0.05 + 0.3 * rng.rand(*soil),
+    })
+    for name, value in fields.items():
+        if name != 'area_type':
+            base[name].values[:] = value
+    if nudge:
+        for name, value in base.items():
+            values = getattr(value, 'values', None)
+            if (isinstance(values, np.ndarray) and values.dtype.kind == 'f'
+                    and name not in ('latitude', 'longitude')):
+                values[:] = np.where(values == 0.0, 0.0,
+                                     np.nextafter(values, np.inf))
+    # DataOcean(compute_fluxes) reads the near-surface fields as (lat,
+    # lon) fields
+    flux_state = dict(base)
+    for name in ('eastward_wind', 'northward_wind', 'air_temperature',
+                 'specific_humidity'):
+        flux_state[name] = ct.DataArray(
+            base[name].values[0].copy(), dims=base[name].dims[1:],
+            attrs={'units': base[name].attrs['units']})
+    flux_state['air_density'] = ct.DataArray(
+        base['air_pressure'].values[0]
+        / (287.04 * base['air_temperature'].values[0]),
+        dims=base['air_pressure'].dims[1:], attrs={'units': 'kg/m^3'})
+
+    dt = datetime.timedelta(minutes=30)
+    outputs, seconds = {}, {}
+
+    def run(label, state):
+        comp, state, secs = comps[label], dict(state), []
+        for _ in range(n_calls):
+            sync()
+            t0 = time.perf_counter()
+            if isinstance(comp, ct.DiagnosticComponent):
+                out = comp(state)
+            else:
+                diagnostics, new_state = comp(state, dt)
+                state.update(new_state)
+                out = dict(diagnostics, **new_state)
+            sync()
+            secs.append(time.perf_counter() - t0)
+        outputs[label], seconds[label] = out, secs
+        return out
+
+    area = np.array(run('LandMask', base)['area_type'].transpose(
+        *base['area_type'].dims).values)
+    lat = np.asarray(base['latitude'].transpose(
+        *base['area_type'].dims).values)
+    area[(np.abs(lat) > 70.0) & (area == 'sea')] = 'sea_ice'
+    base['area_type'].values[:] = area           # flux_state's too
+    for label in comps:
+        if label != 'LandMask':
+            run(label, flux_state if label == 'DataOcean(compute_fluxes)'
+                else base)
+    return outputs, seconds
+
+
+def land_surface_phase(dev, card):
+    """Phase 15: the land-surface stack at 128x64x28 float64 on the card
+    (ms per call after the first) and twice on the CPU, the second with
+    every input one ulp higher: each component's last outputs on the card
+    within 10 times the larger of that spread and SPREAD_FLOOR of
+    the CPU's, its string and scalar outputs equal."""
+    import numpy as np
+    import torch
+
+    card_out, card_s = land_surface_stack(dev)
+    cpu = torch.device('cpu')
+    host, _ = land_surface_stack(cpu)
+    moved, _ = land_surface_stack(cpu, nudge=True)
+    area = np.asarray(host['LandMask']['area_type'].values)
+    kinds = {k: int((area == k).sum()) for k in ('sea', 'land', 'land_ice')}
+    phase(15, 'land-surface stack %dx%dx%d f64, %d calls each, area types '
+          'from LandMask: %s, sea ice poleward of 70 degrees' % (
+              LAND_SIZE + (LAND_CALLS, kinds)))
+    for label, ref in host.items():
+        floats = finite_float_fields(ref, torch, label)
+        on_card = finite_float_fields(card_out[label], torch, label)
+        for name, value in ref.items():
+            if name not in floats and not np.array_equal(
+                    np.asarray(value.values),
+                    np.asarray(card_out[label][name].values)):
+                fail('%s: %s differs between the card and the CPU' % (
+                    label, name))
+        if not all(v.is_cuda for v in on_card.values()
+                   if v.dim() > 0):
+            fail('%s: an output does not live on the card' % label)
+        spread = largest_difference(
+            finite_float_fields(moved[label], torch, label), floats)
+        limit = 10.0 * max(spread, SPREAD_FLOOR)
+        worst = largest_difference(on_card, floats)
+        if not worst <= limit:
+            fail('%s: the card differs from the CPU by %.3g of max, more '
+                 'than %.3g (10 x the one-ulp spread %.3g, floor %.3g)' % (
+                     label, worst, limit, spread, SPREAD_FLOOR))
+        secs = card_s[label]
+        phase(15, '%s: %.3f ms/call [min %.3f, max %.3f; first %.3f]; '
+              'against the CPU %.3g of max, limit %.3g (one-ulp spread '
+              '%.3g); on %s' % (label, 1e3 * median(secs[1:]),
+                                1e3 * min(secs[1:]), 1e3 * max(secs[1:]),
+                                1e3 * secs[0], worst, limit, spread, card))
 
 
 def max_rel_err(a, b):
@@ -897,9 +1221,20 @@ def main():
         for counter in counters.values():
             counter.launches = 0
         run_phase(dev, card, launch_counts)
-    launches_f64 = full_radiation_phase(dev, card, launch_counts, counters)
+    launches_f64, _ = radiation_example_phase(11, FULL_RADIATION, dev, card,
+                                              counters)
     torch.cuda.empty_cache()
     full_radiation_card_vs_cpu_phase(dev, card, launch_counts)
+
+    # ---- phases 13-15: the insolation GCM, the DCMIP and grey examples,
+    # the land-surface stack -----------------------------------------------
+    launches_insolation = insolation_phase(dev, card, counters)
+    for kernel, count in launches_insolation.items():
+        launches_f64[kernel] += count
+    torch.cuda.empty_cache()
+    examples_phase(dev, card)
+    torch.cuda.empty_cache()
+    land_surface_phase(dev, card)
 
     kernels = [
         dict(name='mix_groups_cuda', route='cuda',
@@ -911,7 +1246,7 @@ def main():
              replaces='climt_tpu/components/rrtmg/pallas_rtrn.py:195',
              launches=launches['A'], **report['A']),
         # the float64 instantiation of kernel B: the RRTMG components on
-        # the full-radiation example (phase 11)
+        # the full-radiation examples (phases 11 and 13)
         dict(name='mix_groups_cuda[float64]', route='cuda',
              source='climt_tpu_torch/csrc/mix_rows.cu',
              replaces='climt_tpu/components/rrtmg/fused_mix.py:76',

@@ -13,11 +13,10 @@ first use (``_build.py``).  Importing the package compiles nothing.
 
 Entry points: climt's component API under the names ``climt_tpu``
 exports (``import climt_tpu_torch as ct``; ``ct.get_grid``,
-``ct.get_default_state``, ``ct.GFSDynamicalCore``, the physics
-components ``HeldSuarez``, ``RRTMGLongwave``, ``RRTMGShortwave``,
-``EmanuelConvection``, ``SimplePhysics``, ``SlabSurface``,
-``GrayLongwaveRadiation`` and ``Frierson06LongwaveOpticalDepth``, the
-steppers and wrappers), and the fused models
+``ct.get_default_state``, ``ct.GFSDynamicalCore``, every physics
+component of ``climt_tpu.components`` -- radiation, convection,
+condensation, boundary layer, surface, land, ice, insolation and the
+DCMIP initial states -- the steppers and wrappers), and the fused models
 ``climt_tpu_torch.dycore.moist_gcm.build_moist_gcm`` and
 ``climt_tpu_torch.dycore.compiled.build_held_suarez_model``.  Whatever
 builds on a device takes ``device=`` and defaults to the CUDA card.
@@ -65,17 +64,30 @@ from .core.tracers import (
     TracerPacker, get_tracer_names, get_tracer_unit_dict, register_tracer,
     reset_packers, reset_tracers,
 )
+from .components.berger_solar_insolation import BergerSolarInsolation
+from .components.boundary_layer import SimpleBoundaryLayer
+from .components.bucket_hydrology import BucketHydrology
+from .components.condensation import GridScaleCondensation
+from .components.dcmip import DcmipInitialConditions
+from .components.dry_convection import DryConvectiveAdjustment
 from .components.emanuel_convection import (
     EmanuelConvection, EmanuelConvectionPython,
 )
+from .components.geodata import DataOcean, LandMask
 from .components.held_suarez import HeldSuarez
+from .components.instellation import Instellation
 from .components.radiation import (
     Frierson06LongwaveOpticalDepth, GrayLongwaveRadiation,
 )
 from .components.rrtmg.longwave import RRTMGLongwave
 from .components.rrtmg.shortwave import RRTMGShortwave
+from .components.second_best import (
+    BestSoilProperties, BestSubsurfaceTransport, BestSurfaceAlbedo,
+    BestSurfaceFluxes, BestSurfaceLayer, SecondBEST,
+)
 from .components.simple_physics import SimplePhysics
 from .components.slab_surface import SlabSurface
+from .components.snow_ice import IceSheet, LandIce, SeaIce
 from .dycore.gfs import GFSDynamicalCore
 from .dycore.spectral_dynamics import SpectralDycore
 

@@ -26,6 +26,14 @@ def resolve_device(device='cuda'):
     return dev
 
 
+def area_mask(area_type, kinds, device):
+    """Boolean tensor on ``device`` of the cells whose ``area_type`` is one
+    of ``kinds``.  ``area_type`` is a numpy string array, never a tensor:
+    the mask is made on the host, as the JAX components make theirs."""
+    return torch.as_tensor(np.isin(area_type.astype(str), kinds),
+                           device=device)
+
+
 def numpy_version_of(state):
     """Strip DataArrays (and tensors on any device) down to host numpy
     arrays (util.py:20)."""

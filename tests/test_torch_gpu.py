@@ -7,6 +7,7 @@ without jax it runs as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+import datetime
 from datetime import timedelta
 
 import numpy as np
@@ -20,9 +21,10 @@ from climt_tpu_torch.components.rrtmg import lw_spectral as TL
 from climt_tpu_torch.convert import carry_to_numpy
 from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
 
-from torch_helpers import (port_lw, port_sw, port_taumol_groups,
-                           radiation_columns, ragged_bands, ragged_group,
-                           rel_err, to_torch)
+from torch_helpers import (port_example, port_lw, port_sw,
+                           port_taumol_groups, radiation_columns,
+                           ragged_bands, ragged_group, rel_err, to_torch,
+                           ice_fields)
 
 
 @pytest.fixture
@@ -194,3 +196,71 @@ def test_component_api_runs_on_the_card(cuda):
     for name, value in new_state.items():
         assert value.values.is_cuda, name
         assert bool(torch.isfinite(value.values).all()), name
+
+
+# the components of the land-surface, column and insolation slice, with
+# the options that take other code paths
+SLICE_COMPONENTS = [
+    ('Instellation', {}), ('GridScaleCondensation', {}),
+    ('DryConvectiveAdjustment', {}), ('DcmipInitialConditions', {}),
+    ('DcmipInitialConditions', dict(moist=True,
+                                    condition_type='tropical_cyclone')),
+    ('SimpleBoundaryLayer', {}),
+    ('SimpleBoundaryLayer', dict(surface_fluxes='external')),
+    ('BucketHydrology', {}), ('BucketHydrology', dict(num_layers=2)),
+    ('SeaIce', {}), ('LandIce', {}), ('BergerSolarInsolation', {}),
+    ('LandMask', {}), ('DataOcean', {}), ('SecondBEST', {})]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name, options', SLICE_COMPONENTS,
+                         ids=lambda x: x if isinstance(x, str) else
+                         ','.join(x) or 'default')
+def test_slice_component_on_the_card_matches_the_cpu(cuda, name, options):
+    """One call at 16x8x10 float64 on the card and on the CPU, on the
+    same inputs: every floating output a CUDA tensor within 1e-9 of the
+    CPU's max.  Dry convection gets a column whose potential temperature
+    falls 3% a level, so every level mixes and no instability test sits
+    near its threshold."""
+    outs = {}
+    for dev in ('cpu', cuda):
+        comp = getattr(ct, name)(device=dev, **options)
+        state = ct.get_default_state(
+            [comp], grid_state=ct.get_grid(nx=16, ny=8, nz=10))
+        fields = ice_fields(state, np.random.RandomState(0))
+        p = np.asarray(state['air_pressure'].values)
+        if name == 'DryConvectiveAdjustment':
+            fields['specific_humidity'] = np.zeros_like(p)
+            fields['air_temperature'] = 300.0 * (p / 1e5) ** (
+                287.04 / 1004.64) * 0.97 ** np.arange(p.shape[0])[
+                    :, None, None]
+        for key, value in fields.items():
+            if key in state:
+                state[key].values[:] = value
+        state['time'] = datetime.datetime(2000, 6, 1, 9)
+        out = (comp(state) if isinstance(comp, ct.DiagnosticComponent)
+               else comp(state, timedelta(minutes=30)))
+        outs[str(dev)] = out if isinstance(out, tuple) else (out,)
+    for card, host in zip(outs['cuda:0'], outs['cpu']):
+        assert set(card) == set(host)
+        for key, value in host.items():
+            if not (isinstance(value.values, torch.Tensor)
+                    and value.values.is_floating_point()):
+                continue
+            assert card[key].values.is_cuda, key
+            assert rel_err(card[key].values, value.values) < 1e-9, key
+
+
+@pytest.mark.gpu
+def test_insolation_example_makes_six_kernel_b_launches_per_refresh(cuda):
+    """examples/full_radiation_with_insolation_gcm.py at 16x8x8 for 7
+    calls on the card: RRTMG refreshes at calls 0 and 6, each with 6
+    float64 kernel-B launches and no kernel-A launch."""
+    main, calls = port_example('full_radiation_with_insolation_gcm')
+    a0 = rtrn_kernel.rtrn_lw_cuda.launches
+    b0 = fused_mix.mix_groups_cuda.launches
+    state = main(verbose=False, n_steps=7, nx=16, ny=8, nz=8)
+    assert len(calls.seconds) == 7
+    assert fused_mix.mix_groups_cuda.launches - b0 == 2 * 6
+    assert rtrn_kernel.rtrn_lw_cuda.launches == a0
+    assert state['zenith_angle'].values.is_cuda

@@ -66,7 +66,11 @@ def port_example(name, device=None, bind=()):
 EXAMPLE_BIND = ('GFSDynamicalCore', 'HeldSuarez', 'EmanuelConvection',
                 'SimplePhysics', 'RRTMGLongwave', 'RRTMGShortwave',
                 'SlabSurface', 'GrayLongwaveRadiation',
-                'Frierson06LongwaveOpticalDepth')
+                'Frierson06LongwaveOpticalDepth', 'Instellation',
+                'DcmipInitialConditions', 'DryConvectiveAdjustment',
+                'GridScaleCondensation', 'IceSheet', 'SeaIce', 'LandIce',
+                'SimpleBoundaryLayer', 'BucketHydrology', 'SecondBEST',
+                'LandMask', 'DataOcean', 'BergerSolarInsolation')
 
 
 def run_both_examples(name, **kw):
@@ -90,6 +94,98 @@ def assert_states_match(st, sj, tol=1e-10):
             continue
         assert st[name].dims == value.dims, name
         assert rel_err(st[name].values, value.values) <= tol, name
+
+
+def reset_port_registries():
+    """The port keeps its own constants and tracer registries; its test
+    files reset them around each test, as tests/conftest.py resets the
+    JAX package's constants."""
+    from climt_tpu_torch.core import constants, tracers
+    constants.reset_constants()
+    constants.set_constant('top_of_model_pressure', 20., 'Pa')
+    tracers.reset_tracers()
+    tracers.reset_packers()
+
+
+def assert_outputs_match(outs_t, outs_j, tol=1e-10):
+    """The port's outputs (a dict of DataArrays, or a tuple of them)
+    against JAX's: the same names and units, every floating field as a
+    tensor within ``tol`` of its max, every other field (area_type, the
+    scalar outputs) exactly."""
+    if isinstance(outs_j, dict):
+        outs_t, outs_j = (outs_t,), (outs_j,)
+    for o_t, o_j in zip(outs_t, outs_j):
+        assert set(o_t) == set(o_j)
+        for name in o_j:
+            assert o_t[name].units == o_j[name].units, name
+            a = o_t[name].transpose(*o_j[name].dims).values
+            b = o_j[name].values
+            if np.asarray(b).dtype.kind == 'f' and np.ndim(b):
+                assert isinstance(a, torch.Tensor), name
+                assert rel_err(a, b) <= tol, name
+            else:
+                assert np.array_equal(np.asarray(a), np.asarray(b)), name
+
+
+AREA_KINDS = np.array(['sea', 'land', 'land_ice', 'sea_ice'])
+
+
+def surface_fields(state, rng):
+    """Radiative and turbulent surface fluxes, a lapse-rate atmosphere
+    with winds and moisture, and a mix of area types, for ``state``'s
+    grid."""
+    p = np.asarray(state['air_pressure'].values)
+    shape = p.shape[1:]
+    nlev = state['air_pressure_on_interface_levels'].shape[0]
+
+    def column(value, spread):
+        return np.broadcast_to(value + spread * rng.rand(*shape),
+                               (nlev,) + shape)
+
+    return {
+        'area_type': AREA_KINDS[rng.randint(0, 4, shape)],
+        'air_temperature': np.maximum(295.0 * (p / 1e5) ** 0.2, 210.0)
+        + rng.randn(*p.shape),
+        'specific_humidity': 0.012 * (p / 1e5) ** 3,
+        'eastward_wind': 6.0 * rng.randn(*p.shape),
+        'northward_wind': 3.0 * rng.randn(*p.shape),
+        'surface_temperature': 285.0 + 15.0 * rng.rand(*shape),
+        'surface_specific_humidity': 0.01 + 0.01 * rng.rand(*shape),
+        'downwelling_longwave_flux_in_air': column(300.0, 80.0),
+        'downwelling_shortwave_flux_in_air': column(50.0, 400.0),
+        'upwelling_longwave_flux_in_air': column(330.0, 80.0),
+        'upwelling_shortwave_flux_in_air': column(20.0, 80.0),
+        'surface_upward_sensible_heat_flux': 40.0 * rng.randn(*shape),
+        'surface_upward_latent_heat_flux': 60.0 * rng.rand(*shape),
+    }
+
+
+def ice_fields(state, rng):
+    """Snow and ice of 0.3-3 m over sea ice, land and land ice (some
+    columns bare), temperature profiles from the base to a surface that
+    is melting in a quarter of the columns."""
+    fields = surface_fields(state, rng)
+    shape = fields['surface_temperature'].shape
+    nlev = state['height_on_ice_interface_levels'].shape[0]
+    top = np.where(rng.rand(*shape) < 0.25, 273.15,
+                   250.0 + 20.0 * rng.rand(*shape))
+    frac = np.linspace(0.0, 1.0, nlev).reshape((nlev,) + (1,) * len(shape))
+    base = np.where(fields['area_type'] == 'sea_ice', 271.0,
+                    268.0 + 4.0 * rng.rand(*shape))
+    bare = rng.rand(*shape) < 0.2
+    fields.update({
+        'snow_and_ice_temperature': base + (top - base) * frac,
+        'sea_ice_thickness': np.where(bare, 0.0, 0.3 + 2.7 * rng.rand(
+            *shape)),
+        'land_ice_thickness': np.where(bare, 0.0, 0.3 + 2.7 * rng.rand(
+            *shape)),
+        'surface_snow_thickness': np.where(rng.rand(*shape) < 0.5, 0.0,
+                                           0.05 + rng.rand(*shape)),
+        'soil_surface_temperature': base,
+        'heat_flux_into_sea_water_due_to_sea_ice': 10.0 * rng.randn(*shape),
+        'sea_surface_temperature': 271.0 + rng.rand(*shape),
+    })
+    return fields
 
 
 def to_torch(x, dtype=torch.float64, device='cpu'):
