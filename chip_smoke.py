@@ -63,7 +63,29 @@ Phases, each of which fails loudly (no exception is turned into exit 0):
      columns, SeaIce over a polar band of sea ice and LandIce over the land
      and land-ice columns, SimpleBoundaryLayer and BergerSolarInsolation,
      each called 10 times on the card (ms per call) and on the CPU, under
-     the one-ulp rule with a floor of 16 float64 epsilons.
+     the one-ulp rule with a floor of 16 float64 epsilons;
+ 16. the grid-space transport operators FVAdvection and SLAdvection on the
+     T85 grid (256x128x28) in float32 and float64, on the winds, layer
+     thicknesses, mass fluxes and moisture of the FV moist GCM after its
+     first step: ms per advect call (median of 20), launches per call, FV's
+     zonal bands and band-substeps; float64 on the card against the CPU
+     under the one-ulp rule; a uniform field kept and FV's tracer mass
+     conserved on the card;
+ 17. the moist GCM with moisture_advection='fv' and 'sl' at phase 6's T85,
+     12 steps each through build_moist_gcm: s/step, finite fields, T in
+     (150, 350) K, kernel B 24 and kernel A 4 launches per refresh; then
+     both at 64x32x10 for 7 steps on the card against the CPU within
+     SMALL_TOL;
+ 18. GFSDynamicalCore with FV moisture and two registered tracers at
+     128x64x20 float64 for 20 calls (s per call, the uniform tracer kept
+     to 1e-10), then at 32x16x10 on the card against the CPU under the
+     one-ulp rule;
+ 19. the ten examples of tests/test_torch_examples_*.py that run on the
+     card, at tests/test_examples.py's sizes, each on the card against the
+     CPU under the one-ulp rule; then a 128x64x28 float64 state on the
+     card stored through NetCDFMonitor (the native writer,
+     write_on_store=True) and RestartMonitor, ms per store, the file and
+     the restart read back equal to the card's fields.
 The examples run through tests/torch_helpers.py:port_example, which the
 CPU tests use too.
 The line before the last is a JSON object with each kernel's launches,
@@ -121,6 +143,45 @@ LAND_CALLS = 10
 # which acos amplifies near the subsolar point (4e-15 of max measured on
 # the H100)
 SPREAD_FLOOR = 16 * 2.220446049250313e-16
+# phase 16: the transport interval (2 dt of phase 6's model), FV's zonal
+# bands and band-substeps on the T85 grid at that interval, and the
+# limits on a uniform field and on FV's tracer mass per dtype
+TRANSPORT_DT = 1200.0
+T85_ZONAL = (13, 253)
+TRANSPORT_REPS = 20
+UNIFORM_TOL = {'float32': 1e-6, 'float64': 1e-12}
+MASS_TOL = {'float32': 1e-5, 'float64': 1e-12}
+GRID_MODES = ('fv', 'sl')
+# phase 17's card-against-CPU size
+GRID_SMALL = dict(nlon=64, nlat=32, nz=10, rad_every=6, rad_col_chunk=2048)
+# phase 18: the two registered tracers, a blob and a uniform field
+TRACER_SIZE, TRACER_CALLS = (128, 64, 20), 20
+TRACERS = ('tracer_blob', 'tracer_uniform')
+UNIFORM_TRACER = 0.5
+# phase 19: the examples that run on the card, with their dycore calls,
+# the keyword arguments of tests/test_examples.py and where the one-ulp
+# nudge goes: the state get_default_state returns where the example keeps
+# its temperature, else the input of the first call of a stepper in
+# NUDGED_INPUT (None: the output depends on the coordinates and the time
+# alone, so the spread is 0 and SPREAD_FLOOR sets the limit)
+CARD_EXAMPLES = (
+    ('radiative_equilibrium', 0, 'get_default_state', dict(n_steps=3)),
+    ('radiative_convective_equilibrium', 0, 'get_default_state',
+     dict(n_steps=3)),
+    ('radiative_equilibrium_rrtmg', 0, 'get_default_state', dict(n_steps=2)),
+    ('radiative_equilibrium_rrtmg_realistic_profiles', 0, 'AdamsBashforth',
+     dict(n_steps=2)),
+    ('simple_physics_example', 0, 'get_default_state', dict(n_steps=3)),
+    ('column_code_with_slab', 0, 'AdamsBashforth', dict(n_steps=3)),
+    ('gmd_radiative_convective', 0, 'AdamsBashforth', dict(n_steps=3)),
+    ('zenith_angle', 0, None, dict(n_steps=2, nx=8, ny=8)),
+    ('gmd_aquaplanet', 1, 'get_default_state',
+     dict(n_days=0.02, nx=32, ny=16, nz=8, dt_minutes=15)),
+    ('grey_gcm_energy_balanced', 2, 'get_default_state',
+     dict(n_steps=2, nx=32, ny=16, nz=8)),
+)
+NUDGED_INPUT = ('AdamsBashforth',)
+STORE_SIZE, STORES = (128, 64, 28), 5
 GFS_OUTPUTS = ('eastward_wind', 'northward_wind', 'air_temperature',
                'specific_humidity', 'surface_air_pressure', 'air_pressure',
                'air_pressure_on_interface_levels', 'divergence_of_wind',
@@ -562,6 +623,19 @@ def nudged(made):
     return lambda *args, **kwargs: nudge_temperature(made(*args, **kwargs))
 
 
+def nudged_input(cls):
+    """A stand-in for a stepper class of climt_tpu_torch whose instances
+    raise the air temperature of the state they are first called with by
+    one ulp, in place: after the example has set its state up."""
+    def call(self, state, *args):
+        if not getattr(self, '_nudged', False):
+            self._nudged = True
+            nudge_temperature(state)
+        return cls.__call__(self, state, *args)
+
+    return type(cls.__name__, (cls,), {'__call__': call})
+
+
 def largest_difference(a, b):
     """The largest max |a - b| / max |b| over the fields of b."""
     worst = 0.0
@@ -572,32 +646,38 @@ def largest_difference(a, b):
 
 
 def card_vs_cpu(name, n_calls, dev, card_fields=None,
-                nudge_at='get_default_state', **kw):
+                nudge_at='get_default_state', floor=0.0, **kw):
     """examples/<name>.py (n_calls dycore calls) on the card against the
     CPU: (worst, limit, spread), where worst is the card's largest
-    difference from the CPU and limit 10 times the spread, the largest
-    difference that one ulp more initial temperature (set in what
-    climt_tpu_torch.<nudge_at> returns) makes in the same CPU run.  Fails
-    above the limit.  ``card_fields`` is a card run's final fields, where
-    the caller has one."""
+    difference from the CPU and limit 10 times the larger of ``floor``
+    and the spread, the largest difference that one ulp more initial
+    temperature (set in what climt_tpu_torch.<nudge_at> returns, or in the
+    first input of a stepper of NUDGED_INPUT; no nudge and a spread of 0
+    with nudge_at None) makes in the same CPU run.  Fails above the limit.
+    ``card_fields`` is a card run's final fields, where the caller has
+    one."""
     import torch
 
     import climt_tpu_torch
 
-    def fields(device, nudge=False):
+    def fields(device):
+        return finite_float_fields(run_example(
+            name, n_calls, device, **kw)[0], torch, name)
+
+    def nudged_fields(device):
         made = getattr(climt_tpu_torch, nudge_at)
-        if nudge:
-            setattr(climt_tpu_torch, nudge_at, nudged(made))
+        setattr(climt_tpu_torch, nudge_at, (
+            nudged_input if nudge_at in NUDGED_INPUT else nudged)(made))
         try:
-            return finite_float_fields(run_example(
-                name, n_calls, device, **kw)[0], torch, name)
+            return fields(device)
         finally:
             setattr(climt_tpu_torch, nudge_at, made)
 
     cpu = torch.device('cpu')
     host = fields(cpu)
-    spread = largest_difference(fields(cpu, nudge=True), host)
-    limit = 10.0 * spread
+    spread = (0.0 if nudge_at is None
+              else largest_difference(nudged_fields(cpu), host))
+    limit = 10.0 * max(spread, floor)
     worst = largest_difference(
         fields(dev) if card_fields is None else card_fields, host)
     if not worst <= limit:
@@ -875,6 +955,431 @@ def land_surface_phase(dev, card):
               '%.3g); on %s' % (label, 1e3 * median(secs[1:]),
                                 1e3 * min(secs[1:]), 1e3 * max(secs[1:]),
                                 1e3 * secs[0], worst, limit, spread, card))
+
+
+def cuda_median_ms(fn, reps, torch):
+    """Median device milliseconds of fn() over reps calls, each between
+    its own pair of CUDA events (warmed up)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return median(times)
+
+
+def device_launches(fn, torch):
+    """The device operations (kernels and copies) one call of fn()
+    launches, counted by torch.profiler; fails when the profiler sees
+    none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    if n == 0:
+        fail('torch.profiler saw no device operation')
+    return n
+
+
+def nudge_all(fields, torch):
+    """Copies of the tensors ``fields`` with every nonzero value one ulp
+    higher."""
+    return [torch.where(x == 0.0, x, torch.nextafter(
+        x, torch.full_like(x, float('inf')))) for x in fields]
+
+
+def transport_inputs(dev):
+    """(dycore, [q, dp, u, v, mdot]): the T85 moist GCM with FV moisture
+    in float32 after its first step, the moisture of that state and the
+    winds, layer thicknesses and interface mass fluxes its
+    diagnose_mass_fluxes gives."""
+    import torch
+    from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
+
+    dycore, init_fn, step_fn, _ = build_moist_gcm(
+        dtype=torch.float32, device=dev, moisture_advection='fv', **T85)
+    carry, _ = step_fn(init_fn(0), None)
+    u, v, dp, mdot = dycore.diagnose_mass_fluxes(carry[1])
+    return dycore, [carry[1]['q'], dp, u, v, mdot]
+
+
+def transport_phase(dev, card):
+    """Phase 16: FVAdvection and SLAdvection on the T85 grid in float32
+    and float64, on one state of the FV moist GCM: ms per advect call
+    (median of TRANSPORT_REPS), device launches per call, FV's zonal bands
+    and band-substeps (T85_ZONAL); float64 on the card within 10 x the
+    larger of SPREAD_FLOOR and the one-ulp spread of the CPU; a uniform
+    field kept within UNIFORM_TOL and FV's tracer mass within MASS_TOL on
+    the card."""
+    import torch
+    from climt_tpu_torch.ops.fv_advection import FVAdvection
+    from climt_tpu_torch.ops.sl_advection import SLAdvection
+
+    dycore, fields32 = transport_inputs(dev)
+    sht, cpu = dycore.sht, torch.device('cpu')
+    dt = TRANSPORT_DT
+    for kind, cls in zip(GRID_MODES, (FVAdvection, SLAdvection)):
+        for dtype in (torch.float32, torch.float64):
+            tname = str(dtype).replace('torch.', '')
+            fields = [x.to(dtype) for x in fields32]
+            q, dp, u, v, mdot = fields
+
+            def make(device):
+                return cls(sht.mu, sht.weights, sht.nlon, sht.radius, dt,
+                           dtype=dtype, device=device)
+
+            op = make(dev)
+            out = op.advect(q, dp, u, v, mdot, dt)
+            if not (out.shape == q.shape and out.dtype == dtype
+                    and bool(torch.isfinite(out).all())):
+                fail('%s %s: advect gave %s, finite %s' % (
+                    kind, tname, tuple(out.shape),
+                    bool(torch.isfinite(out).all())))
+            ms = cuda_median_ms(lambda: op.advect(q, dp, u, v, mdot, dt),
+                                TRANSPORT_REPS, torch)
+            launches = device_launches(
+                lambda: op.advect(q, dp, u, v, mdot, dt), torch)
+            msg = '%s %s %dx%dx%d, dt %g s: %.3f ms per advect call ' \
+                  '(median of %d), %d device launches per call' % (
+                      (cls.__name__, tname) + tuple(q.shape[::-1])
+                      + (dt, ms, TRANSPORT_REPS, launches))
+            if kind == 'fv':
+                bands = (len(op.zonal_bands),
+                         sum(n for _, _, n in op.zonal_bands))
+                if bands != T85_ZONAL:
+                    fail('FV at T85: %d zonal bands and %d band-substeps, '
+                         'not %d and %d' % (bands + T85_ZONAL))
+                msg += ('; %d zonal bands, %d band-substeps in %d loops of '
+                        'substep counts %s' % (
+                            bands + (len(op.zonal_counts),
+                                     op.zonal_counts)))
+            uniform = op.advect(torch.ones_like(q), dp, u, v, mdot, dt)
+            kept = float((uniform - 1.0).abs().max())
+            if not kept <= UNIFORM_TOL[tname]:
+                fail('%s %s: a uniform field moved by %g > %g' % (
+                    kind, tname, kept, UNIFORM_TOL[tname]))
+            msg += '; uniform field kept to %.3g (limit %g)' % (
+                kept, UNIFORM_TOL[tname])
+            if kind == 'fv':
+                m0 = float(op.total_mass(q, dp))
+                q1, dp1 = op._zonal(q, dp, u, dt)
+                q1, dp1 = op._meridional(q1, dp1, v, dt)
+                q1, dp1 = op._vertical(q1, dp1, mdot, dt)
+                mass = abs(float(op.total_mass(q1, dp1)) - m0) / abs(m0)
+                if not mass <= MASS_TOL[tname]:
+                    fail('FV %s: tracer mass changed by %g of itself > %g'
+                         % (tname, mass, MASS_TOL[tname]))
+                msg += '; tracer mass conserved to %.3g (limit %g)' % (
+                    mass, MASS_TOL[tname])
+            if dtype == torch.float64:
+                host_op = make(cpu)
+                host_in = [x.cpu() for x in fields]
+                host = host_op.advect(*host_in, dt)
+                spread = largest_difference(
+                    {'q': host_op.advect(*nudge_all(host_in, torch), dt)},
+                    {'q': host})
+                limit = 10.0 * max(spread, SPREAD_FLOOR)
+                worst = largest_difference({'q': out}, {'q': host})
+                if not worst <= limit:
+                    fail('%s float64: the card differs from the CPU by %.3g '
+                         'of max, more than %.3g (10 x the one-ulp spread '
+                         '%.3g, floor %.3g)' % (kind, worst, limit, spread,
+                                                SPREAD_FLOOR))
+                msg += ('; against the CPU %.3g of max, limit %.3g '
+                        '(one-ulp spread %.3g)' % (worst, limit, spread))
+            phase(16, msg + '; on ' + card)
+            del op, out, uniform, fields
+    del dycore, fields32
+    torch.cuda.empty_cache()
+
+
+def grid_moisture_phase(dev, card, counters):
+    """Phase 17: the moist GCM with FV and with SL moisture at T85, f32,
+    T85_STEPS steps each through build_moist_gcm, both kernels' launch
+    counts set to 0 before each run and read after it: fails on a
+    non-finite field, T outside (150, 350) K, or other than 24 kernel-B and
+    4 kernel-A launches per refresh.  Then both at GRID_SMALL for 7 steps
+    on the card against the CPU within SMALL_TOL.  Returns {kernel:
+    launches} summed over the two T85 runs."""
+    import numpy as np
+    import torch
+    from climt_tpu_torch.convert import carry_to_numpy
+    from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
+
+    total = {k: 0 for k in counters}
+    refreshes = sum(1 for k in range(T85_STEPS) if k % T85['rad_every'] == 0)
+    for mode in GRID_MODES:
+        dycore, init_fn, step_fn, _ = build_moist_gcm(
+            dtype=torch.float32, device=dev, moisture_advection=mode, **T85)
+        carry = init_fn(0)
+        torch.cuda.synchronize()
+        for counter in counters.values():
+            counter.launches = 0
+        step_s, diag = [], None
+        for _ in range(T85_STEPS):
+            t0 = time.perf_counter()
+            carry, diag = step_fn(carry, None)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        launches = {k: c.launches for k, c in counters.items()}
+        T = dycore.sht.synthesize(carry[1]['T'])
+        q = carry[1]['q']
+        for key, val in [('T', T), ('q', q)] + list(diag.items()):
+            if not bool(torch.isfinite(val).all()):
+                fail('T85 %s: NaN or inf in %s' % (mode, key))
+        shape = (T85['nz'], T85['nlat'], T85['nlon'])
+        if not (tuple(T.shape) == tuple(q.shape) == shape
+                and not q.is_complex()
+                and 150.0 < float(T.min()) and float(T.max()) < 350.0):
+            fail('T85 %s: T %s in [%g, %g], q %s %s' % (
+                mode, tuple(T.shape), float(T.min()), float(T.max()),
+                tuple(q.shape), q.dtype))
+        if launches != {'B': 24 * refreshes, 'A': 4 * refreshes}:
+            fail('T85 %s: kernel launches A=%d B=%d in %d refreshes, not 4 '
+                 'and 24 each' % (mode, launches['A'], launches['B'],
+                                  refreshes))
+        for k in total:
+            total[k] += launches[k]
+        mean_s = sum(step_s) / len(step_s)
+        rad = [s for i, s in enumerate(step_s) if i % T85['rad_every'] == 0]
+        other = [s for i, s in enumerate(step_s)
+                 if i % T85['rad_every'] != 0]
+        phase(17, 'T85 moisture_advection=%r f32, %d steps: %.4f s/step, '
+              '%.4g gridpoint-steps/s; radiation steps %s s, others median '
+              '%.4f s [min %.4f, max %.4f]; per refresh kernel B %g, kernel '
+              'A %g launches; T in [%.1f, %.1f] K, q in [%.3g, %.3g]; on %s'
+              % (mode, T85_STEPS, mean_s, 256 * 128 * 28 / mean_s,
+                 ' '.join('%.4f' % s for s in rad), median(other),
+                 min(other), max(other), launches['B'] / refreshes,
+                 launches['A'] / refreshes, float(T.min()), float(T.max()),
+                 float(q.min()), float(q.max()), card))
+        del dycore, init_fn, step_fn, carry, diag, T, q
+        torch.cuda.empty_cache()
+
+    for mode in GRID_MODES:
+        finals = {}
+        for label, where in (('cpu', torch.device('cpu')), ('card', dev)):
+            _, init_fn, _, run_fn = build_moist_gcm(
+                device=where, dtype=torch.float32, moisture_advection=mode,
+                **GRID_SMALL)
+            finals[label] = carry_to_numpy(run_fn(init_fn(0), 7)[0])[2]
+        diffs = {}
+        for key, tol in SMALL_TOL.items():
+            a, b = finals['card'][key], finals['cpu'][key]
+            if not np.isfinite(a).all():
+                fail('phase 17 %s: non-finite %s on the card' % (mode, key))
+            diffs[key] = float(np.abs(a - b).max())
+            if not diffs[key] <= tol:
+                fail('phase 17 %s: %s differs by %g > %g' % (
+                    mode, key, diffs[key], tol))
+        phase(17, '%dx%dx%d f32 moisture_advection=%r, 7 steps, card '
+              'against the CPU, max abs diff: %s (limits %s)' % (
+                  GRID_SMALL['nlon'], GRID_SMALL['nlat'], GRID_SMALL['nz'],
+                  mode, ', '.join('%s %.3g' % kv for kv in diffs.items()),
+                  ', '.join('%s %g' % kv for kv in SMALL_TOL.items())))
+    return total
+
+
+def gfs_tracer_run(device, size, n_calls, nudge=False):
+    """GFSDynamicalCore(moisture_advection='fv') with the two TRACERS
+    registered, on a state of nx x ny x nz from get_default_state with a
+    12 m/s zonal wind and 0.1 K of seeded noise on the temperature (one
+    ulp more with ``nudge``), a Gaussian blob and a uniform field as the
+    tracers; n_calls calls of 10 minutes.  Returns (final state, seconds
+    of each call)."""
+    import numpy as np
+    import torch
+
+    import climt_tpu_torch as ct
+
+    ct.reset_tracers()
+    ct.reset_packers()
+    for name in TRACERS:
+        ct.register_tracer(name, 'kg/kg')
+    try:
+        nx, ny, nz = size
+        dycore = ct.GFSDynamicalCore(device=device, moisture_advection='fv')
+        state = ct.get_default_state(
+            [dycore], grid_state=ct.get_grid(nx=nx, ny=ny, nz=nz))
+        shape = state['air_temperature'].shape
+        rng = np.random.RandomState(0)
+        state['eastward_wind'].values[:] = 12.0
+        state['air_temperature'].values[:] += 0.1 * rng.randn(*shape)
+        if nudge:
+            nudge_temperature(state)
+        lon = np.asarray(state['longitude'].values)
+        lat = np.asarray(state['latitude'].values)
+        blob = np.exp(-((lon - 180.0) ** 2 + (lat - 30.0) ** 2) / 400.0)
+        dims = state['air_temperature'].dims
+        for name, field in zip(TRACERS, (
+                np.broadcast_to(blob, shape),
+                np.full(shape, UNIFORM_TRACER))):
+            state[name] = ct.DataArray(np.array(field), dims=dims,
+                                       attrs={'units': 'kg/kg'})
+        seconds = []
+        for _ in range(n_calls):
+            t0 = time.perf_counter()
+            _, new_state = dycore(state, datetime.timedelta(minutes=10))
+            state.update(new_state)
+            if device.type == 'cuda':
+                torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        return state, seconds
+    finally:
+        ct.reset_tracers()
+        ct.reset_packers()
+
+
+def tracer_phase(dev, card):
+    """Phase 18: GFSDynamicalCore with FV moisture and two registered
+    tracers at TRACER_SIZE, float64, TRACER_CALLS calls on the card: s per
+    call, finite tracers on the card, the uniform one within 1e-10 of its
+    value; then at 32x16x10 for 8 calls on the card against the CPU,
+    within 10 x the larger of SPREAD_FLOOR and the one-ulp spread."""
+    import torch
+
+    state, seconds = gfs_tracer_run(dev, TRACER_SIZE, TRACER_CALLS)
+    fields = finite_float_fields(state, torch, 'tracers')
+    for name in TRACERS + ('specific_humidity', 'air_temperature'):
+        if not fields[name].is_cuda:
+            fail('tracers: %s does not live on the card' % name)
+    kept = float((fields['tracer_uniform'] - UNIFORM_TRACER).abs().max())
+    if not kept <= 1e-10 * UNIFORM_TRACER:
+        fail('tracers: the uniform tracer moved by %g' % kept)
+    blob = fields['tracer_blob']
+    phase(18, 'GFSDynamicalCore fv + %d tracers %dx%dx%d f64, %d calls of 10 '
+          'min: first call %.4f s, then median %.4f s/call [min %.4f, max '
+          '%.4f]; uniform tracer kept to %.3g; blob in [%.3g, %.3g]; on %s'
+          % ((len(TRACERS),) + TRACER_SIZE + (
+              TRACER_CALLS, seconds[0], median(seconds[1:]),
+              min(seconds[1:]), max(seconds[1:]), kept, float(blob.min()),
+              float(blob.max()), card)))
+    del state, fields, blob
+    cpu = torch.device('cpu')
+    small = (32, 16, 10)
+
+    def run(device, nudge=False):
+        return finite_float_fields(gfs_tracer_run(device, small, 8, nudge)[0],
+                                   torch, 'tracers')
+
+    host = run(cpu)
+    spread = largest_difference(run(cpu, nudge=True), host)
+    limit = 10.0 * max(spread, SPREAD_FLOOR)
+    worst = largest_difference(run(dev), host)
+    if not worst <= limit:
+        fail('tracers: the card differs from the CPU by %.3g of max, more '
+             'than %.3g (10 x the one-ulp spread %.3g)' % (worst, limit,
+                                                            spread))
+    phase(18, 'GFSDynamicalCore fv + tracers 32x16x10 f64, 8 calls, card '
+          'against the CPU: largest difference %.3g of max, limit %.3g (one-'
+          'ulp spread %.3g); on %s' % (worst, limit, spread, card))
+
+
+def examples_io_phase(dev, card, counters):
+    """Phase 19: the CARD_EXAMPLES on the card against the CPU, each
+    within 10 x the larger of SPREAD_FLOOR and its one-ulp spread, both
+    kernels' launch counts set to 0 before and read after; then a
+    STORE_SIZE float64 state on the card stored STORES times through
+    NetCDFMonitor (backend='native', write_on_store=True) and once through
+    RestartMonitor, ms per store, the file read back with scipy and the
+    restart's load() equal to the card's fields.  Returns {kernel:
+    launches} of the examples."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from scipy.io import netcdf_file
+
+    import climt_tpu_torch as ct
+    from climt_tpu_torch.core.dataarray import to_numpy
+
+    for counter in counters.values():
+        counter.launches = 0
+    for name, n_calls, nudge_at, kw in CARD_EXAMPLES:
+        t0 = time.perf_counter()
+        worst, limit, spread = card_vs_cpu(name, n_calls, dev,
+                                           nudge_at=nudge_at,
+                                           floor=SPREAD_FLOOR, **kw)
+        phase(19, '%s %s, three runs (CPU, CPU one ulp nudged at %s, card) '
+              'in %.1f s: the card %.3g of max from the CPU, limit %.3g '
+              '(one-ulp spread %.3g); on %s' % (
+                  name, ' '.join('%s=%s' % kv for kv in kw.items()),
+                  nudge_at, time.perf_counter() - t0, worst, limit, spread,
+                  card))
+    launches = {k: c.launches for k, c in counters.items()}
+
+    nx, ny, nz = STORE_SIZE
+    dycore = ct.GFSDynamicalCore(device=dev)
+    state = ct.get_default_state([dycore], grid_state=ct.get_grid(
+        nx=nx, ny=ny, nz=nz))
+    _, new_state = dycore(state, datetime.timedelta(minutes=10))
+    state.update(new_state)
+    for name, value in list(state.items()):
+        values = getattr(value, 'values', None)
+        if isinstance(values, np.ndarray) and values.dtype.kind == 'f':
+            state[name] = ct.DataArray(
+                torch.as_tensor(values, device=dev), dims=value.dims,
+                attrs=value.attrs)
+    on_card = {name: value for name, value in state.items()
+               if isinstance(getattr(value, 'values', None), torch.Tensor)}
+    if not (on_card and all(v.values.is_cuda for v in on_card.values())):
+        fail('IO: the state does not live on the card')
+    expected = {name: to_numpy(v.values) for name, v in on_card.items()}
+    mbytes = sum(a.nbytes for a in expected.values()) / 1e6
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'state.nc')
+        monitor = ct.NetCDFMonitor(path, write_on_store=True,
+                                   backend='native')
+        store_s = []
+        for k in range(STORES):
+            state['time'] = state['time'] + datetime.timedelta(minutes=10)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            monitor.store(state)
+            store_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        monitor.close()
+        close_s = time.perf_counter() - t0
+        f = netcdf_file(path, 'r', mmap=False)
+        try:
+            if f.variables['time'].data.shape != (STORES,):
+                fail('IO: the file holds %s records, not %d' % (
+                    f.variables['time'].data.shape, STORES))
+            for name, ref in expected.items():
+                data = f.variables[name].data
+                if not all(np.array_equal(data[k], ref)
+                           for k in range(STORES)):
+                    fail('IO: %s read back differs from the card' % name)
+        finally:
+            f.close()
+        restart = ct.RestartMonitor(os.path.join(tmp, 'restart'))
+        t0 = time.perf_counter()
+        restart.store(state)
+        restart_s = time.perf_counter() - t0
+        loaded = restart.load()
+        for name, ref in expected.items():
+            if not np.array_equal(np.asarray(loaded[name].values), ref):
+                fail('IO: %s of the restart differs from the card' % name)
+        if loaded['time'] != state['time']:
+            fail('IO: the restart time differs')
+    phase(19, 'NetCDFMonitor native, write_on_store, %dx%dx%d f64 state on '
+          'the card, %d fields (%.1f MB a store): %s ms per store (median '
+          '%.2f), close %.2f ms; RestartMonitor %.2f ms per store; the file '
+          'and the restart equal the card exactly; on %s' % (
+              nx, ny, nz, len(expected), mbytes,
+              ' '.join('%.2f' % (1e3 * s) for s in store_s),
+              1e3 * median(store_s), 1e3 * close_s, 1e3 * restart_s, card))
+    return launches
 
 
 def max_rel_err(a, b):
@@ -1235,7 +1740,19 @@ def main():
     examples_phase(dev, card)
     torch.cuda.empty_cache()
     land_surface_phase(dev, card)
+    torch.cuda.empty_cache()
 
+    # ---- phases 16-19: grid-space transport, the moist GCM with FV and SL
+    # moisture, registered tracers, the remaining examples and the IO ----
+    transport_phase(dev, card)
+    for kernel, count in grid_moisture_phase(dev, card, counters).items():
+        launches[kernel] += count
+    torch.cuda.empty_cache()
+    tracer_phase(dev, card)
+    for kernel, count in examples_io_phase(dev, card, counters).items():
+        launches_f64[kernel] += count
+
+    # the float32 entries count the T85 runs of phases 6 and 17
     kernels = [
         dict(name='mix_groups_cuda', route='cuda',
              source='climt_tpu_torch/csrc/mix_rows.cu',
@@ -1246,7 +1763,8 @@ def main():
              replaces='climt_tpu/components/rrtmg/pallas_rtrn.py:195',
              launches=launches['A'], **report['A']),
         # the float64 instantiation of kernel B: the RRTMG components on
-        # the full-radiation examples (phases 11 and 13)
+        # the full-radiation examples (phases 11 and 13) and on the
+        # examples of phase 19
         dict(name='mix_groups_cuda[float64]', route='cuda',
              source='climt_tpu_torch/csrc/mix_rows.cu',
              replaces='climt_tpu/components/rrtmg/fused_mix.py:76',

@@ -9,17 +9,22 @@ named beside them, and the RRTMG tables are read by path (``data.py``).
 
 The two radiation kernels that the JAX package writes in Pallas are
 hand-written CUDA here (``csrc/``), built with ``nvcc`` for ``sm_90a`` at
-first use (``_build.py``).  Importing the package compiles nothing.
+first use (``_build.py``); the NetCDF writer's C extension
+(``io/_fastio.c``) is built with the system C compiler at its first use.
+Importing the package compiles nothing.
 
 Entry points: climt's component API under the names ``climt_tpu``
 exports (``import climt_tpu_torch as ct``; ``ct.get_grid``,
 ``ct.get_default_state``, ``ct.GFSDynamicalCore``, every physics
 component of ``climt_tpu.components`` -- radiation, convection,
 condensation, boundary layer, surface, land, ice, insolation and the
-DCMIP initial states -- the steppers and wrappers), and the fused models
+DCMIP initial states -- the steppers and wrappers, the three monitors),
+and the fused models
 ``climt_tpu_torch.dycore.moist_gcm.build_moist_gcm`` and
-``climt_tpu_torch.dycore.compiled.build_held_suarez_model``.  Whatever
-builds on a device takes ``device=`` and defaults to the CUDA card.
+``climt_tpu_torch.dycore.compiled.build_held_suarez_model``.  Moisture
+and registered tracers move in spectral or grid space (``ops/``'s FV and
+semi-Lagrangian operators).  Whatever builds on a device takes
+``device=`` and defaults to the CUDA card.
 """
 
 from .core.base_components import (
@@ -63,6 +68,9 @@ from .core.wrappers import (
 from .core.tracers import (
     TracerPacker, get_tracer_names, get_tracer_unit_dict, register_tracer,
     reset_packers, reset_tracers,
+)
+from .io.monitors import (
+    NetCDFMonitor, PlotFunctionMonitor, RestartMonitor,
 )
 from .components.berger_solar_insolation import BergerSolarInsolation
 from .components.boundary_layer import SimpleBoundaryLayer

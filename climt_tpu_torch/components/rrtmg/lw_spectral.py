@@ -598,8 +598,12 @@ def _pade_tables(dtype, device):
 
 
 def _tbl_index(od):
-    """Row of the Pade tables for optical depth ``od`` (:724-725)."""
-    return _trunc_int(NTBL * (od / (BPADE + od)) + 0.5).long()
+    """Row of the Pade tables for optical depth ``od`` (:724-725), with
+    JAX's gather semantics for rows outside the table (a negative
+    optical depth): a negative row counts from the end, then the row is
+    clamped to the table."""
+    i = _trunc_int(NTBL * (od / (BPADE + od)) + 0.5).long()
+    return torch.clamp(torch.where(i < 0, i + (NTBL + 1), i), 0, NTBL)
 
 
 def _tbl_lookup(od, use_tables=True):

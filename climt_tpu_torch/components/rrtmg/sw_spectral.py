@@ -384,8 +384,12 @@ def _exp_table(dtype, device):
 
 
 def _tbl_index(ze1):
-    """Row of the exponential table for ze1 (:493-494)."""
-    return _trunc_int(NTBL * (ze1 / (BPADE + ze1)) + 0.5).long()
+    """Row of the exponential table for ze1 (:493-494), with JAX's gather
+    semantics for rows outside the table (a negative optical depth, where
+    the quadratic is taken anyway): a negative row counts from the end,
+    then the row is clamped to the table."""
+    i = _trunc_int(NTBL * (ze1 / (BPADE + ze1)) + 0.5).long()
+    return torch.clamp(torch.where(i < 0, i + (NTBL + 1), i), 0, NTBL)
 
 
 def _exp_transmittance(tau, use_tables=True):

@@ -2,8 +2,9 @@
 
 The carry of both ``build_moist_gcm`` models is ``(prev, now, grids, aux,
 k)``: ``prev``/``now`` dicts of complex spectral fields (nz or 1 leading
-levels, (M+1, N+1) trailing), ``grids`` and ``aux`` dicts of real grid
-fields, ``k`` the step index.  The carry of both
+levels, (M+1, N+1) trailing; with ``moisture_advection='fv'`` or
+``'sl'`` their ``'q'`` is a real grid field), ``grids`` and ``aux`` dicts
+of real grid fields, ``k`` the step index.  The carry of both
 ``build_held_suarez_model`` models is ``(prev, now, prev_grids)``, dicts
 of the same kinds.  A JAX carry fetched with ``np.asarray`` on every leaf
 (a tuple of dicts of numpy arrays, and the step index) converts to the

@@ -8,9 +8,10 @@ dycore(state, timestep)``.  Stepper-type physics must be wrapped in
 ``TimeDifferencingWrapper`` first.  Each call marshals the state on the
 host, calls the wrapped components, and takes one step of the
 ``SpectralDycore`` (float64, on ``device``), which it builds at the first
-call from the state's grid.  Only ``moisture_advection='spectral'`` is
-ported; grid-space moisture ('fv', 'sl') and the transport of registered
-tracers are not (they raise NotImplementedError).
+call from the state's grid.  Moisture moves in spectral space, or in grid
+space with ``moisture_advection='fv'``/``'sl'``; registered tracers
+(``core/tracers.py``) always move in grid space by the flux-form
+``FVAdvection``.
 """
 
 from __future__ import annotations
@@ -22,13 +23,10 @@ from ..core.base_components import (
 from ..core.constants import get_constant
 from ..core.dataarray import as_tensor, to_numpy
 from ..core.properties import extract_arrays
-from ..core.tracers import get_tracer_names
+from ..core.tracers import TracerPacker
 from ..core.util import resolve_device
+from ..ops.fv_advection import FVAdvection
 from .spectral_dynamics import SpectralDycore
-
-_NOT_PORTED = ('not ported: grid-space moisture and tracer transport '
-               '(ops/fv_advection.py, ops/sl_advection.py) are queue 1 '
-               'item 13 of ROADMAP.md')
 
 
 class GFSDynamicalCore(Stepper):
@@ -95,12 +93,18 @@ class GFSDynamicalCore(Stepper):
                  **kwargs):
         """``device``: where the dynamics runs (the CUDA card unless the
         caller asks for another; without a card the default raises here,
-        although the ``SpectralDycore`` is built at the first call)."""
-        if moisture_advection != 'spectral':
-            raise NotImplementedError(
-                'moisture_advection=%r is %s' % (moisture_advection,
-                                                 _NOT_PORTED))
+        although the ``SpectralDycore`` is built at the first call).
+        ``moisture_advection``: 'spectral', 'fv' or 'sl' (see
+        ``SpectralDycore``).  Registered tracers are always transported
+        by ``FVAdvection`` on the dycore's diagnosed mass fluxes
+        (gfs.py:100-106)."""
         self._device = resolve_device(device)
+        self._moisture_advection = moisture_advection
+        self._tracer_packer = TracerPacker(
+            self, ['tracer', 'mid_levels', 'lat', 'lon'])
+        self._fv = None
+        self._pending_tracers = None
+        self._advected_tracers = None
         self._components = list(tendency_component_list or [])
         for comp in self._components:
             if not isinstance(comp, (TendencyComponent,
@@ -153,6 +157,7 @@ class GFSDynamicalCore(Stepper):
             number_of_damped_levels=self._n_damped,
             damping_timescale=self._damping_timescale,
             asselin_strength=self._asselin,
+            moisture_advection=self._moisture_advection,
             rd=get_constant('gas_constant_of_dry_air', 'J/kg/degK'),
             cpd=get_constant(
                 'heat_capacity_of_dry_air_at_constant_pressure',
@@ -260,7 +265,21 @@ class GFSDynamicalCore(Stepper):
             u_out = u_out + dt * du_t
             v_out = v_out + dt * dv_t
             T_out = T_out + dt * sht.synthesize(sht.analyze(phys['dT']))
-            q_out = q_out + dt * sht.synthesize(sht.analyze(phys['dq']))
+            if dyc.fv is not None:
+                q_out = q_out + dt * phys['dq']   # grid-space moisture
+            else:
+                q_out = q_out + dt * sht.synthesize(
+                    sht.analyze(phys['dq']))
+
+        # registered tracers: conservative grid-space transport on the
+        # input state's diagnosed mass fluxes over dt, all tracers in one
+        # batch (gfs.py:293-302)
+        if self._pending_tracers is not None:
+            u_c, v_c, dp_c, mdot_c = dyc.diagnose_mass_fluxes(spec_in)
+            packed_td = torch.flip(self._grid(self._pending_tracers), [1])
+            adv = self._ensure_fv(dt).advect(packed_td, dp_c, u_c, v_c,
+                                             mdot_c, dt)
+            self._advected_tracers = torch.flip(adv, [1])
 
         q_new = torch.clamp(q_out, min=0.0) if self._moist else q_out
         outputs = {
@@ -276,11 +295,17 @@ class GFSDynamicalCore(Stepper):
         }
         return {}, outputs
 
+    def _ensure_fv(self, dt):
+        """The tracers' FV operator, built at the first tracer call for
+        that call's dt (gfs.py:318)."""
+        if self._fv is None:
+            dyc = self._dycore
+            self._fv = FVAdvection(
+                dyc.sht.mu, dyc.sht.weights, dyc.nlon, dyc.radius,
+                dt_max=2.0 * dt, dtype=dyc.dtype, device=self._device)
+        return self._fv
+
     def __call__(self, state, timestep):
-        if get_tracer_names():
-            raise NotImplementedError(
-                'transport of registered tracers %s is %s' % (
-                    get_tracer_names(), _NOT_PORTED))
         self._phys_for_state = None
         self._collected_diagnostics = {}
         if self._components:
@@ -288,11 +313,24 @@ class GFSDynamicalCore(Stepper):
                 'mid_levels', 'lat', 'lon').shape
             self._phys_for_state = self._physics_tendencies(
                 state, timestep, shape)
+        # pack registered tracers (climt's tracer contract)
+        self._pending_tracers = None
+        self._advected_tracers = None
+        packer = self._tracer_packer
+        if packer.tracer_names:
+            self._pending_tracers = packer.pack(state)
         self._restoring = True
         try:
             diagnostics, new_state = super().__call__(state, timestep)
         finally:
             self._restoring = False
+        if self._advected_tracers is not None:
+            tracers = packer.unpack(self._advected_tracers, state)
+            # the dycore's own prognostics keep the dycore's update
+            for name in list(tracers):
+                if name in new_state:
+                    tracers.pop(name)
+            new_state.update(tracers)
         # wrapped components' diagnostics pass through (gfs.py:357)
         merged = dict(self._collected_diagnostics)
         merged.update(diagnostics)

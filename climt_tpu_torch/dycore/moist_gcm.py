@@ -71,14 +71,15 @@ class MoistGCM(nn.Module):
 
     def __init__(self, nlon, nlat, nz, timestep, number_of_damped_levels,
                  ocean_depth, dtype, rad_every, rad_col_chunk,
-                 conserve_water, device='cuda'):
+                 conserve_water, device='cuda',
+                 moisture_advection='spectral'):
         super().__init__()
         device = resolve_device(device)
         ak, bk = hybrid_sigma_pressure_coefficients(nz + 1, 1e5, 20.0)
         self.dycore = SpectralDycore(
             nlon, nlat, nz, ak, bk, timestep=timestep,
             number_of_damped_levels=number_of_damped_levels, dtype=dtype,
-            device=device)
+            device=device, moisture_advection=moisture_advection)
         self.nlon, self.nlat, self.nz = nlon, nlat, nz
         self.dt = timestep
         self.dtype = dtype
@@ -294,22 +295,26 @@ class MoistGCM(nn.Module):
         return torch.sum(self.wlat * q_g * (p_half[1:] - p_half[:-1]))
 
     def _fix_water(self, new, prev, phys):
-        """Global multiplicative moisture mass fixer (moist_gcm.py:378)."""
+        """Global multiplicative moisture mass fixer (moist_gcm.py:378),
+        on spectral q or, in the 'sl' mode, on grid q (the 'fv' mode is
+        conservative and never calls it)."""
         sht = self.dycore.sht
-        q_prev = sht.synthesize(prev['q'])
+        q_prev = self.dycore._q_grid(prev)
         ps_prev = torch.exp(sht.synthesize(prev['lnps']))
         ph_prev, _, _, _ = self.dycore._vertical_structures(ps_prev)
         src = torch.sum(self.wlat * phys['dq']
                         * (ph_prev[1:] - ph_prev[:-1]))
         target = self._total_water(q_prev, ph_prev) + 2.0 * self.dt * src
-        q_new = sht.synthesize(new['q'])
+        q_new = self.dycore._q_grid(new)
         ps_new = torch.exp(sht.synthesize(new['lnps']))
         ph_new, _, _, _ = self.dycore._vertical_structures(ps_new)
         q_pos = torch.clamp(q_new, min=0.0)
         tw_new = self._total_water(q_pos, ph_new)
         scale = torch.where(tw_new > 0.0,
                             torch.clamp(target, min=0.0) / tw_new, 1.0)
-        return dict(new, q=sht.analyze(q_pos * scale))
+        q_fixed = q_pos * scale
+        return dict(new, q=q_fixed if self.dycore.fv is not None
+                    else sht.analyze(q_fixed))
 
     def step(self, carry, _=None):
         """One model step: carry -> (carry, diagnostics) (:404)."""
@@ -340,20 +345,24 @@ def build_moist_gcm(nlon=128, nlat=64, nz=28, timestep=600.0,
 
     run_fn(carry, n_steps) -> (carry, last_diag); carry = (prev, now,
     grids, aux, k) with k the global step index (a Python int), which
-    drives the radiation cadence and the diurnal cycle.  Multi-device
-    meshes, 'fv'/'sl' moisture transport and the matmul DFT are not
-    ported and raise NotImplementedError."""
+    drives the radiation cadence and the diurnal cycle.
+
+    moisture_advection: 'spectral', 'fv' or 'sl'.  'fv' is locally
+    conservative, so the global water fixer is off; 'sl' is not, and
+    keeps it on, acting on the grid q.  Multi-device meshes and the
+    matmul DFT raise NotImplementedError."""
     if mesh is not None:
-        raise NotImplementedError('mesh: the port runs on one device')
-    if moisture_advection != 'spectral':
         raise NotImplementedError(
-            "moisture_advection=%r: only 'spectral' is ported"
-            % (moisture_advection,))
+            'mesh: the port runs on one device; multi-GPU is queue 1 item '
+            '4 of ROADMAP.md')
     if fft_impl != 'fft':
-        raise NotImplementedError("fft_impl=%r: only 'fft' is ported"
-                                  % (fft_impl,))
+        raise NotImplementedError(
+            "fft_impl=%r: only 'fft' is ported; 'matmul' is on ROADMAP.md's "
+            "do-not-port list" % (fft_impl,))
+    if moisture_advection == 'fv':
+        conserve_water = False        # FV is conservative by construction
     device = resolve_device(device)
     model = MoistGCM(nlon, nlat, nz, timestep, number_of_damped_levels,
                      ocean_depth, dtype, rad_every, rad_col_chunk,
-                     conserve_water, device)
+                     conserve_water, device, moisture_advection)
     return model.dycore, model.init, model.step, model.run

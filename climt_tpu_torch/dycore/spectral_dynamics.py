@@ -4,9 +4,10 @@ Hybrid-coordinate primitive equations in vorticity-divergence form on
 the Gaussian grid, semi-implicit leapfrog with Robert-Asselin filtering,
 del^8 implicit hyperdiffusion and top-of-model Rayleigh damping.  Grid
 fields are (nz, nlat, nlon) top-down, spectral fields complex
-(nz, M+1, N+1), exactly as in the JAX module.  Ported for spectral
-moisture transport on one device (the JAX module's
-``moisture_advection='spectral'``, ``mesh=None``).
+(nz, M+1, N+1), exactly as in the JAX module.  Moisture is spectral
+(advective form), or with ``moisture_advection='fv'``/``'sl'`` a grid
+field moved by ``ops/fv_advection.py`` or ``ops/sl_advection.py``.  One
+device (the JAX module's ``mesh=None``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ import torch
 from torch import nn
 
 from ..core.util import resolve_device
+from ..ops.fv_advection import FVAdvection
 from ..ops.sht import SphericalHarmonicTransform
+from ..ops.sl_advection import SLAdvection
 
 
 class SpectralDycore(nn.Module):
@@ -35,10 +38,18 @@ class SpectralDycore(nn.Module):
                  asselin_strength=0.05,
                  rd=287.0, cpd=1004.64, g=9.80665,
                  radius=6.371e6, omega=7.292e-5,
-                 dtype=torch.float64, device='cuda'):
+                 dtype=torch.float64, device='cuda',
+                 moisture_advection='spectral', fv_max_wind=120.0):
         """``ak``, ``bk``: bottom-up interface coefficients with
         p_interface = ak + bk (ps - p_top), as in the JAX constructor
-        (spectral_dynamics.py:43)."""
+        (spectral_dynamics.py:43).
+
+        ``moisture_advection``: 'spectral' (advective form), 'fv'
+        (conservative flux-form transport in grid space on the dycore's
+        mass fluxes, no fixer needed) or 'sl' (semi-Lagrangian, not
+        conservative).  In 'fv' and 'sl' the state's 'q' is a grid field
+        (nz, nlat, nlon) and ``self.fv`` is the operator (its JAX name
+        for both).  ``fv_max_wind`` sizes FV's polar zonal substeps."""
         super().__init__()
         device = resolve_device(device)
         self.nlon, self.nlat, self.nz = nlon, nlat, nz
@@ -126,6 +137,19 @@ class SpectralDycore(nn.Module):
                 (number_of_damped_levels - lev) / number_of_damped_levels)
         buf('rayleigh', damp)
 
+        if moisture_advection not in ('spectral', 'fv', 'sl'):
+            raise ValueError(moisture_advection)
+        self.moisture_advection = moisture_advection
+        self.fv = None
+        if moisture_advection == 'fv':
+            self.fv = FVAdvection(
+                mu, self.sht.weights, nlon, radius, dt_max=2.0 * timestep,
+                dtype=dtype, max_wind=fv_max_wind, device=device)
+        elif moisture_advection == 'sl':
+            self.fv = SLAdvection(
+                mu, self.sht.weights, nlon, radius, dt_max=2.0 * timestep,
+                dtype=dtype, device=device)
+
     def set_surface_geopotential(self, phi_s_grid):
         """Set the (nlat, nlon) surface geopotential field (:238)."""
         self.phi_s = torch.as_tensor(phi_s_grid, dtype=self.dtype,
@@ -138,14 +162,20 @@ class SpectralDycore(nn.Module):
         V = v * self.coslat[:, None]
         vort, div = self.sht.vort_div_analysis(U, V)
         return {'vort': vort, 'div': div, 'T': self.sht.analyze(T),
-                'q': self.sht.analyze(q), 'lnps': self.sht.analyze(lnps)}
+                'q': q if self.fv is not None else self.sht.analyze(q),
+                'lnps': self.sht.analyze(lnps)}
+
+    def _q_grid(self, spec):
+        """The grid moisture of a state: its own 'q' in the grid modes."""
+        return spec['q'] if self.fv is not None else self.sht.synthesize(
+            spec['q'])
 
     def grid_state_from_spectral(self, spec):
         """Grid (u, v, T, q, lnps) of a spectral state (:259)."""
         sht = self.sht
         u, v = sht.uv_from_vort_div(spec['vort'], spec['div'])
         return {'u': u, 'v': v, 'T': sht.synthesize(spec['T']),
-                'q': sht.synthesize(spec['q']),
+                'q': self._q_grid(spec),
                 'lnps': sht.synthesize(spec['lnps'])}
 
     def _vertical_structures(self, ps):
@@ -168,7 +198,7 @@ class SpectralDycore(nn.Module):
         vort_g = sht.synthesize(spec['vort'])
         div_g = sht.synthesize(spec['div'])
         T_g = sht.synthesize(spec['T'])
-        q_g = sht.synthesize(spec['q'])
+        q_g = self._q_grid(spec)
         lnps_g = sht.synthesize(spec['lnps'])
         ps = torch.exp(lnps_g)
 
@@ -226,15 +256,23 @@ class SpectralDycore(nn.Module):
         if phys is not None:
             dT_dt_grid = dT_dt_grid + phys['dT']
 
-        dq_dx, dq_dy = sht.gradient(spec['q'])
-        dq_dt_grid = -u * dq_dx - v * dq_dy - vadv(q_g)
-        if phys is not None:
-            dq_dt_grid = dq_dt_grid + phys['dq']
+        # moisture: the spectral advective form, or in the grid modes the
+        # physics source alone (step() transports q in grid space)
+        if self.fv is not None:
+            q_tend = phys['dq'] if phys is not None else torch.zeros_like(
+                q_g)
+        else:
+            dq_dx, dq_dy = sht.gradient(spec['q'])
+            dq_dt_grid = -u * dq_dx - v * dq_dy - vadv(q_g)
+            if phys is not None:
+                dq_dt_grid = dq_dt_grid + phys['dq']
+            q_tend = sht.analyze(dq_dt_grid)
 
         tend = {'vort': dvort_dt, 'div': ddiv_dt,
-                'T': sht.analyze(dT_dt_grid),
-                'q': sht.analyze(dq_dt_grid),
+                'T': sht.analyze(dT_dt_grid), 'q': q_tend,
                 'lnps': sht.analyze(dlnps_dt)}
+        if self.fv is not None:
+            tend['mdot'] = mdot             # for the vertical pass
         grids = {'u': u, 'v': v, 'T': T_g, 'q': q_g, 'ps': ps,
                  'p_half': p_half, 'dp': dp}
         return tend, grids
@@ -270,7 +308,14 @@ class SpectralDycore(nn.Module):
 
         two_dt = 2.0 * dt
         T_expl = prev['T'] + two_dt * tend['T']
-        q_expl = prev['q'] + two_dt * tend['q']
+        if self.fv is not None:
+            # grid-space transport from t-dt over 2 dt on the centre
+            # winds and mass fluxes, plus the physics source
+            q_expl = self.fv.advect(
+                prev['q'], self._dp_of(prev['lnps']), now_grids['u'],
+                now_grids['v'], tend['mdot'], two_dt) + two_dt * tend['q']
+        else:
+            q_expl = prev['q'] + two_dt * tend['q']
         lnps_expl = prev['lnps'] + two_dt * tend['lnps']
         vort_new = prev['vort'] + two_dt * tend['vort']
         D_expl = prev['div'] + two_dt * tend['div']
@@ -292,11 +337,31 @@ class SpectralDycore(nn.Module):
 
         new = {'vort': vort_new, 'div': D_new, 'T': T_new, 'q': q_expl,
                'lnps': lnps_new}
-        for key in ('vort', 'div', 'T', 'q'):
+        # implicit hyperdiffusion; grid-space moisture takes none
+        for key in self._diffused():
             new[key] = new[key] * self.hyperdiff_factor[None]
         filtered = {key: now[key] + self.asselin * (
             new[key] - 2.0 * now[key] + prev[key]) for key in new}
         return filtered, new, now_grids
+
+    def _diffused(self):
+        return ('vort', 'div', 'T') + (('q',) if self.fv is None else ())
+
+    def diagnose_mass_fluxes(self, spec):
+        """(u, v, dp, mdot) of a spectral state, for external tracer
+        transport, with explicit_tendencies' operators
+        (spectral_dynamics.py:520)."""
+        sht = self.sht
+        u, v = sht.uv_from_vort_div(spec['vort'], spec['div'])
+        div_g = sht.synthesize(spec['div'])
+        ps = torch.exp(sht.synthesize(spec['lnps']))
+        dlnps_dx, dlnps_dy = sht.gradient(spec['lnps'])
+        _, dp, _, _ = self._vertical_structures(ps)
+        v_dot = u * dlnps_dx[None] + v * dlnps_dy[None]
+        S = dp * div_g + ps[None] * self.dB[:, None, None] * v_dot
+        S_cum = torch.cumsum(S, dim=0)
+        mdot = self.B[1:-1, None, None] * S_cum[-1][None] - S_cum[:-1]
+        return u, v, dp, mdot
 
     def _dp_of(self, lnps_spec):
         """Layer thicknesses (nz, nlat, nlon) of a spectral lnps."""
@@ -311,7 +376,7 @@ class SpectralDycore(nn.Module):
         ps = torch.exp(sht.synthesize(spec['lnps']))
         p_half, dp, _, _ = self._vertical_structures(ps)
         return {'u': u, 'v': v, 'T': sht.synthesize(spec['T']),
-                'q': sht.synthesize(spec['q']), 'ps': ps,
+                'q': self._q_grid(spec), 'ps': ps,
                 'p_half': p_half, 'dp': dp}
 
     def initial_step(self, now, phys=None, physics_fn=None):
@@ -319,10 +384,26 @@ class SpectralDycore(nn.Module):
         the construction timestep (:555); ``physics_fn`` is evaluated on
         both."""
         dt = self.dt
-        tend, _ = self.explicit_tendencies(now, phys, physics_fn)
-        half = {k: now[k] + 0.5 * dt * tend[k] for k in now}
-        tend2, _ = self.explicit_tendencies(half, phys, physics_fn)
-        new = {k: now[k] + dt * tend2[k] for k in now}
-        for key in ('vort', 'div', 'T', 'q'):
+        tend, grids0 = self.explicit_tendencies(now, phys, physics_fn)
+        if self.fv is None:
+            half = {k: now[k] + 0.5 * dt * tend[k] for k in now}
+            tend2, _ = self.explicit_tendencies(half, phys, physics_fn)
+            new = {k: now[k] + dt * tend2[k] for k in now}
+        else:
+            # grid moisture: transported over dt/2 and then dt from the
+            # initial state on the winds of each stage (:560-579)
+            dp0 = self._dp_of(now['lnps'])
+            half = {k: now[k] + 0.5 * dt * tend[k] for k in now
+                    if k != 'q'}
+            half['q'] = self.fv.advect(
+                now['q'], dp0, grids0['u'], grids0['v'], tend['mdot'],
+                0.5 * dt) + 0.5 * dt * tend['q']
+            tend2, grids_h = self.explicit_tendencies(half, phys,
+                                                      physics_fn)
+            new = {k: now[k] + dt * tend2[k] for k in now if k != 'q'}
+            new['q'] = self.fv.advect(
+                now['q'], dp0, grids_h['u'], grids_h['v'], tend2['mdot'],
+                dt) + dt * tend2['q']
+        for key in self._diffused():
             new[key] = new[key] * self.hyperdiff_factor_start[None]
         return now, new

@@ -1,12 +1,15 @@
 """Device profile of a fused model's steps on one GPU.
 
-    python -m climt_tpu_torch.profile_step [--model moist|held_suarez]
+    python -m climt_tpu_torch.profile_step
+        [--model moist|moist_fv|moist_sl|held_suarez]
 
 ``moist`` (the default) runs the T85 moist GCM (256x128x28, f32,
 rad_every=6, rad_col_chunk=8192) for steps 0-5, then traces step 6 (a
 radiation refresh) and step 7 (a step that reuses the stored heating
-rates).  ``held_suarez`` runs the T42 Held-Suarez model of ``bench.py``
-(128x64x28, f32, dt 600 s) for 5 steps, then traces step 5 and step 6.
+rates); ``moist_fv`` and ``moist_sl`` do the same with the moisture
+moved in grid space (``moisture_advection='fv'``, ``'sl'``).
+``held_suarez`` runs the T42 Held-Suarez model of ``bench.py`` (128x64x28,
+f32, dt 600 s) for 5 steps, then traces step 5 and step 6.
 For each traced step it prints the wall time, the summed kernel time, the
 device busy share (kernel time over wall time: one stream, so kernels do
 not overlap), the number of kernel launches, and the kernels that take
@@ -25,6 +28,9 @@ from torch.profiler import ProfilerActivity, profile
 from .dycore.compiled import build_held_suarez_model
 from .dycore.moist_gcm import build_moist_gcm
 
+# the moist GCM's moisture transport of each --model
+MOISTURE = {'moist': 'spectral', 'moist_fv': 'fv', 'moist_sl': 'sl'}
+
 
 def _kernel_events(prof):
     return [e for e in prof.events()
@@ -33,10 +39,11 @@ def _kernel_events(prof):
 
 def _build(model, dev):
     """(step_fn, carry, warm-up steps, labels of the traced steps)."""
-    if model == 'moist':
+    if model in MOISTURE:
         _, init_fn, step_fn, _ = build_moist_gcm(
             nlon=256, nlat=128, nz=28, timestep=600.0, dtype=torch.float32,
-            rad_every=6, rad_col_chunk=8192, device=dev)
+            rad_every=6, rad_col_chunk=8192, device=dev,
+            moisture_advection=MOISTURE[model])
         return step_fn, init_fn(0), 6, ('radiation step (k=6)',
                                         'plain step (k=7)')
     _, init_fn, step_fn, _ = build_held_suarez_model(
@@ -48,8 +55,8 @@ def _build(model, dev):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--model', choices=('moist', 'held_suarez'),
-                        default='moist')
+    parser.add_argument('--model', choices=tuple(MOISTURE) + (
+        'held_suarez',), default='moist')
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('needs a CUDA GPU')

@@ -401,10 +401,20 @@ def test_tracers_match_jax():
             np.testing.assert_allclose(_values(out_t[name].values),
                                        np.asarray(out_j[name].values),
                                        rtol=1e-15)
-    # a registered tracer reaches the port's dycore, which does not
-    # transport tracers (queue 1 item 13) and says so
-    dycore = tct.GFSDynamicalCore(device='cpu')
-    state = tct.get_default_state(
-        [dycore], grid_state=tct.get_grid(nx=NX, ny=NY, nz=NZ))
-    with pytest.raises(NotImplementedError, match='item 13'):
-        dycore(state, DT)
+    # the registered tracers reach both dycores, which transport them
+    # in grid space; the port matches JAX to 1e-10 of max
+    outs = []
+    for pkg, DA, values in ((tct, TDataArray, torch.tensor(f1)),
+                            (jct, JDataArray, f1)):
+        dycore = pkg.GFSDynamicalCore(**({'device': 'cpu'} if pkg is tct
+                                         else {}))
+        state = pkg.get_default_state(
+            [dycore], grid_state=pkg.get_grid(nx=NX, ny=NY, nz=NZ))
+        state['eastward_wind'].values[:] = 12.0
+        state['tracer_one'] = DA(values, dims[1:], {'units': 'kg/kg'})
+        state['tracer_two'] = DA(f2, dims[1:], {'units': 'g/kg'})
+        outs.append(dycore(state, DT)[1])
+    for name in ('tracer_one', 'tracer_two'):
+        assert outs[0][name].units == outs[1][name].units
+        assert rel_err(outs[0][name].values, outs[1][name].values) <= 1e-10
+    assert np.abs(_values(outs[0]['tracer_one'].values) - f1).max() > 1e-6

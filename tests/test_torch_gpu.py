@@ -264,3 +264,125 @@ def test_insolation_example_makes_six_kernel_b_launches_per_refresh(cuda):
     assert fused_mix.mix_groups_cuda.launches - b0 == 2 * 6
     assert rtrn_kernel.rtrn_lw_cuda.launches == a0
     assert state['zenith_angle'].values.is_cuda
+
+
+
+def _transport_case(device, dtype=torch.float64, nlat=32, nlon=64, nz=10):
+    """A blob, noisy divergent winds and a vertical mass flux on the
+    64x32 Gaussian grid (five FV zonal bands at dt_max 1200 s)."""
+    from climt_tpu_torch.ops.sht import SphericalHarmonicTransform
+    sht = SphericalHarmonicTransform(nlon, nlat, dtype=torch.float64,
+                                     device='cpu')
+    rng = np.random.RandomState(0)
+    lon = 2 * np.pi * np.arange(nlon) / nlon
+    L, F = np.meshgrid(lon, np.arcsin(sht.mu))
+    q = 1e-3 * (1.0 + np.exp(-((F - 0.3) ** 2 / 0.08
+                               + (L - np.pi) ** 2 / 0.3)))
+    fields = (np.broadcast_to(q, (nz, nlat, nlon)),
+              2000.0 + 3000.0 * rng.rand(nz, nlat, nlon),
+              20.0 * np.cos(F) + 30.0 * rng.randn(nz, nlat, nlon),
+              5.0 * rng.randn(nz, nlat, nlon),
+              0.01 * rng.randn(nz - 1, nlat, nlon))
+    return (sht.mu, sht.weights, nlon), [to_torch(x, dtype, device)
+                                         for x in fields]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind', ['fv', 'sl'])
+def test_transport_operator_on_the_card_matches_the_cpu(cuda, kind):
+    """FVAdvection and SLAdvection at 64x32x10 float64, two tracers in one
+    batch: the card within 1e-12 of the CPU's max (the same operations;
+    SL's bilinear weights are continuous in a corner index)."""
+    from climt_tpu_torch.ops.fv_advection import FVAdvection
+    from climt_tpu_torch.ops.sl_advection import SLAdvection
+    cls = FVAdvection if kind == 'fv' else SLAdvection
+    out = {}
+    for dev in ('cpu', cuda):
+        grid, (q, dp, u, v, mdot) = _transport_case(dev)
+        op = cls(*grid, 6.371e6, 1200.0, dtype=torch.float64, device=dev)
+        batch = torch.stack([q, 1.0 - q])
+        out[str(dev)] = op.advect(batch, dp, u, v, mdot, 1200.0)
+    assert out['cuda:0'].is_cuda
+    assert rel_err(out['cuda:0'], out['cpu']) < 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('mode', ['fv', 'sl'])
+def test_moist_gcm_grid_moisture_on_the_card_matches_the_cpu(cuda, mode):
+    """2 float32 steps at 32x16x10 with grid moisture on the card against
+    the CPU, as test_moist_gcm_gpu_matches_cpu; q stays a real grid."""
+    kw = dict(nlon=32, nlat=16, nz=10, rad_every=6, rad_col_chunk=128,
+              dtype=torch.float32, moisture_advection=mode)
+    out = {}
+    for dev in ('cpu', cuda):
+        _, init_fn, _, run_fn = build_moist_gcm(device=dev, **kw)
+        carry, _ = run_fn(init_fn(0), 2)
+        assert not carry[1]['q'].is_complex()
+        out[str(dev)] = carry_to_numpy(carry)[2]
+    for key, tol in (('T', 0.01), ('u', 0.02), ('v', 0.02), ('q', 5e-6),
+                     ('ps', 15.0)):
+        assert np.abs(out['cuda:0'][key] - out['cpu'][key]).max() < tol
+
+
+@pytest.mark.gpu
+def test_registered_tracers_on_the_card_match_the_cpu(cuda):
+    """GFSDynamicalCore with FV moisture and two registered tracers, 3
+    calls at 32x16x10 float64: the tracers come back as CUDA tensors
+    within 1e-9 of the CPU's max, the uniform one to 1e-10 of itself."""
+    ct.reset_tracers()
+    ct.register_tracer('tracer_blob', 'kg/kg')
+    ct.register_tracer('tracer_uniform', 'kg/kg')
+    try:
+        outs = {}
+        for dev in ('cpu', cuda):
+            dycore = ct.GFSDynamicalCore(device=dev, moisture_advection='fv')
+            state = ct.get_default_state(
+                [dycore], grid_state=ct.get_grid(nx=32, ny=16, nz=10))
+            shape = state['air_temperature'].shape
+            state['eastward_wind'].values[:] = 12.0
+            blob = np.exp(-((np.arange(shape[-1]) - 8) / 2.0) ** 2)
+            for name, field in (('tracer_blob', blob + np.zeros(shape)),
+                                ('tracer_uniform', np.full(shape, 0.5))):
+                state[name] = ct.DataArray(
+                    field, dims=['mid_levels', 'lat', 'lon'],
+                    attrs={'units': 'kg/kg'})
+            for _ in range(3):
+                _, new_state = dycore(state, timedelta(minutes=10))
+                state.update(new_state)
+            outs[str(dev)] = state
+        for name in ('tracer_blob', 'tracer_uniform', 'specific_humidity'):
+            card = outs['cuda:0'][name].values
+            assert card.is_cuda, name
+            assert rel_err(card, outs['cpu'][name].values) < 1e-9, name
+        uniform = outs['cuda:0']['tracer_uniform'].values
+        assert float((uniform - 0.5).abs().max()) < 0.5e-10
+    finally:
+        ct.reset_tracers()
+        ct.reset_packers()
+
+
+@pytest.mark.gpu
+def test_native_monitor_stores_a_cuda_state(cuda, tmp_path):
+    """NetCDFMonitor (native writer) and RestartMonitor on a state held
+    on the card: the files hold the card's values exactly."""
+    from scipy.io import netcdf_file
+    rng = np.random.RandomState(0)
+    T = rng.rand(3, 8, 16, 10)
+    nc = ct.NetCDFMonitor(str(tmp_path / 'out.nc'), write_on_store=True,
+                          backend='native')
+    restart = ct.RestartMonitor(str(tmp_path / 'restart'))
+    t0 = datetime.datetime(2000, 1, 1)
+    for k in range(3):
+        state = {'time': t0 + timedelta(hours=k),
+                 'air_temperature': ct.DataArray(
+                     to_torch(T[k], torch.float64, cuda),
+                     ('lon', 'lat', 'mid_levels'), {'units': 'degK'})}
+        nc.store(state)
+    restart.store(state)
+    nc.close()
+    f = netcdf_file(str(tmp_path / 'out.nc'), 'r', mmap=False)
+    np.testing.assert_array_equal(f.variables['air_temperature'].data, T)
+    f.close()
+    loaded = restart.load()
+    np.testing.assert_array_equal(loaded['air_temperature'].values, T[2])
+    assert loaded['time'] == state['time']

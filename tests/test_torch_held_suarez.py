@@ -233,5 +233,13 @@ def test_default_device_is_cuda():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match='item 13'):
-        tct.GFSDynamicalCore(moisture_advection='fv', device='cpu')
+    """Multi-GPU meshes (ROADMAP queue 1 item 4) and the matmul DFT (not
+    to be ported) are refused; an unknown moisture scheme too."""
+    from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
+    with pytest.raises(NotImplementedError, match='item 4'):
+        build_moist_gcm(mesh=object(), device='cpu')
+    with pytest.raises(NotImplementedError, match='matmul'):
+        build_moist_gcm(fft_impl='matmul', device='cpu')
+    with pytest.raises(ValueError):
+        build_moist_gcm(nlon=32, nlat=16, nz=10, moisture_advection='upwind',
+                        device='cpu')

@@ -31,9 +31,10 @@ def port_example(name, device=None, bind=()):
     the card.  ``calls.seconds`` gets the host seconds of each
     GFSDynamicalCore call (the card synchronized), ``calls.dycores`` each
     GFSDynamicalCore the example builds."""
-    with open(os.path.join(EXAMPLES, name + '.py')) as f:
+    path = os.path.join(EXAMPLES, name + '.py')
+    with open(path) as f:
         source = re.sub(r'\bclimt_tpu\b', 'climt_tpu_torch', f.read())
-    example = {'__name__': name + '_example_torch'}
+    example = {'__name__': name + '_example_torch', '__file__': path}
     exec(compile(source, 'examples/%s.py' % name, 'exec'), example)
     ct = example['ct']
     calls = types.SimpleNamespace(seconds=[], dycores=[])
@@ -73,17 +74,25 @@ EXAMPLE_BIND = ('GFSDynamicalCore', 'HeldSuarez', 'EmanuelConvection',
                 'LandMask', 'DataOcean', 'BergerSolarInsolation')
 
 
-def run_both_examples(name, **kw):
-    """examples/<name>.py in the port (on the CPU) and in JAX; returns
-    (port state, JAX state, number of port dycore calls)."""
-    main, calls = port_example(name, 'cpu', EXAMPLE_BIND)
-    st = main(verbose=False, **kw)
+def jax_example(name):
+    """main of examples/<name>.py as written, in the JAX package."""
     spec = importlib.util.spec_from_file_location(
         'example_' + name, os.path.join(EXAMPLES, name + '.py'))
     module = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = module
     spec.loader.exec_module(module)
-    return st, module.main(verbose=False, **kw), len(calls.seconds)
+    return module.main
+
+
+def run_both_examples(name, port_kw=None, jax_kw=None, **kw):
+    """examples/<name>.py in the port (on the CPU) and in JAX, with
+    ``kw`` and each package's own ``port_kw``/``jax_kw`` (an output file
+    each); returns (port result, JAX result, number of port dycore
+    calls)."""
+    main, calls = port_example(name, 'cpu', EXAMPLE_BIND)
+    st = main(verbose=False, **kw, **(port_kw or {}))
+    sj = jax_example(name)(verbose=False, **kw, **(jax_kw or {}))
+    return st, sj, len(calls.seconds)
 
 
 def assert_states_match(st, sj, tol=1e-10):
