@@ -85,7 +85,21 @@ Phases, each of which fails loudly (no exception is turned into exit 0):
      CPU under the one-ulp rule; then a 128x64x28 float64 state on the
      card stored through NetCDFMonitor (the native writer,
      write_on_store=True) and RestartMonitor, ms per store, the file and
-     the restart read back equal to the card's fields.
+     the restart read back equal to the card's fields;
+ 20. the parallel layer (climt_tpu_torch/parallel/), last: (a) one NCCL
+     rank in this process, the T85 moist GCM of phase 6 built with
+     build_moist_gcm(mesh=make_mesh(1)), float32, with spectral and with
+     FV moisture: one step against the single-device model within the
+     float32 limits of __graft_entry__.py's dryrun_multichip, then 12
+     steps timed with exactly 24 kernel-B and 4 kernel-A launches per
+     refresh, the all_to_all transposes and halo calls per step, and the
+     kernel launches of a refresh step and a plain step beside the
+     single-device model's; the process group is destroyed after it;
+     (b) two spawned ranks sharing the card over gloo (NCCL refuses two
+     ranks on one GPU), the moist GCM at 64x32x10 float64, 7 steps with
+     spectral moisture (gloo refuses the FV halo's CUDA point-to-point
+     sends), each rank's gathered carry within 1e-9 of max of the
+     single-device card run.
 The examples run through tests/torch_helpers.py:port_example, which the
 CPU tests use too.
 The line before the last is a JSON object with each kernel's launches,
@@ -152,6 +166,20 @@ TRANSPORT_REPS = 20
 UNIFORM_TOL = {'float32': 1e-6, 'float64': 1e-12}
 MASS_TOL = {'float32': 1e-5, 'float64': 1e-12}
 GRID_MODES = ('fv', 'sl')
+# phase 20: the moisture modes of the world of one, and
+# __graft_entry__.py:101-109's float32 limits of an m-sharded step against
+# the single-device one (fields; radiation fluxes in aux)
+MESH_MODES = ('spectral', 'fv')
+MESH_FIELD_TOL = dict(rtol=2e-4, atol=1e-5)
+MESH_AUX_TOL = dict(rtol=5e-4, atol=5e-3)
+# phase 20 (b): two ranks sharing the card, against one device; the mesh
+# changes only the order of the transforms' and the fixer's sums.  gloo
+# refuses CUDA tensors in point-to-point sends (the FV halo's
+# batch_isend_irecv), so they run spectral moisture only (PERF.md
+# section 7)
+SHARED_CARD = dict(nlon=64, nlat=32, nz=10, rad_every=6, rad_col_chunk=2048)
+SHARED_CARD_MODES = ('spectral',)
+SHARED_CARD_TOL = 1e-9
 # phase 17's card-against-CPU size
 GRID_SMALL = dict(nlon=64, nlat=32, nz=10, rad_every=6, rad_col_chunk=2048)
 # phase 18: the two registered tracers, a blob and a uniform field
@@ -1382,6 +1410,224 @@ def examples_io_phase(dev, card, counters):
     return launches
 
 
+def timed_steps(step_fn, carry, n, torch):
+    """(carry, diagnostics, seconds of each step) of n synchronised steps."""
+    step_s, diag = [], None
+    for _ in range(n):
+        t0 = time.perf_counter()
+        carry, diag = step_fn(carry, None)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    return carry, diag, step_s
+
+
+def mesh_world_of_one_phase(dev, card, counters, phase6_s):
+    """Phase 20 (a): one NCCL rank in this process (its rendezvous a
+    FileStore in a temporary directory), the T85 moist GCM built with
+    build_moist_gcm(mesh=make_mesh(1)) with spectral and with FV moisture,
+    float32.  For each mode: one step from seed 0 against the
+    single-device model within MESH_FIELD_TOL (the now state in grid
+    space) and MESH_AUX_TOL (aux); windows of T85_STEPS steps of the
+    single-device model, the mesh model, the mesh model and the
+    single-device model, timed, each mesh window with both kernels'
+    launch counts and the transposes and halo calls set to 0 before and
+    read after (exactly 24 B and 4 A launches per refresh).
+    Last, after every timed run, so that no trace overlaps the timing,
+    the kernel launches of one refresh and one plain step of each model,
+    counted as profile_step counts them.  The process group is
+    destroyed at the end.  Returns {kernel: launches} of the timed mesh
+    runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from climt_tpu_torch.convert import carry_to_global, carry_to_numpy
+    from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
+    from climt_tpu_torch.parallel import (dist_sht, halo,
+                                          initialize_distributed, make_mesh)
+    from climt_tpu_torch.profile_step import profile_one
+
+    total = {k: 0 for k in counters}
+    refreshes = sum(1 for k in range(T85_STEPS) if k % T85['rad_every'] == 0)
+    traced = []             # (mode, model, step_fn, carry at k=T85_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        if initialize_distributed('file://' + os.path.join(tmp, 'store'), 1,
+                                  0, device='cuda') != 1:
+            fail('phase 20: a world of one did not start')
+        try:
+            if dist.get_backend() != 'nccl':
+                fail('phase 20: backend %s, not nccl' % dist.get_backend())
+            mesh = make_mesh(1)
+            for mode in MESH_MODES:
+                ref_dycore, init1, step1, _ = build_moist_gcm(
+                    dtype=torch.float32, device=dev, moisture_advection=mode,
+                    **T85)
+                dycore, init_fn, step_fn, _ = build_moist_gcm(
+                    mesh=mesh, dtype=torch.float32, device=dev,
+                    moisture_advection=mode, **T85)
+                ref = carry_to_numpy(step1(init1(0))[0])
+                one = carry_to_global(step_fn(init_fn(0))[0], dycore.sht)
+                worst = {}
+                for name, b in ref[1].items():
+                    a = one[1][name]
+                    if np.iscomplexobj(b):
+                        a, b = (ref_dycore.sht.synthesize(torch.as_tensor(
+                            x, device=dev)).cpu().numpy() for x in (a, b))
+                    worst[name] = check_close(a, b, MESH_FIELD_TOL,
+                                              'phase 20 %s %s' % (mode, name))
+                for name, b in ref[3].items():
+                    worst['aux ' + name] = check_close(
+                        one[3][name], b, MESH_AUX_TOL,
+                        'phase 20 %s aux %s' % (mode, name))
+                if int(one[4]) != int(ref[4]):
+                    fail('phase 20 %s: step index %s, not %s' % (
+                        mode, one[4], ref[4]))
+                del ref, one
+
+                # single-device, mesh, mesh, single-device windows of
+                # T85_STEPS steps (two refreshes each), each model going on
+                # from its own carry; the counts over the mesh windows
+                carries = {'single-device': init1(0), 'mesh': init_fn(0)}
+                seconds = {'single-device': [], 'mesh': []}
+                diags = {}
+                windows = []
+                transposes = halos = 0
+                for kind in ('single-device', 'mesh', 'mesh',
+                             'single-device'):
+                    torch.cuda.synchronize()
+                    for counter in counters.values():
+                        counter.launches = 0
+                    dist_sht.transpose.calls = 0
+                    halo.LatHalo.calls = 0
+                    carries[kind], diags[kind], step_s = timed_steps(
+                        step_fn if kind == 'mesh' else step1, carries[kind],
+                        T85_STEPS, torch)
+                    seconds[kind] += step_s
+                    windows.append('%s %.4f' % (kind, sum(step_s) / len(
+                        step_s)))
+                    if kind != 'mesh':
+                        continue
+                    launches = {k: c.launches for k, c in counters.items()}
+                    if launches != {'B': 24 * refreshes,
+                                    'A': 4 * refreshes}:
+                        fail('phase 20 %s: kernel launches A=%d B=%d in %d '
+                             'refreshes, not 4 and 24 each' % (
+                                 mode, launches['A'], launches['B'],
+                                 refreshes))
+                    for k in total:
+                        total[k] += launches[k]
+                    transposes += dist_sht.transpose.calls
+                    halos += halo.LatHalo.calls
+                carry = carries['mesh']
+                T = dycore.sht.synthesize(carry[1]['T'])
+                for key, val in [('T', T)] + list(diags['mesh'].items()):
+                    if not bool(torch.isfinite(val).all()):
+                        fail('phase 20 %s: NaN or inf in %s' % (mode, key))
+                if not 150.0 < float(T.min()) < float(T.max()) < 350.0:
+                    fail('phase 20 %s: T in [%g, %g]' % (
+                        mode, float(T.min()), float(T.max())))
+                traced += [(mode, 'mesh', step_fn, carry),
+                           (mode, 'single-device', step1,
+                            carries['single-device'])]
+                phase(20, 'world of one NCCL rank, T85 f32 %r, one step '
+                      'against the single-device model: largest difference '
+                      'over its limit %.3g (%s; limits rtol %g atol %g, aux '
+                      'rtol %g atol %g)' % (
+                          mode, max(worst.values()),
+                          max(worst, key=worst.get),
+                          MESH_FIELD_TOL['rtol'], MESH_FIELD_TOL['atol'],
+                          MESH_AUX_TOL['rtol'], MESH_AUX_TOL['atol']))
+                mesh_steps = len(seconds['mesh'])
+                phase(20, 'world of one, T85 f32 %r, %d-step windows (%s '
+                      's/step): mesh %.4f s/step, single-device %.4f, over '
+                      'two windows each (phase 6 %.4f); per refresh kernel '
+                      'B %g, kernel A %g; per step %g all_to_all '
+                      'transposes, %g halo calls; on %s' % (
+                          mode, T85_STEPS, ', '.join(windows),
+                          sum(seconds['mesh']) / mesh_steps,
+                          sum(seconds['single-device']) / len(
+                              seconds['single-device']), phase6_s,
+                          launches['B'] / refreshes,
+                          launches['A'] / refreshes, transposes / mesh_steps,
+                          halos / mesh_steps, card))
+                del ref_dycore, init1, dycore, init_fn, diags, T
+                torch.cuda.empty_cache()
+            for mode, kind, step_fn, carry in traced:
+                # k = 2 T85_STEPS is a refresh step, the next a plain one
+                carry, refresh_s, refresh_busy, refresh, _ = profile_one(
+                    step_fn, carry)
+                _, plain_s, plain_busy, plain, _ = profile_one(step_fn, carry)
+                phase(20, 'T85 f32 %r %s model: %d kernel launches per '
+                      'refresh step, %d per plain step (traced walls %.4f, '
+                      '%.4f s; kernel time %.4f, %.4f s); on %s' % (
+                          mode, kind, refresh, plain, refresh_s, plain_s,
+                          refresh_busy, plain_busy, card))
+            del traced
+        finally:
+            dist.destroy_process_group()
+    return total
+
+
+def mesh_shared_card_phase(dev, card):
+    """Phase 20 (b): two spawned ranks on the one card with the gloo
+    backend (NCCL refuses two ranks on one GPU), the moist GCM at
+    SHARED_CARD float64 for 7 steps with SHARED_CARD_MODES moisture, each
+    rank's gathered carry and diagnostics against the single-device card
+    run within SHARED_CARD_TOL of max."""
+    import tempfile
+
+    import torch
+    from climt_tpu_torch.convert import carry_to_numpy
+    from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
+    from torch_helpers import rel_err, spawn_ranks
+
+    refs, single_s = {}, {}
+    for mode in SHARED_CARD_MODES:
+        t0 = time.perf_counter()
+        _, init_fn, _, run_fn = build_moist_gcm(
+            dtype=torch.float64, device=dev, moisture_advection=mode,
+            **SHARED_CARD)
+        carry, diag = run_fn(init_fn(0), 7)
+        refs[mode] = carry_to_numpy(carry + (diag,))
+        single_s[mode] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks('shared_card_rank', 2, tmp, timeout=600.0,
+                            kw=SHARED_CARD, steps=7, modes=SHARED_CARD_MODES)
+        spawn_s = time.perf_counter() - t0
+    for mode in SHARED_CARD_MODES:
+        worst = 0.0
+        for rank, out in enumerate(ranks):
+            got, _ = out[mode]
+            for i in (0, 1, 2, 3, 5):
+                for key, b in refs[mode][i].items():
+                    err = rel_err(got[i][key], b)
+                    if not err <= SHARED_CARD_TOL:
+                        fail('phase 20 shared card %s rank %d: %s %s '
+                             'differs by %.3g of max' % (mode, rank, i, key,
+                                                         err))
+                    worst = max(worst, err)
+        phase(20, 'two gloo ranks on one card, %dx%dx%d f64 %r, 7 steps: '
+              'largest difference from the single-device card run %.3g of '
+              'max (limit %g); build, start and 7 steps %.2f s per rank '
+              '(single device %.2f s); the spawn %.1f s in all; on %s' % (
+                  SHARED_CARD['nlon'], SHARED_CARD['nlat'],
+                  SHARED_CARD['nz'], mode, worst, SHARED_CARD_TOL,
+                  max(out[mode][1] for out in ranks), single_s[mode],
+                  spawn_s, card))
+
+
+def check_close(a, b, tol, label):
+    """max of |a - b| / (atol + rtol |b|), failing above 1."""
+    import numpy as np
+    ratio = float(np.max(np.abs(a - b) / (tol['atol'] + tol['rtol']
+                                          * np.abs(b))))
+    if not ratio <= 1.0:
+        fail('%s: differs by %.3g of its limit' % (label, ratio))
+    return ratio
+
+
 def max_rel_err(a, b):
     """max |a - b| and the scale max |b| of two tensors."""
     return float((a - b).abs().max()), float(b.abs().max())
@@ -1618,6 +1864,7 @@ def main():
     other = [s for i, s in enumerate(step_s) if i % 6 != 0]
     mean_s = sum(step_s) / len(step_s)
     gps = 256 * 128 * 28 / mean_s
+    phase6_s = mean_s
     phase(6, 'T85 %d steps on %s: step s %s' % (
         T85_STEPS, card, ' '.join('%.4f' % s for s in step_s)))
     phase(6, 'T85: %.4f s/step, %.4g gridpoint-steps/s; radiation steps '
@@ -1751,8 +1998,16 @@ def main():
     tracer_phase(dev, card)
     for kernel, count in examples_io_phase(dev, card, counters).items():
         launches_f64[kernel] += count
+    torch.cuda.empty_cache()
 
-    # the float32 entries count the T85 runs of phases 6 and 17
+    # ---- phase 20: the moist GCM over a torch.distributed mesh ---------
+    for kernel, count in mesh_world_of_one_phase(dev, card, counters,
+                                                 phase6_s).items():
+        launches[kernel] += count
+    torch.cuda.empty_cache()
+    mesh_shared_card_phase(dev, card)
+
+    # the float32 entries count the T85 runs of phases 6, 17 and 20
     kernels = [
         dict(name='mix_groups_cuda', route='cuda',
              source='climt_tpu_torch/csrc/mix_rows.cu',

@@ -10,6 +10,16 @@ of the same kinds.  A JAX carry fetched with ``np.asarray`` on every leaf
 (a tuple of dicts of numpy arrays, and the step index) converts to the
 port's carry and back.  The models have no trainable weights; their
 tables come from the same files in both packages.
+
+A model built with ``mesh=`` carries each rank's blocks: the rows
+``sht.rows`` of every grid field and the m-block ``sht.m_rows`` of every
+spectral field, with M padded to ``sht.M_padded`` (``sht`` is the model's
+``parallel.DistributedSHT``).  ``carry_to_rank`` cuts a rank's carry out
+of a global numpy carry (the single-device layout, or JAX's mesh carry
+fetched with ``np.asarray``, whose M is already padded), and
+``carry_to_global`` gathers the ranks' carries back into the
+single-device layout: the port's counterpart of ``np.asarray`` on a
+sharded ``jax.Array``.
 """
 
 from __future__ import annotations
@@ -40,3 +50,37 @@ def carry_to_numpy(carry):
     return tuple({name: v.detach().cpu().numpy()
                   for name, v in part.items()} if isinstance(part, dict)
                  else np.int32(part) for part in carry)
+
+
+def carry_to_rank(carry_np, sht, device, dtype):
+    """A global carry of numpy arrays -> this rank's carry under the mesh
+    of ``sht`` (a ``parallel.DistributedSHT``): complex (spectral) arrays
+    padded to M_padded where they are not, and cut to the rank's m-block;
+    real (grid) arrays cut to its latitude rows; a step index an int."""
+    def local(x):
+        x = np.asarray(x)
+        if np.iscomplexobj(x):
+            if x.shape[-2] == sht.truncation + 1:
+                x = sht.pad_spec(x)
+            return x[..., sht.m_rows, :]
+        return x[..., sht.rows, :]
+
+    return carry_from_numpy(tuple(
+        {name: local(v) for name, v in part.items()}
+        if isinstance(part, dict) else part for part in carry_np),
+        device, dtype)
+
+
+def carry_to_global(carry, sht):
+    """The ranks' carries -> the global carry of numpy arrays, in the
+    single-device layout (M unpadded), on every rank: each spectral field
+    gathered over the 'lat' group by m-block, each grid field by rows.
+    Every rank of the group must call it.  Dicts of diagnostics pass as
+    one-element tuples."""
+    def glob(v):
+        v = sht.gather_m(v) if v.is_complex() else sht.gather_rows(v)
+        return v.detach().cpu().numpy()
+
+    return tuple({name: glob(v) for name, v in part.items()}
+                 if isinstance(part, dict) else np.int32(part)
+                 for part in carry)

@@ -12,6 +12,11 @@ eagerly: the radiation cadence is a Python ``if`` on the step index, and
 the radiation column chunks are a Python loop.  ``MoistGCM`` is an
 ``nn.Module`` whose buffers (the dycore's Legendre tensors and level
 matrices, the radiation geometry, the ozone profile) follow ``.to()``.
+
+Under a mesh (``build_moist_gcm(mesh=...)``) each rank runs the model on
+its latitude block: the column physics and radiation on its own columns,
+the dynamics through the distributed transform, and the water fixer's
+two global sums all-reduced over the mesh's 'lat' group.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
 
 from .. import data
 from ..components.emanuel_convection import emanuel_convect
@@ -72,15 +78,18 @@ class MoistGCM(nn.Module):
     def __init__(self, nlon, nlat, nz, timestep, number_of_damped_levels,
                  ocean_depth, dtype, rad_every, rad_col_chunk,
                  conserve_water, device='cuda',
-                 moisture_advection='spectral'):
+                 moisture_advection='spectral', mesh=None):
         super().__init__()
         device = resolve_device(device)
         ak, bk = hybrid_sigma_pressure_coefficients(nz + 1, 1e5, 20.0)
         self.dycore = SpectralDycore(
             nlon, nlat, nz, ak, bk, timestep=timestep,
             number_of_damped_levels=number_of_damped_levels, dtype=dtype,
-            device=device, moisture_advection=moisture_advection)
-        self.nlon, self.nlat, self.nz = nlon, nlat, nz
+            device=device, moisture_advection=moisture_advection, mesh=mesh)
+        # the latitude rows this model holds: all, or its mesh block
+        self.rows = self.dycore.sht.rows
+        self.nlon, self.nz = nlon, nz
+        self.nlat = self.dycore.sht.mu[self.rows].shape[0]
         self.dt = timestep
         self.dtype = dtype
         self.ocean_depth = ocean_depth
@@ -93,13 +102,13 @@ class MoistGCM(nn.Module):
                 np.ascontiguousarray(arr), dtype=dtype, device=device))
 
         # radiation geometry (moist_gcm.py:65-73): equinox diurnal cycle
-        mu = self.dycore.sht.mu
-        ncol = nlat * nlon
+        mu = self.dycore.sht.mu[self.rows]
+        ncol = self.nlat * nlon
         lat = np.arcsin(mu)
         lon = 2.0 * np.pi * np.arange(nlon) / nlon
         buf('rad_coslat', (np.cos(lat)[:, None]
                            * np.ones((1, nlon))).reshape(-1))
-        buf('rad_lon', np.broadcast_to(lon[None, :], (nlat, nlon))
+        buf('rad_lon', np.broadcast_to(lon[None, :], (self.nlat, nlon))
             .reshape(-1))
         self.solar_config = solar_variability(-1, 0.0)
         self.sw_scale = _SOLAR_CONSTANT / 1368.22    # rrsw scon
@@ -109,7 +118,8 @@ class MoistGCM(nn.Module):
         self.rad_chunks = (max(1, ncol // rad_col_chunk)
                            if ncol % rad_col_chunk == 0 else 1)
         # Gaussian-quadrature area weights for the water fixer
-        buf('wlat', np.asarray(self.dycore.sht.weights)[None, :, None])
+        buf('wlat', np.asarray(self.dycore.sht.weights)[self.rows][
+            None, :, None])
 
     # ------------------------------------------------------------------
     def radiation_inputs(self, T, q, p_mid, p_half, Ts, t_seconds):
@@ -259,8 +269,11 @@ class MoistGCM(nn.Module):
     # ------------------------------------------------------------------
     def init(self, seed=0):
         """Initial carry (prev, now, grids, aux, 0) from a numpy seed,
-        exactly as moist_gcm.py:347-367 builds it."""
-        nz, nlat, nlon = self.nz, self.nlat, self.nlon
+        exactly as moist_gcm.py:347-367 builds it.  The global fields are
+        drawn and a mesh rank keeps its rows, so one seed gives one model
+        on any number of ranks."""
+        nz, nlon = self.nz, self.nlon
+        nlat = self.dycore.sht.nlat
         dycore = self.dycore
         rng = np.random.RandomState(seed)
         shape = (nz, nlat, nlon)
@@ -276,23 +289,25 @@ class MoistGCM(nn.Module):
         dev = self.wlat.device
 
         def t(x):
-            return torch.as_tensor(x, dtype=self.dtype, device=dev)
+            """The model's rows of a global (..., nlat, nlon) field."""
+            return torch.as_tensor(np.ascontiguousarray(
+                x[..., self.rows, :]), dtype=self.dtype, device=dev)
 
         zeros = t(np.zeros(shape))
         spec = dycore.spectral_state_from_grid(zeros, zeros, t(T), t(q),
                                                t(lnps))
         prev, now = dycore.initial_step(spec)
         grids = dycore.grids_of(prev)
-        aux = {'Ts': t(Ts2d), 'cbmf': t(np.zeros((nlat, nlon))),
-               'hr_rad': t(np.zeros(shape)),
-               'sfc_rad': t(np.zeros((nlat, nlon))),
-               'olr': t(np.zeros((nlat, nlon))),
-               'asr': t(np.zeros((nlat, nlon)))}
+        flat = np.zeros((nlat, nlon))
+        aux = {'Ts': t(Ts2d), 'cbmf': t(flat), 'hr_rad': t(np.zeros(shape)),
+               'sfc_rad': t(flat), 'olr': t(flat), 'asr': t(flat)}
         return prev, now, grids, aux, 0
 
     def _total_water(self, q_g, p_half):
-        """Area-weighted mass-proxy integral sum(w * q * dp)."""
-        return torch.sum(self.wlat * q_g * (p_half[1:] - p_half[:-1]))
+        """Area-weighted mass-proxy integral sum(w * q * dp) over the
+        sphere."""
+        return self.dycore.sht.global_sum(
+            self.wlat * q_g * (p_half[1:] - p_half[:-1]))
 
     def _fix_water(self, new, prev, phys):
         """Global multiplicative moisture mass fixer (moist_gcm.py:378),
@@ -302,8 +317,8 @@ class MoistGCM(nn.Module):
         q_prev = self.dycore._q_grid(prev)
         ps_prev = torch.exp(sht.synthesize(prev['lnps']))
         ph_prev, _, _, _ = self.dycore._vertical_structures(ps_prev)
-        src = torch.sum(self.wlat * phys['dq']
-                        * (ph_prev[1:] - ph_prev[:-1]))
+        src = sht.global_sum(self.wlat * phys['dq']
+                             * (ph_prev[1:] - ph_prev[:-1]))
         target = self._total_water(q_prev, ph_prev) + 2.0 * self.dt * src
         q_new = self.dycore._q_grid(new)
         ps_new = torch.exp(sht.synthesize(new['lnps']))
@@ -349,12 +364,20 @@ def build_moist_gcm(nlon=128, nlat=64, nz=28, timestep=600.0,
 
     moisture_advection: 'spectral', 'fv' or 'sl'.  'fv' is locally
     conservative, so the global water fixer is off; 'sl' is not, and
-    keeps it on, acting on the grid q.  Multi-device meshes and the
-    matmul DFT raise NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError(
-            'mesh: the port runs on one device; multi-GPU is queue 1 item '
-            '4 of ROADMAP.md')
+    keeps it on, acting on the grid q.  The matmul DFT raises
+    NotImplementedError.
+
+    mesh: a ``torch.distributed`` ``DeviceMesh`` with a 'lat' axis
+    (``parallel.make_mesh``), the production multi-GPU layout: every rank
+    builds the model and runs it on its latitude block, with the spectral
+    state m-sharded through ``parallel.DistributedSHT``.  The carry then
+    holds the rank's blocks (``convert.carry_to_rank`` and
+    ``convert.carry_to_global`` move a global carry in and out), and the
+    diagnostics the rank's rows."""
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(
+            'mesh: expected a torch.distributed.device_mesh.DeviceMesh '
+            '(climt_tpu_torch.parallel.make_mesh), got %r' % (mesh,))
     if fft_impl != 'fft':
         raise NotImplementedError(
             "fft_impl=%r: only 'fft' is ported; 'matmul' is on ROADMAP.md's "
@@ -364,5 +387,5 @@ def build_moist_gcm(nlon=128, nlat=64, nz=28, timestep=600.0,
     device = resolve_device(device)
     model = MoistGCM(nlon, nlat, nz, timestep, number_of_damped_levels,
                      ocean_depth, dtype, rad_every, rad_col_chunk,
-                     conserve_water, device, moisture_advection)
+                     conserve_water, device, moisture_advection, mesh)
     return model.dycore, model.init, model.step, model.run

@@ -6,8 +6,9 @@ del^8 implicit hyperdiffusion and top-of-model Rayleigh damping.  Grid
 fields are (nz, nlat, nlon) top-down, spectral fields complex
 (nz, M+1, N+1), exactly as in the JAX module.  Moisture is spectral
 (advective form), or with ``moisture_advection='fv'``/``'sl'`` a grid
-field moved by ``ops/fv_advection.py`` or ``ops/sl_advection.py``.  One
-device (the JAX module's ``mesh=None``).
+field moved by ``ops/fv_advection.py`` or ``ops/sl_advection.py``.  With
+``mesh=`` the transforms go through ``parallel.DistributedSHT``: each rank
+holds a latitude block of the grid and an m-block of the spectral state.
 """
 
 from __future__ import annotations
@@ -22,6 +23,26 @@ from ..core.util import resolve_device
 from ..ops.fv_advection import FVAdvection
 from ..ops.sht import SphericalHarmonicTransform
 from ..ops.sl_advection import SLAdvection
+from ..parallel.dist_sht import DistributedSHT
+from ..parallel.halo import make_lat_halo
+
+
+class GatheredTransport(nn.Module):
+    """A transport operator of the global grid run under a latitude-sharded
+    mesh: ``advect`` all-gathers its five fields over the 'lat' group,
+    calls the operator on the whole grid, and keeps the rank's rows.  The
+    dycore wraps ``SLAdvection`` in it, whose departure points may reach
+    any row.  Every rank repeats the global call, which is cheap: 3.3-5.5
+    ms a T85 call on an H100 (PERF.md section 6)."""
+
+    def __init__(self, op, sht):
+        super().__init__()
+        self.op = op
+        self.sht = sht
+
+    def advect(self, q, dp, u, v, mdot, dt):
+        full = [self.sht.gather_rows(x) for x in (q, dp, u, v, mdot)]
+        return self.op.advect(*full, dt)[..., self.sht.rows, :]
 
 
 class SpectralDycore(nn.Module):
@@ -39,7 +60,8 @@ class SpectralDycore(nn.Module):
                  rd=287.0, cpd=1004.64, g=9.80665,
                  radius=6.371e6, omega=7.292e-5,
                  dtype=torch.float64, device='cuda',
-                 moisture_advection='spectral', fv_max_wind=120.0):
+                 moisture_advection='spectral', fv_max_wind=120.0,
+                 mesh=None, dist_axis='lat'):
         """``ak``, ``bk``: bottom-up interface coefficients with
         p_interface = ak + bk (ps - p_top), as in the JAX constructor
         (spectral_dynamics.py:43).
@@ -49,13 +71,27 @@ class SpectralDycore(nn.Module):
         mass fluxes, no fixer needed) or 'sl' (semi-Lagrangian, not
         conservative).  In 'fv' and 'sl' the state's 'q' is a grid field
         (nz, nlat, nlon) and ``self.fv`` is the operator (its JAX name
-        for both).  ``fv_max_wind`` sizes FV's polar zonal substeps."""
+        for both).  ``fv_max_wind`` sizes FV's polar zonal substeps.
+
+        ``mesh``: a ``torch.distributed`` ``DeviceMesh`` with a
+        ``dist_axis`` axis (``parallel.make_mesh``).  The transforms then
+        run through ``parallel.DistributedSHT``: grid fields are the
+        rank's latitude block (nz, nlat/L, nlon), spectral fields its
+        m-block (nz, M_padded/L, N+1), and the per-latitude and per-m
+        constants are cut to match; ``Minv`` is n-indexed and stays
+        whole.  FV moisture exchanges one-row halos
+        (``parallel.make_lat_halo``); SL runs whole on every rank
+        (``GatheredTransport``).  A 'lon' extent above 1 repeats each
+        latitude block on every 'lon' rank."""
         super().__init__()
         device = resolve_device(device)
         self.nlon, self.nlat, self.nz = nlon, nlat, nz
         self.sht = SphericalHarmonicTransform(
             nlon, nlat, truncation, radius=radius, dtype=dtype,
             device=device)
+        if mesh is not None:
+            self.sht = DistributedSHT(self.sht, mesh, axis=dist_axis)
+        rows = self.sht.rows
         T = self.sht.truncation
         self.dtype = dtype
         self.rd, self.cpd, self.g = rd, cpd, g
@@ -68,6 +104,11 @@ class SpectralDycore(nn.Module):
             self.register_buffer(name, torch.as_tensor(
                 np.ascontiguousarray(arr), dtype=dtype, device=device))
 
+        def m_buf(name, arr):
+            """A per-(m, n) constant: the rank's m-block under a mesh."""
+            buf(name, arr)
+            setattr(self, name, self.sht.m_block_of(getattr(self, name)))
+
         ak = np.asarray(ak, dtype=np.float64)
         bk = np.asarray(bk, dtype=np.float64)
         p_top = ak[-1]
@@ -77,7 +118,7 @@ class SpectralDycore(nn.Module):
         buf('B', B_np)
         self.register_buffer('dB', torch.diff(self.B))
 
-        mu = self.sht.mu
+        mu = self.sht.mu[rows]
         buf('f_grid', (2.0 * omega * mu)[:, None] * np.ones((1, nlon)))
         buf('coslat', np.sqrt(1.0 - mu ** 2))
 
@@ -117,7 +158,7 @@ class SpectralDycore(nn.Module):
             np.linalg.inv(eye + (timestep ** 2) * L[i] * M)
             for i in range(T + 1)]))                     # (N+1, nz, nz)
         n2d = np.broadcast_to(n[None, :], (T + 1, T + 1))
-        buf('L_2d', n2d * (n2d + 1.0) / radius ** 2)      # n(n+1)/a^2
+        m_buf('L_2d', n2d * (n2d + 1.0) / radius ** 2)    # n(n+1)/a^2
 
         # del^8 hyperdiffusion, implicit per-step factors (:182-201)
         if hyperdiffusion_timescale is None:
@@ -126,10 +167,10 @@ class SpectralDycore(nn.Module):
         k_n = ((n * (n + 1.0) / (nmax * (nmax + 1.0))) ** 4
                / hyperdiffusion_timescale)
         k2d = np.broadcast_to(k_n[None, :], (T + 1, T + 1))
-        buf('hyperdiff_factor', 1.0 / (1.0 + 2.0 * timestep * k2d))
-        buf('hyperdiff_factor_start', 1.0 / (1.0 + timestep * k2d))
+        m_buf('hyperdiff_factor', 1.0 / (1.0 + 2.0 * timestep * k2d))
+        m_buf('hyperdiff_factor_start', 1.0 / (1.0 + timestep * k2d))
 
-        buf('phi_s', np.zeros((nlat, nlon)))
+        buf('phi_s', np.zeros((mu.shape[0], nlon)))
 
         damp = np.zeros(nz)
         for lev in range(number_of_damped_levels):
@@ -143,17 +184,23 @@ class SpectralDycore(nn.Module):
         self.fv = None
         if moisture_advection == 'fv':
             self.fv = FVAdvection(
-                mu, self.sht.weights, nlon, radius, dt_max=2.0 * timestep,
-                dtype=dtype, max_wind=fv_max_wind, device=device)
+                self.sht.mu, self.sht.weights, nlon, radius,
+                dt_max=2.0 * timestep, dtype=dtype, max_wind=fv_max_wind,
+                device=device, halo_exchange=None if mesh is None
+                else make_lat_halo(mesh, dist_axis))
         elif moisture_advection == 'sl':
             self.fv = SLAdvection(
-                mu, self.sht.weights, nlon, radius, dt_max=2.0 * timestep,
-                dtype=dtype, device=device)
+                self.sht.mu, self.sht.weights, nlon, radius,
+                dt_max=2.0 * timestep, dtype=dtype, device=device)
+            if mesh is not None:
+                self.fv = GatheredTransport(self.fv, self.sht)
 
     def set_surface_geopotential(self, phi_s_grid):
-        """Set the (nlat, nlon) surface geopotential field (:238)."""
-        self.phi_s = torch.as_tensor(phi_s_grid, dtype=self.dtype,
-                                     device=self.phi_s.device)
+        """Set the (nlat, nlon) surface geopotential field (:238); under a
+        mesh, from the global field, of which the rank keeps its rows."""
+        self.phi_s = torch.as_tensor(
+            phi_s_grid, dtype=self.dtype,
+            device=self.phi_s.device)[self.sht.rows].contiguous()
 
     # ------------------------------------------------------------------
     def spectral_state_from_grid(self, u, v, T, q, lnps):

@@ -30,6 +30,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 
@@ -69,24 +70,48 @@ class FVAdvection(nn.Module):
     """Conservative flux-form transport operator for one grid."""
 
     def __init__(self, mu, weights, nlon, radius, dt_max,
-                 dtype=torch.float32, max_wind=120.0, device='cpu'):
+                 dtype=torch.float32, max_wind=120.0, device='cpu',
+                 halo_exchange=None):
         """``dt_max`` is the longest interval ``advect`` will be called
         with (2 dt under leapfrog); the zonal substep counts are sized for
         it and ``max_wind`` (a CFL bound, not an accuracy knob), as in
-        fv_advection.py:68.  The JAX ``halo_exchange`` (latitude-sharded
-        meshes) is not ported: ``_shift_north``/``_shift_south`` are the
-        one place a halo would go."""
+        fv_advection.py:68.
+
+        ``halo_exchange``: for a latitude-sharded mesh, a
+        ``parallel.halo.make_lat_halo`` callable; ``_shift_north`` and
+        ``_shift_south`` then go through it.  ``mu`` and ``weights`` stay
+        the global grid's; the operator keeps the rows of the halo's
+        latitude block (its ``index`` of ``size``), so fields are that
+        block's (..., nz, nlat/size, nlon), the zonal band loops run over
+        its rows only, and ``total_mass`` is all-reduced over the halo's
+        group."""
         super().__init__()
         mu = np.asarray(mu, np.float64)
         w = np.asarray(weights, np.float64)
-        self.nlat = mu.shape[0]
+        nlat = mu.shape[0]
         self.nlon = nlon
         self.radius = radius
         self.dt_max = float(dt_max)
         self.dtype = dtype
+        self.halo_exchange = halo_exchange
+        block = slice(None)
+        if halo_exchange is not None:
+            if nlat % halo_exchange.size:
+                raise ValueError('nlat %d is not divisible by %d latitude '
+                                 'blocks' % (nlat, halo_exchange.size))
+            n = nlat // halo_exchange.size
+            block = slice(halo_exchange.index * n,
+                          (halo_exchange.index + 1) * n)
         coslat = np.sqrt(1.0 - mu ** 2)
         dlam = 2.0 * math.pi / nlon
         dx = radius * coslat * dlam                       # (nlat,)
+        wf = 0.5 * (w[1:] + w[:-1])                       # face Delta-mu
+        wface = np.concatenate([wf, wf[-1:]])
+        # only the global last face (the south pole) is closed
+        face_ok = np.arange(nlat) < nlat - 1
+        dx, w, coslat = dx[block], w[block], coslat[block]
+        wface, face_ok = wface[block], face_ok[block]
+        self.nlat = dx.shape[0]
         n_sub = np.maximum(
             1, np.ceil(max_wind * self.dt_max / dx)).astype(int)
         n_sub = 2 ** np.ceil(np.log2(n_sub)).astype(int)
@@ -115,9 +140,8 @@ class FVAdvection(nn.Module):
         buf('_dx', dx)
         buf('_w', w)                                      # Delta-mu_j
         buf('_coslat', coslat)
-        wf = 0.5 * (w[1:] + w[:-1])                       # face Delta-mu
-        buf('_wface_full', np.concatenate([wf, wf[-1:]])[:, None])
-        buf('_face_ok', (np.arange(self.nlat) < self.nlat - 1)[:, None])
+        buf('_wface_full', wface[:, None])
+        buf('_face_ok', face_ok[:, None])
 
     # -- zonal (periodic, substepped) -------------------------------------
     def _zonal_rows(self, q, dp, u, dxj, n, dt):
@@ -163,15 +187,17 @@ class FVAdvection(nn.Module):
                 torch.cat(dps, dim=-2).index_select(-2, self._unorder))
 
     # -- meridional (closed poles) ----------------------------------------
-    @staticmethod
-    def _shift_north(x):
+    def _shift_north(self, x):
         """Row j of the result = row j-1 of x (northern neighbour); row 0
         zero (pole)."""
+        if self.halo_exchange is not None:
+            return self.halo_exchange(x, +1)
         return torch.cat([torch.zeros_like(x[..., :1, :]), x[..., :-1, :]],
                          dim=-2)
 
-    @staticmethod
-    def _shift_south(x):
+    def _shift_south(self, x):
+        if self.halo_exchange is not None:
+            return self.halo_exchange(x, -1)
         return torch.cat([x[..., 1:, :], torch.zeros_like(x[..., :1, :])],
                          dim=-2)
 
@@ -218,5 +244,8 @@ class FVAdvection(nn.Module):
 
     def total_mass(self, q, dp):
         """Area-weighted tracer mass sum q dp w_j (conserved by
-        ``advect`` to roundoff)."""
-        return torch.sum(q * dp * self._w[:, None])
+        ``advect`` to roundoff); over the whole sphere under a halo."""
+        mass = torch.sum(q * dp * self._w[:, None])
+        if self.halo_exchange is not None:
+            dist.all_reduce(mass, group=self.halo_exchange.group)
+        return mass

@@ -62,6 +62,10 @@ def complex_dtype(dtype):
 class SphericalHarmonicTransform(nn.Module):
     """Batched-matmul spherical harmonic transform for one resolution."""
 
+    # the latitude rows of the grid it transforms: all of them (a
+    # ``parallel.DistributedSHT`` holds one block)
+    rows = slice(None)
+
     def __init__(self, nlon, nlat, truncation=None, radius=6.371e6,
                  dtype=torch.float64, device='cuda'):
         super().__init__()
@@ -182,3 +186,14 @@ class SphericalHarmonicTransform(nn.Module):
 
     def laplacian(self, spec):
         return spec * self.laplacian_eig
+
+    @staticmethod
+    def m_block_of(a, fill='edge'):
+        """A per-m constant as the transform holds it: whole (the
+        distributed transform cuts its m-block)."""
+        return a
+
+    @staticmethod
+    def global_sum(x):
+        """Sum of a grid expression over the sphere."""
+        return torch.sum(x)

@@ -53,6 +53,25 @@ def _build(model, dev):
                                     'held-suarez T42 step (k=6)')
 
 
+def profile_one(step_fn, carry):
+    """One traced step: (carry, wall s, kernel s, kernel launches, {kernel
+    name: (ms, launches)})."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        carry, _ = step_fn(carry, None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = _kernel_events(prof)
+    busy = sum(e.device_time_total for e in kernels) / 1e6   # us -> s
+    by_name = {}
+    for e in kernels:
+        tot, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.device_time_total / 1e3, n + 1)
+    return carry, wall, busy, len(kernels), by_name
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--model', choices=tuple(MOISTURE) + (
@@ -70,22 +89,10 @@ def main(argv=None):
         carry, _ = step_fn(carry, None)
     torch.cuda.synchronize()
     for label in labels:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            carry, _ = step_fn(carry, None)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kernels = _kernel_events(prof)
-        busy = sum(e.device_time_total for e in kernels) / 1e6   # us -> s
-        by_name = {}
-        for e in kernels:
-            tot, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (tot + e.device_time_total / 1e3, n + 1)
+        carry, wall, busy, launches, by_name = profile_one(step_fn, carry)
         print('%s on %s: wall %.4f s, kernel time %.4f s, device busy '
               '%.1f%%, %d kernel launches' % (
-                  label, card, wall, busy, 100.0 * busy / wall,
-                  len(kernels)))
+                  label, card, wall, busy, 100.0 * busy / wall, launches))
         for name, (ms, n) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:15]:
             print('    %9.3f ms %6d x  %s' % (ms, n, name[:100]))

@@ -386,3 +386,28 @@ def test_native_monitor_stores_a_cuda_state(cuda, tmp_path):
     loaded = restart.load()
     np.testing.assert_array_equal(loaded['air_temperature'].values, T[2])
     assert loaded['time'] == state['time']
+
+
+@pytest.mark.gpu
+def test_moist_gcm_on_a_world_of_one_nccl_rank(cuda, tmp_path):
+    """build_moist_gcm(mesh=make_mesh(1)) on one NCCL rank, 7 float32
+    steps at 32x16x10, gathered, against the single-device model on the
+    card within chip_smoke.py's SMALL_TOL."""
+    import torch.distributed as dist
+    from climt_tpu_torch.convert import carry_to_global
+    from climt_tpu_torch.parallel import initialize_distributed, make_mesh
+    kw = dict(nlon=32, nlat=16, nz=10, rad_every=6, rad_col_chunk=128,
+              dtype=torch.float32, device=cuda)
+    _, init_fn, _, run_fn = build_moist_gcm(**kw)
+    ref = carry_to_numpy(run_fn(init_fn(0), 7)[0])[2]
+    assert initialize_distributed('file://%s' % (tmp_path / 'store'), 1,
+                                  0) == 1
+    try:
+        assert dist.get_backend() == 'nccl'
+        dycore, init_fn, _, run_fn = build_moist_gcm(mesh=make_mesh(1), **kw)
+        got = carry_to_global(run_fn(init_fn(0), 7)[0], dycore.sht)[2]
+    finally:
+        dist.destroy_process_group()
+    for key, tol in (('T', 0.01), ('u', 0.02), ('v', 0.02), ('q', 5e-6),
+                     ('ps', 15.0)):
+        assert np.abs(got[key] - ref[key]).max() < tol, key

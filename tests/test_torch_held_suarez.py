@@ -233,10 +233,11 @@ def test_default_device_is_cuda():
 
 
 def test_unported_options_raise():
-    """Multi-GPU meshes (ROADMAP queue 1 item 4) and the matmul DFT (not
-    to be ported) are refused; an unknown moisture scheme too."""
+    """A mesh that is not a torch.distributed DeviceMesh is refused with
+    the type it expected; the matmul DFT (not to be ported) is refused; an
+    unknown moisture scheme too."""
     from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
-    with pytest.raises(NotImplementedError, match='item 4'):
+    with pytest.raises(TypeError, match='DeviceMesh'):
         build_moist_gcm(mesh=object(), device='cpu')
     with pytest.raises(NotImplementedError, match='matmul'):
         build_moist_gcm(fft_impl='matmul', device='cpu')

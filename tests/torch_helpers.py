@@ -6,12 +6,16 @@ imports neither jax nor climt_tpu at its top, so ``chip_smoke.py`` runs the
 examples through ``port_example`` too.
 """
 
+import contextlib
 import functools
 import importlib.util
+import multiprocessing
 import os
+import pickle
 import re
 import sys
 import time
+import traceback
 import types
 
 import numpy as np
@@ -373,3 +377,279 @@ def ragged_group(bands, dtype, device='cpu'):
     return (Layout([ng for ng, _ in bands], parts, dtype, device),
             torch.as_tensor(idx, dtype=torch.int32, device=device),
             to_torch(w, dtype, device))
+
+
+# -- ranks of a torch.distributed world, spawned ---------------------------
+
+def spawn_ranks(target, world, out_dir, timeout=240.0, backend_device='cpu',
+                **kwargs):
+    """Run ``torch_helpers.<target>(rank, world, **kwargs)`` in ``world``
+    spawned processes of one process group (gloo for backend_device 'cpu'),
+    which meet through a FileStore file in ``out_dir``; returns each rank's
+    result.  Joins with a timeout and kills every rank still alive then; a
+    rank that fails or is killed raises here, with its traceback."""
+    ctx = multiprocessing.get_context('spawn')
+    out_dir = str(out_dir)
+    store = os.path.join(out_dir, 'store')
+    # the inputs go through a file: a start-up message larger than a pipe
+    # buffer would make each start wait for the previous rank's imports
+    with open(os.path.join(out_dir, 'inputs.pkl'), 'wb') as f:
+        pickle.dump(kwargs, f)
+    procs = [ctx.Process(target=_rank_main, args=(
+        rank, world, store, target, out_dir, backend_device))
+        for rank in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for r in hung:
+        procs[r].kill()
+    for p in procs:
+        p.join(10.0)
+    errors = []
+    for rank, p in enumerate(procs):
+        err = os.path.join(out_dir, 'rank%d.err' % rank)
+        if os.path.exists(err):
+            with open(err) as f:
+                errors.append('rank %d:\n%s' % (rank, f.read()))
+        elif p.exitcode != 0:
+            errors.append('rank %d: exit code %s%s' % (
+                rank, p.exitcode, ' (killed after %g s)' % timeout
+                if rank in hung else ''))
+    if errors:
+        raise RuntimeError('%s on %d ranks failed:\n%s' % (
+            target, world, '\n'.join(errors)))
+    results = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, 'rank%d.pkl' % rank), 'rb') as f:
+            results.append(pickle.load(f))
+    return results
+
+
+@contextlib.contextmanager
+def world_of_one(out_dir):
+    """A gloo world of one in this process, left when the block ends."""
+    import torch.distributed as dist
+    from climt_tpu_torch.parallel import initialize_distributed
+    if dist.is_initialized():
+        raise RuntimeError('a process group is already running here')
+    size = initialize_distributed(
+        'file://' + os.path.join(str(out_dir), 'store'), 1, 0, device='cpu')
+    try:
+        yield size
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_main(rank, world, store, target, out_dir, backend_device):
+    """One spawned rank: join the group, run the target on the inputs of
+    ``spawn_ranks``, write its result (or its traceback), leave the
+    group."""
+    import torch.distributed as dist
+    from climt_tpu_torch.parallel import initialize_distributed
+    torch.set_num_threads(1)
+    try:
+        with open(os.path.join(out_dir, 'inputs.pkl'), 'rb') as f:
+            kwargs = pickle.load(f)
+        initialize_distributed('file://' + store, world, rank,
+                               device=backend_device)
+        result = globals()[target](rank, world, **kwargs)
+        with open(os.path.join(out_dir, 'rank%d.pkl' % rank), 'wb') as f:
+            pickle.dump(result, f)
+    except BaseException:
+        with open(os.path.join(out_dir, 'rank%d.err' % rank), 'w') as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _block(x, sht):
+    """A rank's block of a global numpy field: spectral (complex) by
+    m-block, M padded; grid by latitude rows."""
+    x = torch.as_tensor(np.array(x))
+    if x.is_complex():
+        return sht.pad_spec(x)[..., sht.m_rows, :].contiguous()
+    return x[..., sht.rows, :].contiguous()
+
+
+def sht_rank_results(dsht, grids):
+    """Every transform of a DistributedSHT on the rank's blocks of two
+    global (nz, nlat, nlon) fields, each gathered to the global layout."""
+    from climt_tpu_torch.ops.sht import SphericalHarmonicTransform
+    full = SphericalHarmonicTransform(
+        dsht.nlon, dsht.nlat, dsht.truncation, dtype=torch.float64,
+        device='cpu')
+    a, b = (torch.as_tensor(np.array(g)) for g in grids)
+    sa, sb = (_block(full.analyze(g), dsht) for g in (a, b))
+    ga, gb = _block(a, dsht), _block(b, dsht)
+    rows, ms = dsht.gather_rows, dsht.gather_m
+    out = {'analyze': ms(dsht.analyze(ga)),
+           'synthesize': rows(dsht.synthesize(sa)),
+           'roundtrip': ms(dsht.analyze(dsht.synthesize(sa))),
+           'synthesize_dmu': rows(dsht.synthesize_dmu(sa)),
+           'synthesize_dlambda': rows(dsht.synthesize_dlambda(sa)),
+           'analyze_rank2': ms(dsht.analyze(ga[0])),
+           'synthesize_rank2': rows(dsht.synthesize(sa[0])),
+           'laplacian': ms(dsht.laplacian(sa)),
+           'inverse_laplacian': ms(dsht.inverse_laplacian(sa)),
+           'filter_spec': ms(dsht.filter_spec(sa + 1.0)),
+           'total_wavenumber': ms(dsht.total_wavenumber)}
+    out['gradient'] = tuple(rows(x) for x in dsht.gradient(sa))
+    out['uv_from_vort_div'] = tuple(
+        rows(x) for x in dsht.uv_from_vort_div(sa, sb))
+    out['vort_div_analysis'] = tuple(
+        ms(x) for x in dsht.vort_div_analysis(ga, gb))
+    return {k: tuple(x.numpy() for x in v) if isinstance(v, tuple)
+            else v.numpy() for k, v in out.items()}
+
+
+def parallel_ops_rank(rank, world, sht_cases, fv_case):
+    """The parallel layer on one rank of a CPU world: start-up, meshes,
+    DistributedSHT on each case of ``sht_cases`` ({name: (nlon, nlat,
+    truncation, (grid_a, grid_b))}), and FVAdvection with the latitude
+    halo on ``fv_case`` ((mu, w, nlon, dt), (q, dp, u, v, mdot))."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from climt_tpu_torch.ops.fv_advection import FVAdvection
+    from climt_tpu_torch.ops.sht import SphericalHarmonicTransform
+    from climt_tpu_torch.parallel import (
+        DistributedSHT, grid_sharding, initialize_distributed, make_lat_halo,
+        make_mesh, process_info, replicated)
+    out = {'process_info': process_info(),
+           'initialize_again': initialize_distributed(device='cpu'),
+           'backend': dist.get_backend()}
+    mesh = make_mesh(world, mesh_shape=(world, 1), device='cpu')
+    default = make_mesh(device='cpu')
+    out['default_shape'] = tuple(default.shape)
+    out['placements'] = (tuple(map(str, grid_sharding(mesh))),
+                         tuple(map(str, grid_sharding(mesh, ndim=2))),
+                         tuple(map(str, replicated(mesh))))
+    # DTensor's own shard of a grid field is the rank's block
+    x = torch.arange(2 * 16 * 3, dtype=torch.float64).reshape(2, 16, 3)
+    local = distribute_tensor(x, mesh, grid_sharding(mesh)).to_local()
+    n = 16 // world
+    out['dtensor_block'] = bool(torch.equal(
+        local, x[:, rank * n:(rank + 1) * n]))
+    for name, (nlon, nlat, truncation, grids) in sht_cases.items():
+        dsht = DistributedSHT(SphericalHarmonicTransform(
+            nlon, nlat, truncation, dtype=torch.float64, device='cpu'), mesh)
+        out[name] = sht_rank_results(dsht, grids)
+        out[name]['M_padded'] = dsht.M_padded
+    (mu, w, nlon, dt), fields = fv_case
+    fv = FVAdvection(mu, w, nlon, 6.371e6, dt, dtype=torch.float64,
+                     halo_exchange=make_lat_halo(mesh))
+    grid = DistributedSHT(SphericalHarmonicTransform(
+        nlon, len(mu), dtype=torch.float64, device='cpu'), mesh)
+    q, dp, u, v, mdot = (_block(f, grid) for f in fields)
+    out['fv_advect'] = grid.gather_rows(
+        fv.advect(q, dp, u, v, mdot, dt)).numpy()
+    out['fv_mass'] = fv_mass_pass(fv, q, dp, u, v, mdot, dt)
+    out['fv_bands'] = fv.zonal_bands
+    return out
+
+
+def water_fixer_closure(step_fn, carry):
+    """(target, fixed, unfixed): the water total the fixer aims at over one
+    step from ``carry``, the total after the fix, and before it, each
+    summed over the sphere (all-reduced under a mesh)."""
+    model = step_fn.__self__
+    dycore = model.dycore
+    prev, now, grids, aux, k = carry
+    phys, _, _ = model.physics(grids, aux, k)
+    _, new, _ = dycore.step(prev, now, phys=phys)
+    fixed = model._fix_water(new, prev, phys)
+
+    def half_levels(state):
+        ps = torch.exp(dycore.sht.synthesize(state['lnps']))
+        return dycore._vertical_structures(ps)[0]
+
+    ph_prev, ph_new = half_levels(prev), half_levels(new)
+    src = dycore.sht.global_sum(model.wlat * phys['dq']
+                                * (ph_prev[1:] - ph_prev[:-1]))
+    target = (model._total_water(dycore._q_grid(prev), ph_prev)
+              + 2.0 * model.dt * src)
+    return (float(target),
+            float(model._total_water(dycore._q_grid(fixed), ph_new)),
+            float(model._total_water(torch.clamp(dycore._q_grid(new),
+                                                 min=0.0), ph_new)))
+
+
+def fv_mass_pass(fv, q, dp, u, v, mdot, dt):
+    """(before, after): an FV operator's total tracer mass over one pass
+    of its three sweeps, with the pseudo-density the sweeps carry."""
+    m0 = float(fv.total_mass(q, dp))
+    qdp, dps = fv._zonal(q, dp, u, dt)
+    qdp, dps = fv._meridional(qdp, dps, v, dt)
+    qdp, dps = fv._vertical(qdp, dps, mdot, dt)
+    return m0, float(fv.total_mass(qdp, dps))
+
+
+def mesh_gcm_run(mesh, mode, kw, steps, early=None, dtype=torch.float64,
+                 device='cpu', checks=False):
+    """build_moist_gcm(mesh=mesh) run for ``steps`` steps from seed 0:
+    {'final': the gathered (carry, diagnostics)} and, with ``early``, the
+    gathered carry after that many steps; with ``checks``, FV's mass pass
+    ('fv') or the water fixer's closure ('sl') from the initial carry."""
+    from climt_tpu_torch.convert import carry_to_global
+    from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
+    dycore, init_fn, step_fn, run_fn = build_moist_gcm(
+        mesh=mesh, dtype=dtype, device=device, moisture_advection=mode,
+        **kw)
+    carry = init_fn(0)
+    out = {}
+    if checks and mode == 'fv':
+        # the centre state's moisture on its own winds and mass fluxes
+        u, v, dp, mdot = dycore.diagnose_mass_fluxes(carry[1])
+        out['fv_mass'] = fv_mass_pass(dycore.fv, carry[1]['q'], dp, u, v,
+                                      mdot, 2.0 * dycore.dt)
+    if checks and mode == 'sl':
+        out['water'] = water_fixer_closure(step_fn, carry)
+    done = 0
+    if early:
+        carry, _ = run_fn(carry, early)
+        out['early'] = carry_to_global(carry, dycore.sht)
+        done = early
+    carry, diag = run_fn(carry, steps - done)
+    out['final'] = carry_to_global(carry + (diag,), dycore.sht)
+    return out
+
+
+def parallel_gcm_rank(rank, world, kw, modes, steps, early, starts):
+    """The moist GCM on one rank of a CPU world: each moisture mode on a
+    (world, 1) mesh, the spectral model on the default (2, 2) mesh, and
+    one spectral step from each global carry of ``starts`` ({name: numpy
+    carry}) cut to the rank by ``carry_to_rank``."""
+    from climt_tpu_torch.convert import carry_to_global, carry_to_rank
+    from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
+    from climt_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(world, mesh_shape=(world, 1), device='cpu')
+    out = {mode: mesh_gcm_run(mesh, mode, kw, steps, early, checks=True)
+           for mode in modes}
+    dycore, _, step_fn, _ = build_moist_gcm(
+        mesh=mesh, dtype=torch.float64, device='cpu', **kw)
+    out['from'] = {name: carry_to_global(step_fn(carry_to_rank(
+        carry, dycore.sht, 'cpu', torch.float64))[0], dycore.sht)
+        for name, carry in starts.items()}
+    square = make_mesh(device='cpu')
+    out['spectral_2x2'] = mesh_gcm_run(square, 'spectral', kw, steps)
+    out['mesh_shapes'] = (tuple(mesh.shape), tuple(square.shape))
+    return out
+
+
+def shared_card_rank(rank, world, kw, steps, modes):
+    """The float64 moist GCM on one rank of a world whose ranks share the
+    first card (gloo): {mode: (gathered carry and diagnostics, seconds to
+    build, start and run ``steps`` steps)}, on a (world, 1) mesh."""
+    from climt_tpu_torch.parallel import make_mesh
+    torch.cuda.set_device(0)
+    mesh = make_mesh(world, mesh_shape=(world, 1), device='cuda')
+    out = {}
+    for mode in modes:
+        t0 = time.perf_counter()
+        final = mesh_gcm_run(mesh, mode, kw, steps, device='cuda')['final']
+        out[mode] = (final, time.perf_counter() - t0)
+    return out
