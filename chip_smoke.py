@@ -99,7 +99,25 @@ Phases, each of which fails loudly (no exception is turned into exit 0):
      ranks on one GPU), the moist GCM at 64x32x10 float64, 7 steps with
      spectral moisture (gloo refuses the FV halo's CUDA point-to-point
      sends), each rank's gathered carry within 1e-9 of max of the
-     single-device card run.
+     single-device card run;
+ 21. the replicated-spectral layout (parallel.shard_model_state): (a) one
+     NCCL rank, the T85 moist GCM of phase 6 built without a mesh, its
+     carry placed on make_mesh(1) with shard_lon False and True and
+     stepped by the model's own step_fn: one step against the
+     single-device step within phase 20's float32 limits, then windows of
+     12 steps (one device, replicated, replicated with shard_lon,
+     m-sharded, one device) with exactly 24 kernel-B and 4 kernel-A
+     launches per refresh, the all_reduce and all_gather calls per step,
+     median s/step of each model, and the launches and kernel time of a
+     refresh and a plain step of each replicated layout; (b) two spawned
+     gloo ranks sharing the card, the moist GCM at 64x32x10 float64 with
+     spectral and FV moisture (FV gathers its fields under shard_lon),
+     on meshes (2, 1) and (1, 2) with shard_lon=True, 7 steps, each
+     rank's gathered carry within 1e-9 of max of the single-device card
+     run;
+ 22. examples/grey_gcm.py (32x16x8, 2 steps) and
+     examples/radiative_heating_rrtmg_clouds.py with verbose=True on the
+     card: their printouts read card fields with np.asarray.
 The examples run through tests/torch_helpers.py:port_example, which the
 CPU tests use too.
 The line before the last is a JSON object with each kernel's launches,
@@ -180,6 +198,17 @@ MESH_AUX_TOL = dict(rtol=5e-4, atol=5e-3)
 SHARED_CARD = dict(nlon=64, nlat=32, nz=10, rad_every=6, rad_col_chunk=2048)
 SHARED_CARD_MODES = ('spectral',)
 SHARED_CARD_TOL = 1e-9
+# phase 21 (b): two ranks sharing the card in the replicated-spectral
+# layout, against one device; both meshes shard longitude, so FV moisture
+# gathers its fields and sends nothing point to point
+LAYOUT_CARD = dict(nlon=64, nlat=32, nz=10, rad_every=6, rad_col_chunk=2048)
+LAYOUT_CARD_MESHES = (((2, 1), True), ((1, 2), True))
+LAYOUT_CARD_MODES = ('spectral', 'fv')
+LAYOUT_CARD_TOL = 1e-9
+# phase 22: the examples run with verbose=True, and their keyword
+# arguments (tests/test_examples.py's sizes)
+VERBOSE_EXAMPLES = (('grey_gcm', dict(n_steps=2, nx=32, ny=16, nz=8)),
+                    ('radiative_heating_rrtmg_clouds', {}))
 # phase 17's card-against-CPU size
 GRID_SMALL = dict(nlon=64, nlat=32, nz=10, rad_every=6, rad_col_chunk=2048)
 # phase 18: the two registered tracers, a blob and a uniform field
@@ -1618,6 +1647,214 @@ def mesh_shared_card_phase(dev, card):
                   spawn_s, card))
 
 
+def layout_world_of_one_phase(dev, card, counters):
+    """Phase 21 (a): one NCCL rank in this process, the T85 moist GCM of
+    phase 6 built without a mesh (spectral moisture, float32), its carry
+    placed by shard_model_state on make_mesh(1), with shard_lon False and
+    True. For each layout: one step of the placed carry from seed 0
+    against the single-device step within MESH_FIELD_TOL (the now state in
+    grid space) and MESH_AUX_TOL (aux). Then windows of T85_STEPS steps of
+    the one-device model, the two replicated layouts, the m-sharded model
+    (build_moist_gcm(mesh=...)) and the one-device model again, timed step
+    by step, each going on from its own carry, with both kernels' launches
+    and the layout's all_reduce and all_gather calls set to 0 before each
+    window and read after (exactly 24 B and 4 A launches per refresh in
+    the replicated windows). Last, the kernel launches and kernel time of
+    one refresh and one plain step of each replicated layout, as
+    profile_step counts them (phase 20 counts the one-device model's). The
+    process group is destroyed at the end. Returns {kernel: launches} of
+    the replicated windows."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from climt_tpu_torch.convert import carry_to_global, carry_to_numpy
+    from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
+    from climt_tpu_torch.parallel import rep_sht, shard_model_state
+    from climt_tpu_torch.profile_step import profile_one, world_of_one
+
+    total = {k: 0 for k in counters}
+    refreshes = sum(1 for k in range(T85_STEPS) if k % T85['rad_every'] == 0)
+    layouts = {'replicated': False, 'replicated shard_lon': True}
+    with world_of_one() as mesh:
+        if dist.get_world_size() != 1 or dist.get_backend() != 'nccl':
+            fail('phase 21: a world of %d %s ranks, not one NCCL rank' % (
+                dist.get_world_size(), dist.get_backend()))
+        dycore, init_fn, step_fn, _ = build_moist_gcm(
+            dtype=torch.float32, device=dev, **T85)
+        _, init_m, step_m, _ = build_moist_gcm(
+            mesh=mesh, dtype=torch.float32, device=dev, **T85)
+        ref = carry_to_numpy(step_fn(init_fn(0))[0])
+        for label, shard_lon in layouts.items():
+            one = carry_to_global(step_fn(shard_model_state(
+                mesh, *init_fn(0), shard_lon=shard_lon))[0])
+            worst = {}
+            for name, b in ref[1].items():
+                a = one[1][name]
+                if np.iscomplexobj(b):
+                    a, b = (dycore.sht.synthesize(torch.as_tensor(
+                        x, device=dev)).cpu().numpy() for x in (a, b))
+                worst[name] = check_close(a, b, MESH_FIELD_TOL,
+                                          'phase 21 %s %s' % (label,
+                                                              name))
+            for name, b in ref[3].items():
+                worst['aux ' + name] = check_close(
+                    one[3][name], b, MESH_AUX_TOL,
+                    'phase 21 %s aux %s' % (label, name))
+            if int(one[4]) != int(ref[4]):
+                fail('phase 21 %s: step index %s, not %s' % (
+                    label, one[4], ref[4]))
+            phase(21, 'world of one NCCL rank, T85 f32 %s, one step '
+                  'against the single-device step: largest difference '
+                  'over its limit %.3g (%s; limits rtol %g atol %g, aux '
+                  'rtol %g atol %g)' % (
+                      label, max(worst.values()),
+                      max(worst, key=worst.get),
+                      MESH_FIELD_TOL['rtol'], MESH_FIELD_TOL['atol'],
+                      MESH_AUX_TOL['rtol'], MESH_AUX_TOL['atol']))
+        del ref, one
+
+        carries = {'one device': init_fn(0), 'm-sharded': init_m(0)}
+        steps = {'one device': step_fn, 'm-sharded': step_m}
+        for label, shard_lon in layouts.items():
+            carries[label] = shard_model_state(mesh, *init_fn(0),
+                                               shard_lon=shard_lon)
+            steps[label] = step_fn
+        seconds = {kind: [] for kind in carries}
+        windows = []
+        for kind in ('one device',) + tuple(layouts) + ('m-sharded',
+                                                         'one device'):
+            torch.cuda.synchronize()
+            for counter in counters.values():
+                counter.launches = 0
+            rep_sht.all_reduce_sum.calls = 0
+            rep_sht.all_gather_cat.calls = 0
+            carries[kind], diag, step_s = timed_steps(
+                steps[kind], carries[kind], T85_STEPS, torch)
+            seconds[kind] += step_s
+            windows.append('%s %.4f' % (kind, median(step_s)))
+            if kind not in layouts:
+                continue
+            launches = {k: c.launches for k, c in counters.items()}
+            if launches != {'B': 24 * refreshes, 'A': 4 * refreshes}:
+                fail('phase 21 %s: kernel launches A=%d B=%d in %d '
+                     'refreshes, not 4 and 24 each' % (
+                         kind, launches['A'], launches['B'],
+                         refreshes))
+            for k in total:
+                total[k] += launches[k]
+            T = dycore.sht.synthesize(carries[kind][1]['T'].to_local())
+            for key, val in [('T', T)] + [
+                    (k, v.to_local()) for k, v in diag.items()]:
+                if not bool(torch.isfinite(val).all()):
+                    fail('phase 21 %s: NaN or inf in %s' % (kind, key))
+            if not 150.0 < float(T.min()) < float(T.max()) < 350.0:
+                fail('phase 21 %s: T in [%g, %g]' % (
+                    kind, float(T.min()), float(T.max())))
+            phase(21, 'T85 f32 %s: per refresh kernel B %g, kernel A '
+                  '%g; per step %g all_reduce and %g all_gather calls; '
+                  'on %s' % (
+                      kind, launches['B'] / refreshes,
+                      launches['A'] / refreshes,
+                      rep_sht.all_reduce_sum.calls / T85_STEPS,
+                      rep_sht.all_gather_cat.calls / T85_STEPS, card))
+        phase(21, 'T85 f32, %d-step windows (median s/step: %s): '
+              'medians over the windows %s; on %s' % (
+                  T85_STEPS, ', '.join(windows), ', '.join(
+                      '%s %.4f' % (kind, median(s))
+                      for kind, s in seconds.items()), card))
+        # k = T85_STEPS is a refresh step, the next a plain one; phase
+        # 20 traces the one-device model in the same process
+        for kind in layouts:
+            carry, refresh_s, refresh_busy, refresh, _ = profile_one(
+                step_fn, carries[kind])
+            _, plain_s, plain_busy, plain, _ = profile_one(step_fn, carry)
+            phase(21, 'T85 f32 %s model: %d kernel launches per refresh '
+                  'step, %d per plain step (traced walls %.4f, %.4f s; '
+                  'kernel time %.4f, %.4f s); on %s' % (
+                      kind, refresh, plain, refresh_s, plain_s,
+                      refresh_busy, plain_busy, card))
+        del carries, carry, diag, T
+        torch.cuda.empty_cache()
+    return total
+
+
+def layout_shared_card_phase(dev, card):
+    """Phase 21 (b): two spawned ranks on the one card with the gloo
+    backend, the moist GCM at LAYOUT_CARD float64 built without a mesh,
+    its carry placed by shard_model_state on each mesh of
+    LAYOUT_CARD_MESHES, with each mode of LAYOUT_CARD_MODES, 7 steps;
+    each rank's gathered carry and diagnostics against the single-device
+    card run within LAYOUT_CARD_TOL of max."""
+    import tempfile
+
+    import torch
+    from climt_tpu_torch.convert import carry_to_numpy
+    from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
+    from torch_helpers import rel_err, spawn_ranks
+
+    refs, single_s = {}, {}
+    for mode in LAYOUT_CARD_MODES:
+        t0 = time.perf_counter()
+        _, init_fn, _, run_fn = build_moist_gcm(
+            dtype=torch.float64, device=dev, moisture_advection=mode,
+            **LAYOUT_CARD)
+        carry, diag = run_fn(init_fn(0), 7)
+        refs[mode] = carry_to_numpy(carry + (diag,))
+        single_s[mode] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks('layout_shared_card_rank', 2, tmp,
+                            timeout=600.0, kw=LAYOUT_CARD, steps=7,
+                            modes=LAYOUT_CARD_MODES,
+                            meshes=LAYOUT_CARD_MESHES)
+        spawn_s = time.perf_counter() - t0
+    for shape, shard_lon in LAYOUT_CARD_MESHES:
+        for mode in LAYOUT_CARD_MODES:
+            key, worst = (shape, shard_lon, mode), 0.0
+            for rank, out in enumerate(ranks):
+                got, _ = out[key]
+                for i in (0, 1, 2, 3, 5):
+                    for name, b in refs[mode][i].items():
+                        err = rel_err(got[i][name], b)
+                        if not err <= LAYOUT_CARD_TOL:
+                            fail('phase 21 shared card %s %r rank %d: %s %s '
+                                 'differs by %.3g of max' % (
+                                     shape, mode, rank, i, name, err))
+                        worst = max(worst, err)
+            phase(21, 'two gloo ranks on one card, mesh %s shard_lon=%s, '
+                  '%dx%dx%d f64 %r, 7 steps: largest difference from the '
+                  'single-device card run %.3g of max (limit %g); build, '
+                  'place and 7 steps %.2f s per rank (single device %.2f '
+                  's); the spawn %.1f s in all; on %s' % (
+                      shape, shard_lon, LAYOUT_CARD['nlon'],
+                      LAYOUT_CARD['nlat'], LAYOUT_CARD['nz'], mode, worst,
+                      LAYOUT_CARD_TOL, max(out[key][1] for out in ranks),
+                      single_s[mode], spawn_s, card))
+
+
+def verbose_examples_phase(card):
+    """Phase 22: each example of VERBOSE_EXAMPLES as written, on the card,
+    with verbose=True: its printout reads card fields through np.asarray
+    (a DataArray's HostTensor values).  Checks the printed lines."""
+    import contextlib
+    import io
+
+    from torch_helpers import port_example
+
+    for name, kw in VERBOSE_EXAMPLES:
+        main, _ = port_example(name)
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            main(verbose=True, **kw)
+        lines = printed.getvalue().splitlines()
+        if not lines or any('nan' in line.lower() for line in lines):
+            fail('phase 22 %s: printed %r' % (name, lines))
+        phase(22, '%s %s verbose=True on the card, %.2f s: %d lines, the '
+              'last %r; on %s' % (name, kw, time.perf_counter() - t0,
+                                  len(lines), lines[-1], card))
+
+
 def check_close(a, b, tol, label):
     """max of |a - b| / (atol + rtol |b|), failing above 1."""
     import numpy as np
@@ -2007,7 +2244,17 @@ def main():
     torch.cuda.empty_cache()
     mesh_shared_card_phase(dev, card)
 
-    # the float32 entries count the T85 runs of phases 6, 17 and 20
+    # ---- phase 21: the replicated-spectral layout ----------------------
+    for kernel, count in layout_world_of_one_phase(dev, card,
+                                                   counters).items():
+        launches[kernel] += count
+    torch.cuda.empty_cache()
+    layout_shared_card_phase(dev, card)
+
+    # ---- phase 22: examples printing card fields ------------------------
+    verbose_examples_phase(card)
+
+    # the float32 entries count the T85 runs of phases 6, 17, 20 and 21
     kernels = [
         dict(name='mix_groups_cuda', route='cuda',
              source='climt_tpu_torch/csrc/mix_rows.cu',

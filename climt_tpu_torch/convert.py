@@ -20,14 +20,21 @@ fetched with ``np.asarray``, whose M is already padded), and
 ``carry_to_global`` gathers the ranks' carries back into the
 single-device layout: the port's counterpart of ``np.asarray`` on a
 sharded ``jax.Array``.
+
+A carry in the replicated-spectral layout (``parallel.shard_model_state``
+of a model built without a mesh) holds DTensors: ``carry_to_layout``
+places a global numpy carry so, and ``carry_to_global`` gathers each
+DTensor's global tensor (its ``full_tensor()``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .ops.sht import complex_dtype
+from .parallel.mesh import gather_global, shard_model_state
 
 
 def _to_tensor(x, device, dtype):
@@ -71,14 +78,27 @@ def carry_to_rank(carry_np, sht, device, dtype):
         device, dtype)
 
 
-def carry_to_global(carry, sht):
+def carry_to_layout(carry_np, mesh, device, dtype, shard_lon=False):
+    """A global carry of numpy arrays -> this rank's carry in the
+    replicated-spectral layout of ``mesh``, as ``shard_model_state``
+    places a model's own carry (spectral fields whole, grid fields cut
+    into the rank's block, DTensors)."""
+    return shard_model_state(mesh, *carry_from_numpy(carry_np, device, dtype),
+                             shard_lon=shard_lon)
+
+
+def carry_to_global(carry, sht=None):
     """The ranks' carries -> the global carry of numpy arrays, in the
     single-device layout (M unpadded), on every rank: each spectral field
-    gathered over the 'lat' group by m-block, each grid field by rows.
-    Every rank of the group must call it.  Dicts of diagnostics pass as
-    one-element tuples."""
+    gathered over the 'lat' group by m-block, each grid field by rows, or
+    for a DTensor carry (``sht`` not needed) each tensor's global value
+    (``parallel.mesh.gather_global``). Every rank of the group must call
+    it. Dicts of diagnostics pass as one-element tuples."""
     def glob(v):
-        v = sht.gather_m(v) if v.is_complex() else sht.gather_rows(v)
+        if isinstance(v, DTensor):
+            v = gather_global(v)
+        else:
+            v = sht.gather_m(v) if v.is_complex() else sht.gather_rows(v)
         return v.detach().cpu().numpy()
 
     return tuple({name: glob(v) for name, v in part.items()}

@@ -6,6 +6,11 @@ components return tensors on their device, so after the first component
 call a state holds both.  Every operation dispatches on the wrapped
 array's kind, and where a numpy array meets a tensor, ``common_backend``
 moves the numpy side to the tensor's device and floating dtype.
+
+A tensor held as ``DataArray.values`` is a ``HostTensor``: the same
+tensor on the same device, which ``np.asarray`` copies to the host
+wherever it lives (as ``np.asarray`` of a ``jax.Array`` does), and on
+which every torch operation returns a plain tensor.
 """
 
 from __future__ import annotations
@@ -32,10 +37,29 @@ def common_backend(*values):
         if isinstance(v, (np.ndarray, np.generic)) else v for v in values)
 
 
+class HostTensor(torch.Tensor):
+    """A tensor that numpy reads on any device: ``np.asarray`` copies it
+    to the host.  Every torch operation on it returns a plain tensor (the
+    subclass goes no further than the ``.values`` that hold it), and an
+    in-place write (``values[:] = ...``) writes the tensor where it
+    lives."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        with torch._C.DisableTorchFunctionSubclass():
+            return func(*args, **(kwargs or {}))
+
+    def __array__(self, dtype=None, copy=None):
+        return np.asarray(to_numpy(self.as_subclass(torch.Tensor)),
+                          dtype=dtype)
+
+
 def as_tensor(values, device, dtype=None):
-    """A tensor on ``device`` of a numpy array (any strides, read-only
-    views included), scalar or tensor."""
-    if not isinstance(values, torch.Tensor):
+    """A plain tensor on ``device`` of a numpy array (any strides,
+    read-only views included), scalar or tensor."""
+    if isinstance(values, HostTensor):
+        values = values.as_subclass(torch.Tensor)
+    elif not isinstance(values, torch.Tensor):
         values = np.ascontiguousarray(values)
     return torch.as_tensor(values, dtype=dtype, device=device)
 
@@ -49,7 +73,18 @@ def to_numpy(values):
 
 
 class DataArray:
-    __slots__ = ('values', 'dims', 'attrs', 'name')
+    __slots__ = ('_values', 'dims', 'attrs', 'name')
+
+    @property
+    def values(self):
+        """The numpy array or tensor (a ``HostTensor``) of the field."""
+        return self._values
+
+    @values.setter
+    def values(self, values):
+        if type(values) is torch.Tensor:
+            values = values.as_subclass(HostTensor)
+        self._values = values
 
     def __init__(self, values, dims=None, attrs=None, name=None):
         if isinstance(values, DataArray):

@@ -16,7 +16,15 @@ matrices, the radiation geometry, the ozone profile) follow ``.to()``.
 Under a mesh (``build_moist_gcm(mesh=...)``) each rank runs the model on
 its latitude block: the column physics and radiation on its own columns,
 the dynamics through the distributed transform, and the water fixer's
-two global sums all-reduced over the mesh's 'lat' group.
+global sums all-reduced over the mesh's 'lat' group.
+
+A carry placed by ``parallel.shard_model_state`` (DTensors of the
+replicated-spectral layout) is stepped by the same ``step``/``run``: they
+build once per (mesh, ``shard_lon``) a rank-local twin of the model on
+``parallel.ReplicatedSHT``, run it on the carry's local blocks (the
+physics on the rank's latitude x longitude block, the spectral part whole
+and identical on every rank), and wrap the results with the same
+placements.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from ..components.simple_physics import simple_physics_step
 from ..core.grid import hybrid_sigma_pressure_coefficients
 from ..core.util import (bolton_q_sat, get_interface_values,
                          resolve_device)
+from ..parallel.mesh import carry_layout, unwrap_carry, wrap_carry
 from .spectral_dynamics import SpectralDycore
 
 _G = 9.80665
@@ -78,18 +87,30 @@ class MoistGCM(nn.Module):
     def __init__(self, nlon, nlat, nz, timestep, number_of_damped_levels,
                  ocean_depth, dtype, rad_every, rad_col_chunk,
                  conserve_water, device='cuda',
-                 moisture_advection='spectral', mesh=None):
+                 moisture_advection='spectral', mesh=None,
+                 layout='m_sharded', shard_lon=False):
         super().__init__()
         device = resolve_device(device)
+        # the arguments a rank-local twin is built with (``_layout_twin``)
+        self._args = dict(
+            nlon=nlon, nlat=nlat, nz=nz, timestep=timestep,
+            number_of_damped_levels=number_of_damped_levels,
+            ocean_depth=ocean_depth, dtype=dtype, rad_every=rad_every,
+            rad_col_chunk=rad_col_chunk, conserve_water=conserve_water,
+            device=device, moisture_advection=moisture_advection)
+        self._twins = {}
         ak, bk = hybrid_sigma_pressure_coefficients(nz + 1, 1e5, 20.0)
         self.dycore = SpectralDycore(
             nlon, nlat, nz, ak, bk, timestep=timestep,
             number_of_damped_levels=number_of_damped_levels, dtype=dtype,
-            device=device, moisture_advection=moisture_advection, mesh=mesh)
-        # the latitude rows this model holds: all, or its mesh block
-        self.rows = self.dycore.sht.rows
-        self.nlon, self.nz = nlon, nz
+            device=device, moisture_advection=moisture_advection, mesh=mesh,
+            layout=layout, shard_lon=shard_lon)
+        # the latitude rows and longitude columns this model holds: all,
+        # or its mesh block
+        self.rows, self.cols = self.dycore.sht.rows, self.dycore.sht.cols
+        self.nz = nz
         self.nlat = self.dycore.sht.mu[self.rows].shape[0]
+        self.nlon = len(range(nlon)[self.cols])
         self.dt = timestep
         self.dtype = dtype
         self.ocean_depth = ocean_depth
@@ -102,13 +123,15 @@ class MoistGCM(nn.Module):
                 np.ascontiguousarray(arr), dtype=dtype, device=device))
 
         # radiation geometry (moist_gcm.py:65-73): equinox diurnal cycle
+        # on the rank's rows and columns: the diurnal cycle follows each
+        # column's own longitude
         mu = self.dycore.sht.mu[self.rows]
-        ncol = self.nlat * nlon
+        ncol = self.nlat * self.nlon
         lat = np.arcsin(mu)
-        lon = 2.0 * np.pi * np.arange(nlon) / nlon
+        lon = (2.0 * np.pi * np.arange(nlon) / nlon)[self.cols]
         buf('rad_coslat', (np.cos(lat)[:, None]
-                           * np.ones((1, nlon))).reshape(-1))
-        buf('rad_lon', np.broadcast_to(lon[None, :], (self.nlat, nlon))
+                           * np.ones((1, self.nlon))).reshape(-1))
+        buf('rad_lon', np.broadcast_to(lon[None, :], (self.nlat, self.nlon))
             .reshape(-1))
         self.solar_config = solar_variability(-1, 0.0)
         self.sw_scale = _SOLAR_CONSTANT / 1368.22    # rrsw scon
@@ -270,10 +293,10 @@ class MoistGCM(nn.Module):
     def init(self, seed=0):
         """Initial carry (prev, now, grids, aux, 0) from a numpy seed,
         exactly as moist_gcm.py:347-367 builds it.  The global fields are
-        drawn and a mesh rank keeps its rows, so one seed gives one model
+        drawn and a mesh rank keeps its block, so one seed gives one model
         on any number of ranks."""
-        nz, nlon = self.nz, self.nlon
-        nlat = self.dycore.sht.nlat
+        nz = self.nz
+        nlat, nlon = self.dycore.sht.nlat, self.dycore.sht.nlon
         dycore = self.dycore
         rng = np.random.RandomState(seed)
         shape = (nz, nlat, nlon)
@@ -289,9 +312,9 @@ class MoistGCM(nn.Module):
         dev = self.wlat.device
 
         def t(x):
-            """The model's rows of a global (..., nlat, nlon) field."""
+            """The model's block of a global (..., nlat, nlon) field."""
             return torch.as_tensor(np.ascontiguousarray(
-                x[..., self.rows, :]), dtype=self.dtype, device=dev)
+                x[..., self.rows, self.cols]), dtype=self.dtype, device=dev)
 
         zeros = t(np.zeros(shape))
         spec = dycore.spectral_state_from_grid(zeros, zeros, t(T), t(q),
@@ -317,22 +340,45 @@ class MoistGCM(nn.Module):
         q_prev = self.dycore._q_grid(prev)
         ps_prev = torch.exp(sht.synthesize(prev['lnps']))
         ph_prev, _, _, _ = self.dycore._vertical_structures(ps_prev)
-        src = sht.global_sum(self.wlat * phys['dq']
-                             * (ph_prev[1:] - ph_prev[:-1]))
-        target = self._total_water(q_prev, ph_prev) + 2.0 * self.dt * src
+        dp_prev = ph_prev[1:] - ph_prev[:-1]
         q_new = self.dycore._q_grid(new)
         ps_new = torch.exp(sht.synthesize(new['lnps']))
         ph_new, _, _, _ = self.dycore._vertical_structures(ps_new)
         q_pos = torch.clamp(q_new, min=0.0)
-        tw_new = self._total_water(q_pos, ph_new)
+        # the three sums of _total_water's form, one reduction under a mesh
+        src, tw_prev, tw_new = sht.global_sums(
+            self.wlat * phys['dq'] * dp_prev, self.wlat * q_prev * dp_prev,
+            self.wlat * q_pos * (ph_new[1:] - ph_new[:-1]))
+        target = tw_prev + 2.0 * self.dt * src
         scale = torch.where(tw_new > 0.0,
                             torch.clamp(target, min=0.0) / tw_new, 1.0)
         q_fixed = q_pos * scale
         return dict(new, q=q_fixed if self.dycore.fv is not None
                     else sht.analyze(q_fixed))
 
+    def _layout_twin(self, carry):
+        """The rank-local twin of this model for a DTensor carry's mesh and
+        layout, built at its first carry and kept; its surface geopotential
+        is this model's block."""
+        if self.dycore.sht.rows != slice(None):
+            raise ValueError('a carry of shard_model_state is stepped by '
+                             'the model built without a mesh')
+        mesh, shard_lon = carry_layout(carry)
+        key = (id(mesh), shard_lon)
+        if key not in self._twins:
+            self._twins[key] = (mesh, MoistGCM(
+                mesh=mesh, layout='replicated', shard_lon=shard_lon,
+                **self._args))
+        twin = self._twins[key][1]
+        twin.dycore.phi_s = self.dycore.phi_s[twin.rows, twin.cols]
+        return twin, mesh, shard_lon
+
     def step(self, carry, _=None):
-        """One model step: carry -> (carry, diagnostics) (:404)."""
+        """One model step: carry -> (carry, diagnostics) (:404).  A carry
+        of ``shard_model_state`` is stepped by the rank-local twin and
+        comes back in its layout, the diagnostics as grid fields."""
+        if carry_layout(carry) is not None:
+            return self._run_placed(carry, 1)
         prev, now, prev_grids, aux, k = carry
         phys, aux_new, diag = self.physics(prev_grids, aux, k)
         filtered, new, now_grids = self.dycore.step(prev, now, phys=phys)
@@ -342,10 +388,22 @@ class MoistGCM(nn.Module):
 
     def run(self, carry, n_steps):
         """n_steps model steps; returns (carry, last diagnostics) (:412)."""
+        if carry_layout(carry) is not None:
+            return self._run_placed(carry, n_steps)
         diag = None
         for _ in range(n_steps):
             carry, diag = self.step(carry)
         return carry, diag
+
+    def _run_placed(self, carry, n_steps):
+        """n_steps of the twin on a DTensor carry's blocks, unwrapped once
+        and wrapped once."""
+        twin, mesh, shard_lon = self._layout_twin(carry)
+        local, diag = twin.run(unwrap_carry(carry), n_steps)
+        if diag is None:
+            return wrap_carry(mesh, local, shard_lon), None
+        out = wrap_carry(mesh, local + (diag,), shard_lon)
+        return out[:5], out[5]
 
 
 def build_moist_gcm(nlon=128, nlat=64, nz=28, timestep=600.0,
@@ -373,7 +431,12 @@ def build_moist_gcm(nlon=128, nlat=64, nz=28, timestep=600.0,
     state m-sharded through ``parallel.DistributedSHT``.  The carry then
     holds the rank's blocks (``convert.carry_to_rank`` and
     ``convert.carry_to_global`` move a global carry in and out), and the
-    diagnostics the rank's rows."""
+    diagnostics the rank's rows.
+
+    A model built without a mesh also steps the replicated-spectral
+    layout, JAX's ``shard_model_state`` placement:
+    ``carry = parallel.shard_model_state(mesh, *init_fn(),
+    shard_lon=...)``, then ``run_fn(carry, n)`` (see ``MoistGCM``)."""
     if mesh is not None and not isinstance(mesh, DeviceMesh):
         raise TypeError(
             'mesh: expected a torch.distributed.device_mesh.DeviceMesh '

@@ -8,7 +8,11 @@ fields are (nz, nlat, nlon) top-down, spectral fields complex
 (advective form), or with ``moisture_advection='fv'``/``'sl'`` a grid
 field moved by ``ops/fv_advection.py`` or ``ops/sl_advection.py``.  With
 ``mesh=`` the transforms go through ``parallel.DistributedSHT``: each rank
-holds a latitude block of the grid and an m-block of the spectral state.
+holds a latitude block of the grid and an m-block of the spectral state;
+with ``mesh=`` and ``layout='replicated'`` through
+``parallel.ReplicatedSHT``: each rank holds a latitude (or latitude x
+longitude) block of the grid and the whole spectral state, the layout of
+``parallel.shard_model_state``.
 """
 
 from __future__ import annotations
@@ -25,15 +29,20 @@ from ..ops.sht import SphericalHarmonicTransform
 from ..ops.sl_advection import SLAdvection
 from ..parallel.dist_sht import DistributedSHT
 from ..parallel.halo import make_lat_halo
+from ..parallel.rep_sht import ReplicatedSHT
+
+LAYOUTS = ('m_sharded', 'replicated')
 
 
 class GatheredTransport(nn.Module):
-    """A transport operator of the global grid run under a latitude-sharded
-    mesh: ``advect`` all-gathers its five fields over the 'lat' group,
-    calls the operator on the whole grid, and keeps the rank's rows.  The
-    dycore wraps ``SLAdvection`` in it, whose departure points may reach
-    any row.  Every rank repeats the global call, which is cheap: 3.3-5.5
-    ms a T85 call on an H100 (PERF.md section 6)."""
+    """A transport operator of the global grid run under a mesh:
+    ``advect`` all-gathers its five fields (one gather per sharded axis,
+    the fields batched), calls the operator on the whole grid, and keeps
+    the rank's block.  The dycore wraps ``SLAdvection`` in it, whose
+    departure points may reach any row, and, under a longitude-sharded
+    layout, ``FVAdvection``, whose zonal substep counts are per whole
+    row.  Every rank repeats the global call, which is cheap: 3.3-5.5 ms a
+    T85 call on an H100 (PERF.md section 6)."""
 
     def __init__(self, op, sht):
         super().__init__()
@@ -41,8 +50,13 @@ class GatheredTransport(nn.Module):
         self.sht = sht
 
     def advect(self, q, dp, u, v, mdot, dt):
-        full = [self.sht.gather_rows(x) for x in (q, dp, u, v, mdot)]
-        return self.op.advect(*full, dt)[..., self.sht.rows, :]
+        xs = (q, dp, u, v, mdot)
+        flat = [x.reshape((-1,) + tuple(x.shape[-2:])) for x in xs]
+        full = self.sht.gather_rows(torch.cat(flat, dim=0))
+        full = [part.reshape(tuple(x.shape[:-2]) + tuple(part.shape[-2:]))
+                for x, part in zip(xs, torch.split(
+                    full, [f.shape[0] for f in flat], dim=0))]
+        return self.op.advect(*full, dt)[..., self.sht.rows, self.sht.cols]
 
 
 class SpectralDycore(nn.Module):
@@ -61,7 +75,8 @@ class SpectralDycore(nn.Module):
                  radius=6.371e6, omega=7.292e-5,
                  dtype=torch.float64, device='cuda',
                  moisture_advection='spectral', fv_max_wind=120.0,
-                 mesh=None, dist_axis='lat'):
+                 mesh=None, dist_axis='lat', layout='m_sharded',
+                 shard_lon=False):
         """``ak``, ``bk``: bottom-up interface coefficients with
         p_interface = ak + bk (ps - p_top), as in the JAX constructor
         (spectral_dynamics.py:43).
@@ -82,16 +97,35 @@ class SpectralDycore(nn.Module):
         whole.  FV moisture exchanges one-row halos
         (``parallel.make_lat_halo``); SL runs whole on every rank
         (``GatheredTransport``).  A 'lon' extent above 1 repeats each
-        latitude block on every 'lon' rank."""
+        latitude block on every 'lon' rank.
+
+        ``layout='replicated'`` (with ``mesh``, whose axes are 'lat' and
+        'lon'): the transforms go through ``parallel.ReplicatedSHT``
+        instead.  Every spectral field and per-(m, n) constant is whole,
+        and the spectral part of the step runs identically on every rank;
+        grid fields are the rank's block (nz, nlat/L, nlon), or with
+        ``shard_lon`` (nz, nlat/L, nlon/K), and the per-latitude and
+        per-longitude constants are cut to match.  FV moisture exchanges
+        latitude halos on a lat-only layout and runs whole on every rank
+        under ``shard_lon`` (``GatheredTransport``), as SL always does."""
         super().__init__()
         device = resolve_device(device)
+        if layout not in LAYOUTS:
+            raise ValueError('layout %r: expected one of %s' % (layout,
+                                                               LAYOUTS))
+        if shard_lon and (mesh is None or layout != 'replicated'):
+            raise ValueError("shard_lon needs a mesh and "
+                             "layout='replicated'")
         self.nlon, self.nlat, self.nz = nlon, nlat, nz
         self.sht = SphericalHarmonicTransform(
             nlon, nlat, truncation, radius=radius, dtype=dtype,
             device=device)
-        if mesh is not None:
+        if mesh is not None and layout == 'replicated':
+            self.sht = ReplicatedSHT(self.sht, mesh, shard_lon=shard_lon)
+        elif mesh is not None:
             self.sht = DistributedSHT(self.sht, mesh, axis=dist_axis)
-        rows = self.sht.rows
+        rows, cols = self.sht.rows, self.sht.cols
+        ncol = len(range(nlon)[cols])
         T = self.sht.truncation
         self.dtype = dtype
         self.rd, self.cpd, self.g = rd, cpd, g
@@ -119,7 +153,7 @@ class SpectralDycore(nn.Module):
         self.register_buffer('dB', torch.diff(self.B))
 
         mu = self.sht.mu[rows]
-        buf('f_grid', (2.0 * omega * mu)[:, None] * np.ones((1, nlon)))
+        buf('f_grid', (2.0 * omega * mu)[:, None] * np.ones((1, ncol)))
         buf('coslat', np.sqrt(1.0 - mu ** 2))
 
         # reference-state vertical structure for the semi-implicit solve
@@ -170,7 +204,7 @@ class SpectralDycore(nn.Module):
         m_buf('hyperdiff_factor', 1.0 / (1.0 + 2.0 * timestep * k2d))
         m_buf('hyperdiff_factor_start', 1.0 / (1.0 + timestep * k2d))
 
-        buf('phi_s', np.zeros((mu.shape[0], nlon)))
+        buf('phi_s', np.zeros((mu.shape[0], ncol)))
 
         damp = np.zeros(nz)
         for lev in range(number_of_damped_levels):
@@ -183,11 +217,14 @@ class SpectralDycore(nn.Module):
         self.moisture_advection = moisture_advection
         self.fv = None
         if moisture_advection == 'fv':
+            halo = mesh is not None and not shard_lon
             self.fv = FVAdvection(
                 self.sht.mu, self.sht.weights, nlon, radius,
                 dt_max=2.0 * timestep, dtype=dtype, max_wind=fv_max_wind,
-                device=device, halo_exchange=None if mesh is None
-                else make_lat_halo(mesh, dist_axis))
+                device=device, halo_exchange=make_lat_halo(mesh, dist_axis)
+                if halo else None)
+            if shard_lon:
+                self.fv = GatheredTransport(self.fv, self.sht)
         elif moisture_advection == 'sl':
             self.fv = SLAdvection(
                 self.sht.mu, self.sht.weights, nlon, radius,
@@ -197,20 +234,21 @@ class SpectralDycore(nn.Module):
 
     def set_surface_geopotential(self, phi_s_grid):
         """Set the (nlat, nlon) surface geopotential field (:238); under a
-        mesh, from the global field, of which the rank keeps its rows."""
+        mesh, from the global field, of which the rank keeps its block."""
         self.phi_s = torch.as_tensor(
-            phi_s_grid, dtype=self.dtype,
-            device=self.phi_s.device)[self.sht.rows].contiguous()
+            phi_s_grid, dtype=self.dtype, device=self.phi_s.device)[
+                self.sht.rows, self.sht.cols].contiguous()
 
     # ------------------------------------------------------------------
     def spectral_state_from_grid(self, u, v, T, q, lnps):
         """Grid (nz, nlat, nlon) top-down fields -> spectral state dict."""
         U = u * self.coslat[:, None]
         V = v * self.coslat[:, None]
-        vort, div = self.sht.vort_div_analysis(U, V)
-        return {'vort': vort, 'div': div, 'T': self.sht.analyze(T),
-                'q': q if self.fv is not None else self.sht.analyze(q),
-                'lnps': self.sht.analyze(lnps)}
+        grid_q = self.fv is not None
+        specs, ((vort, div),) = self.sht.analyze_many(
+            [T, lnps] + ([] if grid_q else [q]), [(U, V)])
+        return {'vort': vort, 'div': div, 'T': specs[0],
+                'q': q if grid_q else specs[2], 'lnps': specs[1]}
 
     def _q_grid(self, spec):
         """The grid moisture of a state: its own 'q' in the grid modes."""
@@ -288,12 +326,10 @@ class SpectralDycore(nn.Module):
         Nv = Nv - self.rayleigh[:, None, None] * v
 
         cosl = self.coslat[:, None]
-        dvort_dt, ddiv_dt = sht.vort_div_analysis(Nu * cosl, Nv * cosl)
         kinetic = 0.5 * (u ** 2 + v ** 2)
         rtv_ln = self.rd * Tv * ln_ratio
         below = torch.flip(torch.cumsum(torch.flip(rtv_ln, [0]), dim=0), [0])
         phi_full = self.phi_s + (below - rtv_ln) + self.rd * Tv * alpha
-        ddiv_dt = ddiv_dt - sht.laplacian(sht.analyze(kinetic + phi_full))
 
         dT_dx, dT_dy = sht.gradient(spec['T'])
         omega_over_p = (c_k * v_dot_gradlnps
@@ -305,6 +341,7 @@ class SpectralDycore(nn.Module):
 
         # moisture: the spectral advective form, or in the grid modes the
         # physics source alone (step() transports q in grid space)
+        to_analyze = [kinetic + phi_full, dT_dt_grid, dlnps_dt]
         if self.fv is not None:
             q_tend = phys['dq'] if phys is not None else torch.zeros_like(
                 q_g)
@@ -313,11 +350,16 @@ class SpectralDycore(nn.Module):
             dq_dt_grid = -u * dq_dx - v * dq_dy - vadv(q_g)
             if phys is not None:
                 dq_dt_grid = dq_dt_grid + phys['dq']
-            q_tend = sht.analyze(dq_dt_grid)
+            to_analyze.append(dq_dt_grid)
 
-        tend = {'vort': dvort_dt, 'div': ddiv_dt,
-                'T': sht.analyze(dT_dt_grid), 'q': q_tend,
-                'lnps': sht.analyze(dlnps_dt)}
+        # every analysis of the stage at once: one reduction under a mesh
+        specs, ((dvort_dt, ddiv_dt),) = sht.analyze_many(
+            to_analyze, [(Nu * cosl, Nv * cosl)])
+        ddiv_dt = ddiv_dt - sht.laplacian(specs[0])
+        if self.fv is None:
+            q_tend = specs[3]
+        tend = {'vort': dvort_dt, 'div': ddiv_dt, 'T': specs[1],
+                'q': q_tend, 'lnps': specs[2]}
         if self.fv is not None:
             tend['mdot'] = mdot             # for the vertical pass
         grids = {'u': u, 'v': v, 'T': T_g, 'q': q_g, 'ps': ps,
@@ -344,14 +386,22 @@ class SpectralDycore(nn.Module):
         return torch.complex(torch.einsum('j,jmn->mn', vec, x.real),
                              torch.einsum('j,jmn->mn', vec, x.imag))
 
-    def step(self, prev, now, phys=None):
-        """One semi-implicit leapfrog step of the construction timestep
-        (spectral_dynamics.py:435), for which the implicit inverses and the
-        hyperdiffusion factors are built.  Lagged physics is the caller's:
-        it passes ``phys`` computed on the previous grids.
-        Returns (filtered_now, new, now_grids)."""
-        dt = self.dt
-        tend, now_grids = self.explicit_tendencies(now, phys)
+    def step(self, prev, now, phys=None, dt=None, physics_fn=None,
+             prev_grids=None):
+        """One semi-implicit leapfrog step (spectral_dynamics.py:435).
+
+        ``phys``: grid physics tendencies {du, dv, dT, dq} (top-down), at
+        whichever time level the caller chose.  ``dt``: the timestep,
+        the construction timestep when None; the implicit inverses and the
+        hyperdiffusion factors are built for that one.  ``physics_fn``: a
+        function of a grid-state dict giving the tendencies, evaluated on
+        ``prev_grids`` (lagged physics) when given, else on the centre
+        grids.  Returns (filtered_now, new, now_grids)."""
+        dt = self.dt if dt is None else dt
+        if physics_fn is not None and prev_grids is not None:
+            phys = physics_fn(prev_grids)
+            physics_fn = None
+        tend, now_grids = self.explicit_tendencies(now, phys, physics_fn)
 
         two_dt = 2.0 * dt
         T_expl = prev['T'] + two_dt * tend['T']
@@ -426,11 +476,11 @@ class SpectralDycore(nn.Module):
                 'q': self._q_grid(spec), 'ps': ps,
                 'p_half': p_half, 'dp': dp}
 
-    def initial_step(self, now, phys=None, physics_fn=None):
-        """Forward start: (now, state at t+dt) by a half-then-full step of
-        the construction timestep (:555); ``physics_fn`` is evaluated on
-        both."""
-        dt = self.dt
+    def initial_step(self, now, phys=None, dt=None, physics_fn=None):
+        """Forward start: (now, state at t+dt) by a half-then-full step
+        (:555) of ``dt``, the construction timestep when None;
+        ``physics_fn`` is evaluated on both."""
+        dt = self.dt if dt is None else dt
         tend, grids0 = self.explicit_tendencies(now, phys, physics_fn)
         if self.fv is None:
             half = {k: now[k] + 0.5 * dt * tend[k] for k in now}

@@ -33,6 +33,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..core.util import resolve_device
+
 
 def _mc_slope(qm, q0, qp):
     """Monotonized-central limited slope from (left, centre, right)."""
@@ -70,7 +72,7 @@ class FVAdvection(nn.Module):
     """Conservative flux-form transport operator for one grid."""
 
     def __init__(self, mu, weights, nlon, radius, dt_max,
-                 dtype=torch.float32, max_wind=120.0, device='cpu',
+                 dtype=torch.float32, max_wind=120.0, device='cuda',
                  halo_exchange=None):
         """``dt_max`` is the longest interval ``advect`` will be called
         with (2 dt under leapfrog); the zonal substep counts are sized for
@@ -84,8 +86,12 @@ class FVAdvection(nn.Module):
         latitude block (its ``index`` of ``size``), so fields are that
         block's (..., nz, nlat/size, nlon), the zonal band loops run over
         its rows only, and ``total_mass`` is all-reduced over the halo's
-        group."""
+        group.
+
+        ``device``: the CUDA card unless the caller asks for another
+        (``device='cpu'``); without a card the default raises."""
         super().__init__()
+        device = resolve_device(device)
         mu = np.asarray(mu, np.float64)
         w = np.asarray(weights, np.float64)
         nlat = mu.shape[0]

@@ -62,9 +62,11 @@ def complex_dtype(dtype):
 class SphericalHarmonicTransform(nn.Module):
     """Batched-matmul spherical harmonic transform for one resolution."""
 
-    # the latitude rows of the grid it transforms: all of them (a
-    # ``parallel.DistributedSHT`` holds one block)
+    # the latitude rows and longitude columns of the grid it transforms:
+    # all of them (a ``parallel.DistributedSHT`` or ``ReplicatedSHT``
+    # holds one block)
     rows = slice(None)
+    cols = slice(None)
 
     def __init__(self, nlon, nlat, truncation=None, radius=6.371e6,
                  dtype=torch.float64, device='cuda'):
@@ -187,6 +189,13 @@ class SphericalHarmonicTransform(nn.Module):
     def laplacian(self, spec):
         return spec * self.laplacian_eig
 
+    def analyze_many(self, grids, pairs=()):
+        """([analyze(g) for g in grids], [vort_div_analysis(A, B) for A, B
+        in pairs]): a dycore stage's analyses together, which a mesh layout
+        reduces in one collective."""
+        return ([self.analyze(g) for g in grids],
+                [self.vort_div_analysis(a, b) for a, b in pairs])
+
     @staticmethod
     def m_block_of(a, fill='edge'):
         """A per-m constant as the transform holds it: whole (the
@@ -197,3 +206,8 @@ class SphericalHarmonicTransform(nn.Module):
     def global_sum(x):
         """Sum of a grid expression over the sphere."""
         return torch.sum(x)
+
+    @staticmethod
+    def global_sums(*xs):
+        """``global_sum`` of each argument."""
+        return tuple(torch.sum(x) for x in xs)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.util import resolve_device
 from .fv_advection import vertical_upwind
 
 # JAX's floor on the trajectory midpoint's cos(latitude)
@@ -37,8 +38,11 @@ class SLAdvection(nn.Module):
 
     def __init__(self, mu, weights, nlon, radius, dt_max,
                  dtype=torch.float32, n_iter=2, table_oversample=8,
-                 device='cpu'):
+                 device='cuda'):
+        """``device``: the CUDA card unless the caller asks for another
+        (``device='cpu'``); without a card the default raises."""
         super().__init__()
+        device = resolve_device(device)
         del dt_max                               # stable at any Courant
         mu = np.asarray(mu, np.float64)
         self.nlat = mu.shape[0]

@@ -59,6 +59,9 @@ class DistributedSHT(nn.Module):
 
     _fft = SphericalHarmonicTransform._fft
     _ifft = SphericalHarmonicTransform._ifft
+    analyze_many = SphericalHarmonicTransform.analyze_many
+    # whole rows: only latitude is cut
+    cols = slice(None)
     _contract_analysis = staticmethod(
         SphericalHarmonicTransform._contract_analysis)
     _contract_synthesis = staticmethod(
@@ -131,6 +134,12 @@ class DistributedSHT(nn.Module):
         s = torch.sum(x)
         dist.all_reduce(s, group=self.group)
         return s
+
+    def global_sums(self, *xs):
+        """``global_sum`` of each argument, through one all_reduce."""
+        s = torch.stack([torch.sum(x) for x in xs])
+        dist.all_reduce(s, group=self.group)
+        return tuple(s.unbind())
 
     def _gather(self, x):
         """Every 'lat' rank's block of x, in latitude-block order."""

@@ -2,6 +2,7 @@
 
     python -m climt_tpu_torch.profile_step
         [--model moist|moist_fv|moist_sl|held_suarez]
+        [--layout single|m_sharded|replicated|replicated_lon]
 
 ``moist`` (the default) runs the T85 moist GCM (256x128x28, f32,
 rad_every=6, rad_col_chunk=8192) for steps 0-5, then traces step 6 (a
@@ -10,16 +11,25 @@ rates); ``moist_fv`` and ``moist_sl`` do the same with the moisture
 moved in grid space (``moisture_advection='fv'``, ``'sl'``).
 ``held_suarez`` runs the T42 Held-Suarez model of ``bench.py`` (128x64x28,
 f32, dt 600 s) for 5 steps, then traces step 5 and step 6.
+``--layout`` other than ``single`` starts a world of one NCCL rank and
+runs the model in a mesh layout on ``make_mesh(1)``: ``m_sharded``
+builds it with ``mesh=`` (moist models only), ``replicated`` and
+``replicated_lon`` place the carry of the model built without a mesh
+with ``shard_model_state`` (``shard_lon`` False and True).
 For each traced step it prints the wall time, the summed kernel time, the
 device busy share (kernel time over wall time: one stream, so kernels do
-not overlap), the number of kernel launches, and the kernels that take
+not overlap), the number of kernel launches, the collectives (all_to_all
+transposes, all_reduce and all_gather calls) and the kernels that take
 the most device time.  Wall times include the profiler's own overhead.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -27,9 +37,38 @@ from torch.profiler import ProfilerActivity, profile
 
 from .dycore.compiled import build_held_suarez_model
 from .dycore.moist_gcm import build_moist_gcm
+from .parallel import (dist_sht, initialize_distributed, make_mesh, rep_sht,
+                       shard_model_state)
 
 # the moist GCM's moisture transport of each --model
 MOISTURE = {'moist': 'spectral', 'moist_fv': 'fv', 'moist_sl': 'sl'}
+LAYOUTS = ('single', 'm_sharded', 'replicated', 'replicated_lon')
+
+
+def reset_collectives():
+    dist_sht.transpose.calls = 0
+    rep_sht.all_reduce_sum.calls = rep_sht.all_gather_cat.calls = 0
+
+
+def collectives():
+    """(all_to_all transposes, all_reduce calls, all_gather calls) since
+    ``reset_collectives``."""
+    return (dist_sht.transpose.calls, rep_sht.all_reduce_sum.calls,
+            rep_sht.all_gather_cat.calls)
+
+
+@contextlib.contextmanager
+def world_of_one(device='cuda'):
+    """A process group of one rank (its rendezvous a FileStore in a
+    temporary directory) and its (1, 1) mesh, left when the block ends."""
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed('file://' + os.path.join(tmp, 'store'), 1, 0,
+                               device=device)
+        try:
+            yield make_mesh(1, device=device)
+        finally:
+            dist.destroy_process_group()
 
 
 def _kernel_events(prof):
@@ -37,20 +76,28 @@ def _kernel_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def _build(model, dev):
+def _build(model, dev, layout='single', mesh=None):
     """(step_fn, carry, warm-up steps, labels of the traced steps)."""
     if model in MOISTURE:
         _, init_fn, step_fn, _ = build_moist_gcm(
             nlon=256, nlat=128, nz=28, timestep=600.0, dtype=torch.float32,
             rad_every=6, rad_col_chunk=8192, device=dev,
-            moisture_advection=MOISTURE[model])
-        return step_fn, init_fn(0), 6, ('radiation step (k=6)',
-                                        'plain step (k=7)')
-    _, init_fn, step_fn, _ = build_held_suarez_model(
-        nlon=128, nlat=64, nz=28, timestep=600.0, dtype=torch.float32,
-        device=dev)
-    return step_fn, init_fn(0), 5, ('held-suarez T42 step (k=5)',
-                                    'held-suarez T42 step (k=6)')
+            moisture_advection=MOISTURE[model],
+            mesh=mesh if layout == 'm_sharded' else None)
+        warm, labels = 6, ('radiation step (k=6)', 'plain step (k=7)')
+    else:
+        if layout == 'm_sharded':
+            raise ValueError('the m-sharded layout is the moist GCM\'s')
+        _, init_fn, step_fn, _ = build_held_suarez_model(
+            nlon=128, nlat=64, nz=28, timestep=600.0, dtype=torch.float32,
+            device=dev)
+        warm, labels = 5, ('held-suarez T42 step (k=5)',
+                           'held-suarez T42 step (k=6)')
+    carry = init_fn(0)
+    if layout.startswith('replicated'):
+        carry = shard_model_state(mesh, *carry,
+                                  shard_lon=layout == 'replicated_lon')
+    return step_fn, carry, warm, labels
 
 
 def profile_one(step_fn, carry):
@@ -76,26 +123,35 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--model', choices=tuple(MOISTURE) + (
         'held_suarez',), default='moist')
+    parser.add_argument('--layout', choices=LAYOUTS, default='single')
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('needs a CUDA GPU')
+    if args.model not in MOISTURE and args.layout == 'm_sharded':
+        parser.error('--layout m_sharded needs a moist --model')
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    step_fn, carry, warm, labels = _build(args.model,
-                                          torch.device('cuda:0'))
-    for _ in range(warm):
-        carry, _ = step_fn(carry, None)
-    torch.cuda.synchronize()
-    for label in labels:
-        carry, wall, busy, launches, by_name = profile_one(step_fn, carry)
-        print('%s on %s: wall %.4f s, kernel time %.4f s, device busy '
-              '%.1f%%, %d kernel launches' % (
-                  label, card, wall, busy, 100.0 * busy / wall, launches))
-        for name, (ms, n) in sorted(by_name.items(),
-                                    key=lambda kv: -kv[1][0])[:15]:
-            print('    %9.3f ms %6d x  %s' % (ms, n, name[:100]))
+    with (contextlib.nullcontext() if args.layout == 'single'
+          else world_of_one()) as mesh:
+        step_fn, carry, warm, labels = _build(
+            args.model, torch.device('cuda:0'), args.layout, mesh)
+        for _ in range(warm):
+            carry, _ = step_fn(carry, None)
+        torch.cuda.synchronize()
+        for label in labels:
+            reset_collectives()
+            carry, wall, busy, launches, by_name = profile_one(step_fn,
+                                                               carry)
+            print('%s, layout %s, on %s: wall %.4f s, kernel time %.4f s, '
+                  'device busy %.1f%%, %d kernel launches, collectives '
+                  '(all_to_all, all_reduce, all_gather) %s' % (
+                      label, args.layout, card, wall, busy,
+                      100.0 * busy / wall, launches, collectives()))
+            for name, (ms, n) in sorted(by_name.items(),
+                                        key=lambda kv: -kv[1][0])[:15]:
+                print('    %9.3f ms %6d x  %s' % (ms, n, name[:100]))
 
 
 if __name__ == '__main__':

@@ -117,3 +117,57 @@ def test_dycore_initial_step_and_three_steps():
         assert rel_err(tprev[key], jprev[key]) < 1e-10, key
     for key in jgrids:
         assert rel_err(tgrids[key], jgrids[key]) < 1e-10, key
+
+
+def _dycore_pair_and_state(seed):
+    ak, bk = tgrid.hybrid_sigma_pressure_coefficients(NZ + 1, 1e5, 20.0)
+    kw = dict(timestep=600.0, number_of_damped_levels=3)
+    jd = JDycore(NLON, NLAT, NZ, ak, bk, dtype=jnp.float64, **kw)
+    td = TDycore(NLON, NLAT, NZ, ak, bk, dtype=torch.float64, device='cpu',
+                 **kw)
+    rng = np.random.RandomState(seed)
+    shape = (NZ, NLAT, NLON)
+    mu = jd.sht.mu[:, None]
+    grid = (20.0 * np.sqrt(1.0 - mu ** 2) + rng.randn(*shape),
+            rng.randn(*shape),
+            250.0 + 30.0 * np.sqrt(1.0 - mu ** 2) + rng.randn(*shape),
+            1e-3 * rng.rand(*shape),
+            np.log(1e5) + 0.01 * rng.randn(NLAT, NLON))
+    return (jd, jd.spectral_state_from_grid(*map(jnp.asarray, grid)),
+            td, td.spectral_state_from_grid(*map(to_torch, grid)))
+
+
+def _relaxation(gs):
+    """A grid physics function of the dycore's grid-state dict, for
+    either package's arrays."""
+    return {'du': -1e-5 * gs['u'], 'dv': -1e-5 * gs['v'],
+            'dT': -1e-5 * (gs['T'] - 250.0),
+            'dq': -1e-6 * gs['q'] * (gs['ps'] / 1e5)[None]}
+
+
+@pytest.mark.parametrize('route', ['physics_fn_prev_grids', 'physics_fn',
+                                   'explicit_dt'])
+def test_step_and_initial_step_take_jax_keywords(route):
+    """step(prev, now, phys, dt, physics_fn, prev_grids) and
+    initial_step(now, phys, dt, physics_fn) with JAX's semantics
+    (spectral_dynamics.py:458-460, :558): physics_fn on prev_grids when
+    both are given (lagged), on the centre grids otherwise; dt the
+    construction timestep when None.  Two steps after the start."""
+    jd, jnow, td, tnow = _dycore_pair_and_state(7)
+    if route == 'explicit_dt':
+        jkw, tkw = dict(dt=450.0), dict(dt=450.0)
+    else:
+        jkw, tkw = dict(physics_fn=_relaxation), dict(physics_fn=_relaxation)
+    jprev, jnow = jd.initial_step(jnow, **jkw)
+    tprev, tnow = td.initial_step(tnow, **tkw)
+    jgrids, tgrids = jd.grids_of(jprev), td.grids_of(tprev)
+    for _ in range(2):
+        if route == 'physics_fn_prev_grids':
+            jkw['prev_grids'], tkw['prev_grids'] = jgrids, tgrids
+        jprev, jnow, jgrids = jd.step(jprev, jnow, **jkw)
+        tprev, tnow, tgrids = td.step(tprev, tnow, **tkw)
+    for key in jnow:
+        assert rel_err(tnow[key], jnow[key]) < 1e-10, key
+        assert rel_err(tprev[key], jprev[key]) < 1e-10, key
+    for key in jgrids:
+        assert rel_err(tgrids[key], jgrids[key]) < 1e-10, key

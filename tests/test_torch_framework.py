@@ -19,6 +19,7 @@ from climt_tpu_torch.core import properties as tprops
 from climt_tpu_torch.core import tracers as ttracers
 from climt_tpu_torch.core import units as tunits
 from climt_tpu_torch.core.dataarray import DataArray as TDataArray
+from climt_tpu_torch.core.dataarray import HostTensor, as_tensor
 
 from torch_helpers import rel_err
 
@@ -418,3 +419,28 @@ def test_tracers_match_jax():
         assert outs[0][name].units == outs[1][name].units
         assert rel_err(outs[0][name].values, outs[1][name].values) <= 1e-10
     assert np.abs(_values(outs[0]['tracer_one'].values) - f1).max() > 1e-6
+
+
+def test_values_tensor_is_read_by_numpy_and_transparent_to_torch():
+    """A tensor field's ``.values`` is a HostTensor: np.asarray reads it
+    (on the card it copies to the host, tests/test_torch_gpu.py), every
+    torch operation on it returns a plain tensor, and an in-place write
+    lands in the field's own tensor."""
+    base = torch.arange(12, dtype=torch.float64).reshape(3, 4)
+    da = TDataArray(base, dims=('z', 'x'), attrs={'units': 'K'})
+    v = da.values
+    assert type(v) is HostTensor and isinstance(v, torch.Tensor)
+    np.testing.assert_array_equal(np.asarray(v), base.numpy())
+    assert np.asarray(v, dtype=np.float32).dtype == np.float32
+    np.testing.assert_array_equal(np.asarray(da), base.numpy())
+    results = [v + 1.0, 2.0 * v, torch.exp(v), v[1:], v.sum(), v.T,
+               torch.cat([v, v]), torch.where(v > 3.0, v, 0.0), v.clone(),
+               v.to(torch.float32), v.reshape(-1), as_tensor(v, 'cpu')]
+    for out in results:
+        assert type(out) is torch.Tensor
+    assert type((da * 2.0).values) is HostTensor
+    v[:1] = -1.0
+    assert float(base[0, 0]) == -1.0
+    da.values[1:2] = torch.zeros(4, dtype=torch.float64)
+    assert float(base[1].abs().sum()) == 0.0
+    assert type(TDataArray(np.ones(3), dims=('x',)).values) is np.ndarray

@@ -411,3 +411,59 @@ def test_moist_gcm_on_a_world_of_one_nccl_rank(cuda, tmp_path):
     for key, tol in (('T', 0.01), ('u', 0.02), ('v', 0.02), ('q', 5e-6),
                      ('ps', 15.0)):
         assert np.abs(got[key] - ref[key]).max() < tol, key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('shard_lon', [False, True])
+def test_replicated_layout_on_a_world_of_one_nccl_rank(cuda, tmp_path,
+                                                       shard_lon):
+    """A model built without a mesh, its carry placed by
+    shard_model_state on make_mesh(1) over one NCCL rank and stepped by
+    its own run_fn: 7 float32 steps at 32x16x10, gathered, against the
+    single-device model on the card within chip_smoke.py's SMALL_TOL."""
+    import torch.distributed as dist
+    from climt_tpu_torch.convert import carry_to_global
+    from climt_tpu_torch.parallel import (initialize_distributed, make_mesh,
+                                          shard_model_state)
+    kw = dict(nlon=32, nlat=16, nz=10, rad_every=6, rad_col_chunk=128,
+              dtype=torch.float32, device=cuda)
+    _, init_fn, _, run_fn = build_moist_gcm(**kw)
+    ref = carry_to_numpy(run_fn(init_fn(0), 7)[0])[2]
+    assert initialize_distributed('file://%s' % (tmp_path / 'store'), 1,
+                                  0) == 1
+    try:
+        assert dist.get_backend() == 'nccl'
+        carry = shard_model_state(make_mesh(1), *init_fn(0),
+                                  shard_lon=shard_lon)
+        got = carry_to_global(run_fn(carry, 7)[0])[2]
+    finally:
+        dist.destroy_process_group()
+    for key, tol in (('T', 0.01), ('u', 0.02), ('v', 0.02), ('q', 5e-6),
+                     ('ps', 15.0)):
+        assert np.abs(got[key] - ref[key]).max() < tol, key
+
+
+@pytest.mark.gpu
+def test_numpy_reads_a_card_field_and_writes_stay_on_the_card(cuda):
+    """np.asarray(state[name].values) of a CUDA field copies it to the
+    host; values[:] = ... writes on the card; torch operations on the
+    field return plain CUDA tensors."""
+    from climt_tpu_torch.core.dataarray import HostTensor
+    dycore = ct.GFSDynamicalCore([ct.HeldSuarez(device=cuda)],
+                                 number_of_damped_levels=5, moist=False,
+                                 device=cuda)
+    state = ct.get_default_state(
+        [dycore], grid_state=ct.get_grid(nx=32, ny=16, nz=10))
+    _, new_state = dycore(state, timedelta(minutes=15))
+    state.update(new_state)
+    field = state['air_temperature']
+    assert type(field.values) is HostTensor and field.values.is_cuda
+    host = np.asarray(field.values)
+    assert isinstance(host, np.ndarray)
+    np.testing.assert_array_equal(host, field.values.cpu().numpy())
+    out = field.values * 2.0
+    assert type(out) is torch.Tensor and out.is_cuda
+    field.values[:] = 250.0
+    assert field.values.is_cuda
+    assert float(field.values.min()) == float(field.values.max()) == 250.0
+    assert np.asarray(state['air_temperature'].values).max() == 250.0

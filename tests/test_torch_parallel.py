@@ -21,7 +21,7 @@ import pytest
 import torch
 import torch.distributed as dist
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from torch.distributed.tensor import Replicate
+from torch.distributed.tensor import Replicate, Shard
 
 from climt_tpu.ops.fv_advection import FVAdvection as JFV
 from climt_tpu.ops.sht import SphericalHarmonicTransform as JSHT
@@ -32,7 +32,7 @@ from climt_tpu_torch.ops.fv_advection import FVAdvection as TFV
 from climt_tpu_torch.ops.sht import SphericalHarmonicTransform as TSHT
 from climt_tpu_torch.parallel import (
     DistributedSHT, grid_sharding, initialize_distributed, make_mesh,
-    process_info, replicated, shard_model_state)
+    process_info, replicated)
 from climt_tpu_torch.parallel.mesh import default_mesh_shape
 
 from torch_helpers import rel_err, sht_rank_results, spawn_ranks
@@ -150,22 +150,17 @@ def test_grid_sharding_placements(ranks):
     assert all(out['dtensor_block'] for out in ranks)
 
 
-def test_next_layouts_raise_naming_the_roadmap_item(world_of_one):
-    mesh = make_mesh(device='cpu')
-    assert tuple(mesh.shape) == (1, 1)
-    assert replicated(mesh) == (Replicate(), Replicate())
-    with pytest.raises(NotImplementedError, match='item 4'):
-        grid_sharding(mesh, shard_lon=True)
-    with pytest.raises(NotImplementedError, match='item 4'):
-        shard_model_state(mesh, {}, {}, {})
-
-
 def test_world_of_one_in_process(world_of_one):
     assert world_of_one == 1
     assert process_info() == (0, 1, 1, 1)
     assert initialize_distributed(device='cpu') == 1
     with pytest.raises(ValueError, match='all 1 ranks'):
         make_mesh(2, device='cpu')
+    default = make_mesh(device='cpu')
+    assert tuple(default.shape) == (1, 1)
+    assert replicated(default) == (Replicate(), Replicate())
+    assert grid_sharding(default, shard_lon=True) == (Shard(1), Shard(2))
+    assert grid_sharding(default, 2, shard_lon=True) == (Shard(0), Shard(1))
     mesh = make_mesh(1, mesh_shape=(1, 1), device='cpu')
     (nlon, nlat, trunc, grids) = _sht_cases()['48x24']
     dsht = DistributedSHT(TSHT(nlon, nlat, trunc, dtype=torch.float64,
@@ -274,7 +269,7 @@ def test_distributed_sht_matches_jax_distributed_sht(ranks, jax_dist, case,
 
 def test_halo_fv_matches_the_single_device_operator(ranks):
     (mu, w, nlon, dt), fields = _fv_case()
-    fv = TFV(mu, w, nlon, RADIUS, dt, dtype=torch.float64)
+    fv = TFV(mu, w, nlon, RADIUS, dt, dtype=torch.float64, device='cpu')
     ref = fv.advect(*(torch.as_tensor(np.array(f)) for f in fields), dt)
     assert rel_err(ranks[0]['fv_advect'], ref) < FV_TOL
 
@@ -306,7 +301,8 @@ def test_halo_fv_band_loops_run_over_the_rank_rows(ranks):
     """Each rank's zonal bands cover its own 8 rows only; the polar ranks
     carry the substepped bands (the load imbalance PERF.md notes)."""
     (mu, w, nlon, dt), _ = _fv_case()
-    whole = TFV(mu, w, nlon, RADIUS, dt, dtype=torch.float64).zonal_bands
+    whole = TFV(mu, w, nlon, RADIUS, dt, dtype=torch.float64,
+                device='cpu').zonal_bands
     rows = {}
     for rank, out in enumerate(ranks):
         assert out['fv_bands'][0][0] == 0 and out['fv_bands'][-1][1] == 8

@@ -8,6 +8,8 @@ five latitude bands (substeps 4, 2, 1, 2, 4), so the band grouping and
 the substep loop are both exercised.  Inputs come from numpy with a seed.
 """
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -66,7 +68,8 @@ OPERATORS = {'fv': (JFV, TFV), 'sl': (JSL, TSL)}
 
 
 def _make(kind, mu, w, nlon, dt=1200.0, dtype=torch.float64, **kw):
-    return OPERATORS[kind][1](mu, w, nlon, RADIUS, dt, dtype=dtype, **kw)
+    return OPERATORS[kind][1](mu, w, nlon, RADIUS, dt, dtype=dtype,
+                              device='cpu', **kw)
 
 
 @pytest.mark.parametrize('kind', ['fv', 'sl'])
@@ -319,3 +322,16 @@ def test_sl_trajectory_iteration_tracks_rotation():
     dlon = min(abs(p1[1] - p0[1]), nlon - abs(p1[1] - p0[1]))
     assert dlon <= 1 and abs(p1[0] - p0[0]) <= 1
     assert out.max() > 0.35 * q0.max()
+
+
+@pytest.mark.parametrize('kind', ['fv', 'sl'])
+def test_operator_defaults_to_the_card(kind, monkeypatch):
+    """Built with no device, FVAdvection and SLAdvection compute on
+    'cuda', and without a card they raise rather than fall back to the
+    CPU, as every other entry point of the port does."""
+    mu, w, nlon = _grid(16, 32)
+    cls = OPERATORS[kind][1]
+    assert inspect.signature(cls).parameters['device'].default == 'cuda'
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        cls(mu, w, nlon, RADIUS, 1200.0)

@@ -541,7 +541,7 @@ def parallel_ops_rank(rank, world, sht_cases, fv_case):
         out[name]['M_padded'] = dsht.M_padded
     (mu, w, nlon, dt), fields = fv_case
     fv = FVAdvection(mu, w, nlon, 6.371e6, dt, dtype=torch.float64,
-                     halo_exchange=make_lat_halo(mesh))
+                     device='cpu', halo_exchange=make_lat_halo(mesh))
     grid = DistributedSHT(SphericalHarmonicTransform(
         nlon, len(mu), dtype=torch.float64, device='cpu'), mesh)
     q, dp, u, v, mdot = (_block(f, grid) for f in fields)
@@ -652,4 +652,168 @@ def shared_card_rank(rank, world, kw, steps, modes):
         t0 = time.perf_counter()
         final = mesh_gcm_run(mesh, mode, kw, steps, device='cuda')['final']
         out[mode] = (final, time.perf_counter() - t0)
+    return out
+
+
+
+# -- the replicated-spectral layout (parallel.shard_model_state) ------------
+
+# the meshes of the layout tests on 4 ranks, as (mesh shape, shard_lon):
+# lat-only, lat-only with each block repeated on 2 'lon' ranks, and
+# latitude x longitude blocks
+LAYOUTS = (((4, 1), False), ((2, 2), False), ((2, 2), True), ((1, 4), True))
+
+
+def layout_name(layout):
+    (lat, lon), shard_lon = layout
+    return '%dx%d%s' % (lat, lon, '_lon' if shard_lon else '')
+
+
+def _local_spectral(carry):
+    """Every complex (spectral) field of a placed carry's states, as the
+    rank holds it, in numpy."""
+    return {(i, k): v.to_local().numpy() for i in (0, 1)
+            for k, v in carry[i].items() if v.is_complex()}
+
+
+def layout_gcm_run(model, mesh, shard_lon, steps):
+    """The (dycore, init_fn, step_fn, run_fn) of build_moist_gcm without
+    a mesh, its carry placed by shard_model_state and stepped by run_fn:
+    {'final': the gathered carry and diagnostics, 'spectral': the rank's
+    own spectral fields, 'collectives': (all_reduce, all_gather) calls of
+    one step from the placed carry, 'fv_mass' (FV) or 'water' (SL): FV's
+    mass pass or the water fixer's closure on the twin's blocks from the
+    initial carry}."""
+    from climt_tpu_torch.convert import carry_to_global
+    from climt_tpu_torch.dycore.spectral_dynamics import GatheredTransport
+    from climt_tpu_torch.parallel import rep_sht, shard_model_state
+    from climt_tpu_torch.parallel.mesh import unwrap_carry
+    _, init_fn, step_fn, run_fn = model
+    mode = step_fn.__self__.dycore.moisture_advection
+    carry = shard_model_state(mesh, *init_fn(0), shard_lon=shard_lon)
+    twin = step_fn.__self__._layout_twin(carry)[0]
+    local = unwrap_carry(carry)
+    out = {}
+    if mode == 'fv':
+        u, v, dp, mdot = twin.dycore.diagnose_mass_fluxes(local[1])
+        fields, fv = (local[1]['q'], dp, u, v, mdot), twin.dycore.fv
+        if isinstance(fv, GatheredTransport):
+            fields = tuple(twin.dycore.sht.gather_rows(x) for x in fields)
+            fv = fv.op
+        out['fv_mass'] = fv_mass_pass(fv, *fields, 2.0 * twin.dt)
+    if mode == 'sl':
+        out['water'] = water_fixer_closure(twin.step, local)
+    rep_sht.all_reduce_sum.calls = rep_sht.all_gather_cat.calls = 0
+    carry, diag = step_fn(carry)
+    out['collectives'] = (rep_sht.all_reduce_sum.calls,
+                          rep_sht.all_gather_cat.calls)
+    carry, diag = run_fn(carry, steps - 1)
+    out['spectral'] = _local_spectral(carry)
+    out['final'] = carry_to_global(carry + (diag,))
+    return out
+
+
+def layout_gcm_rank(rank, world, kw, mode, steps, layouts=LAYOUTS):
+    """The moist GCM of ``layout_gcm_run`` on one rank of a CPU world, on
+    each mesh layout of ``layouts``: one model, a twin per layout."""
+    from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
+    from climt_tpu_torch.parallel import make_mesh
+    model = build_moist_gcm(dtype=torch.float64, device='cpu',
+                            moisture_advection=mode, **kw)
+    out = {}
+    for shape, shard_lon in layouts:
+        mesh = make_mesh(world, mesh_shape=shape, device='cpu')
+        out[layout_name((shape, shard_lon))] = layout_gcm_run(
+            model, mesh, shard_lon, steps)
+    return out
+
+
+def layout_sht_results(sht, grids):
+    """Every transform of a ReplicatedSHT on the rank's blocks of two
+    global (nz, nlat, nlon) fields, grid results gathered to the global
+    layout, spectral ones as the rank holds them (whole)."""
+    from climt_tpu_torch.ops.sht import SphericalHarmonicTransform
+    a, b = (torch.as_tensor(np.array(g)) for g in grids)
+    one = SphericalHarmonicTransform(sht.nlon, sht.nlat, sht.truncation,
+                                     dtype=torch.float64, device='cpu')
+    sa, sb = one.analyze(a), one.analyze(b)
+    ga, gb = (x[..., sht.rows, sht.cols] for x in (a, b))
+    rows = sht.gather_rows
+    out = {'analyze': sht.analyze(ga),
+           'synthesize': rows(sht.synthesize(sa)),
+           'roundtrip': sht.analyze(sht.synthesize(sa)),
+           'synthesize_dmu': rows(sht.synthesize_dmu(sa)),
+           'synthesize_dlambda': rows(sht.synthesize_dlambda(sa)),
+           'analyze_rank2': sht.analyze(ga[0]),
+           'synthesize_rank2': rows(sht.synthesize(sa[0])),
+           'laplacian': sht.laplacian(sa),
+           'inverse_laplacian': sht.inverse_laplacian(sa),
+           'filter_spec': sht.filter_spec(sa + 1.0),
+           'total_wavenumber': sht.total_wavenumber,
+           'global_sum': sht.global_sum(ga * sht.coslat)}
+    out['gradient'] = tuple(rows(x) for x in sht.gradient(sa))
+    out['uv_from_vort_div'] = tuple(
+        rows(x) for x in sht.uv_from_vort_div(sa, sb))
+    out['vort_div_analysis'] = sht.vort_div_analysis(ga, gb)
+    specs, pairs = sht.analyze_many([ga, gb[0]], [(ga, gb)])
+    out['analyze_many'] = tuple(specs) + pairs[0]
+    return {k: tuple(x.numpy() for x in v) if isinstance(v, tuple)
+            else v.numpy() for k, v in out.items()}
+
+
+def layout_hs_rank(rank, world, kw, steps, grids, layouts=LAYOUTS):
+    """On one rank of a CPU world, for each mesh layout of ``layouts``:
+    the ReplicatedSHT's transforms of ``grids`` (``layout_sht_results``)
+    and build_held_suarez_model's carry placed by shard_model_state and
+    run ``steps`` steps: gathered, the rank's own spectral fields, and the
+    collectives of one step."""
+    from climt_tpu_torch.convert import carry_to_global
+    from climt_tpu_torch.dycore.compiled import build_held_suarez_model
+    from climt_tpu_torch.ops.sht import SphericalHarmonicTransform
+    from climt_tpu_torch.parallel import (ReplicatedSHT, make_mesh,
+                                          shard_model_state)
+    from climt_tpu_torch.parallel import rep_sht
+    _, init_fn, step_fn, run_fn = build_held_suarez_model(
+        dtype=torch.float64, device='cpu', **kw)
+    nz, nlat, nlon = np.shape(grids[0])
+    out = {}
+    for shape, shard_lon in layouts:
+        mesh = make_mesh(world, mesh_shape=shape, device='cpu')
+        sht = ReplicatedSHT(SphericalHarmonicTransform(
+            nlon, nlat, dtype=torch.float64, device='cpu'), mesh, shard_lon)
+        res = {'sht': layout_sht_results(sht, grids)}
+        carry = shard_model_state(mesh, *init_fn(0), shard_lon=shard_lon)
+        rep_sht.all_reduce_sum.calls = rep_sht.all_gather_cat.calls = 0
+        carry, _ = step_fn(carry)
+        res['collectives'] = (rep_sht.all_reduce_sum.calls,
+                              rep_sht.all_gather_cat.calls)
+        carry = run_fn(carry, steps - 1)
+        res['spectral'] = _local_spectral(carry)
+        res['final'] = carry_to_global(carry)
+        out[layout_name((shape, shard_lon))] = res
+    return out
+
+
+def layout_shared_card_rank(rank, world, kw, steps, modes, meshes):
+    """The float64 moist GCM built without a mesh, its carry placed by
+    shard_model_state and run ``steps`` steps, on one rank of a world
+    whose ranks share the first card (gloo): {(mesh shape, shard_lon,
+    mode): (gathered carry and diagnostics, seconds to build, place and
+    run)}."""
+    from climt_tpu_torch.convert import carry_to_global
+    from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
+    from climt_tpu_torch.parallel import make_mesh, shard_model_state
+    torch.cuda.set_device(0)
+    out = {}
+    for shape, shard_lon in meshes:
+        mesh = make_mesh(world, mesh_shape=shape, device='cuda')
+        for mode in modes:
+            t0 = time.perf_counter()
+            _, init_fn, _, run_fn = build_moist_gcm(
+                dtype=torch.float64, device='cuda', moisture_advection=mode,
+                **kw)
+            carry = shard_model_state(mesh, *init_fn(0), shard_lon=shard_lon)
+            carry, diag = run_fn(carry, steps)
+            final = carry_to_global(carry + (diag,))
+            out[(shape, shard_lon, mode)] = (final, time.perf_counter() - t0)
     return out
