@@ -117,7 +117,23 @@ Phases, each of which fails loudly (no exception is turned into exit 0):
      run;
  22. examples/grey_gcm.py (32x16x8, 2 steps) and
      examples/radiative_heating_rrtmg_clouds.py with verbose=True on the
-     card: their printouts read card fields with np.asarray.
+     card: their printouts read card fields with np.asarray;
+ 23. CORK longwave radiation (climt_tpu_torch.components.cork.lw): every
+     shipped LW k-table at its own band and g-point count, and the
+     Parmentier optics (irradiation 1200 K, internal 100 K), on one
+     128x64x28 float64 state with a lapse-rate temperature, humidity,
+     cloud and emissivity below 1: ms per call over 5 calls after a
+     warm-up, device operations per call, every field finite and every
+     flux non-negative; earth_low_res_lw at T85 (256x128x28) with
+     diagnostics_level 0 and 1: s per call and peak memory; each case at
+     16x8x8 on the card against the CPU under phase 12's one-ulp rule with
+     phase 15's floor; neither kernel launches;
+ 24. the matmul zonal DFT (fft_impl='matmul'): phase 6's T85 model built
+     with it, one step against phase 6's fft model within phase 20's
+     float32 limits, then 12-step windows alternating with the fft model
+     (exactly 24 kernel-B and 4 kernel-A launches per refresh, s/step);
+     at 64x32x10 float64, 7 steps on the card against the CPU within
+     SMALL_TOL; phase 21 (a)'s replicated layout with it, one step.
 The examples run through tests/torch_helpers.py:port_example, which the
 CPU tests use too.
 The line before the last is a JSON object with each kernel's launches,
@@ -209,6 +225,22 @@ LAYOUT_CARD_TOL = 1e-9
 # arguments (tests/test_examples.py's sizes)
 VERBOSE_EXAMPLES = (('grey_gcm', dict(n_steps=2, nx=32, ny=16, nz=8)),
                     ('radiative_heating_rrtmg_clouds', {}))
+# phase 23: the shipped LW k-tables and the Parmentier optics, the state
+# sizes (nx, ny, nz) and the timed calls
+CORK_CASES = ('earth_low_res_lw', 'earth_low_res_lw_4band_ngpt2_before',
+              'mars_lw', 'single_band_gray_lw', 'single_band_unit_lw',
+              'test_2band_lw', 'titan_lw', 'tour_gray_lw',
+              'trappist1e_hab1_lw', 'trappist1e_hab2_lw', 'venus_lw',
+              'parmentier')
+CORK_SIZE = (128, 64, 28)
+CORK_T85 = (256, 128, 28)
+CORK_SMALL = (16, 8, 8)
+CORK_CALLS = 5
+# phase 24: one float32 step with the matmul DFT may lie at most
+# MATMUL_RATIO times as far from the float64 model as the fft model's
+# (floored at one float32 epsilon of max)
+MATMUL_RATIO = 10.0
+FLOAT32_EPS = 2.0 ** -23
 # phase 17's card-against-CPU size
 GRID_SMALL = dict(nlon=64, nlat=32, nz=10, rad_every=6, rad_col_chunk=2048)
 # phase 18: the two registered tracers, a blob and a uniform field
@@ -1855,6 +1887,311 @@ def verbose_examples_phase(card):
                                   len(lines), lines[-1], card))
 
 
+def cork_setup(name, device, size, diagnostics_level=0, nudge=False):
+    """(component, state) of one CORK_CASES case on ``device``: the
+    CorkLongwaveRadiation of that table (or the Parmentier optics) and a
+    default nx x ny x nz float64 state with tests/torch_helpers.py's
+    cork_fields from seed 0 (a lapse-rate temperature, humidity, CO2,
+    emissivity 0.90-0.99, cloud in levels 5-8), irradiation 1200 K and
+    internal temperature 100 K.  With ``nudge`` the air temperature is one
+    ulp higher.  The fields the component reads are moved to ``device``
+    first, as a model's state holds them."""
+    import numpy as np
+    import torch
+
+    import climt_tpu_torch as ct
+    from climt_tpu_torch.components.cork.lw import CorkLongwaveRadiation
+    from torch_helpers import cork_fields
+
+    kw = (dict(optics='parmentier') if name == 'parmentier'
+          else dict(table=name))
+    comp = CorkLongwaveRadiation(device=device,
+                                 diagnostics_level=diagnostics_level, **kw)
+    nx, ny, nz = size
+    state = ct.get_default_state([comp], grid_state=ct.get_grid(
+        nx=nx, ny=ny, nz=nz))
+    fields = cork_fields(state, np.random.RandomState(0))
+    fields.update(irradiation_temperature=1200.0, internal_temperature=100.0)
+    for key, value in fields.items():
+        if key in state:
+            state[key].values[:] = value
+    if nudge:
+        nudge_temperature(state)
+    for key in comp.input_properties:
+        state[key].values = torch.as_tensor(state[key].values,
+                                            device=device)
+    return comp, state
+
+
+def cork_outputs(comp, state, torch, label):
+    """{name: tensor} of one call's tendency and diagnostics, checked
+    finite, with every flux non-negative."""
+    tendencies, diagnostics = comp(state)
+    out = finite_float_fields(diagnostics, torch, label)
+    out.update({'tendency of ' + k: v for k, v in finite_float_fields(
+        tendencies, torch, label).items()})
+    for name, value in out.items():
+        if 'flux' in name and not float(value.min()) >= 0.0:
+            fail('%s: %s has a negative flux %g' % (label, name,
+                                                    float(value.min())))
+    return out
+
+
+def cork_phase(dev, card, counters):
+    """Phase 23: CORK longwave radiation.  (a) Every shipped LW k-table at
+    its own band and g-point count, and the Parmentier optics, on one
+    CORK_SIZE float64 state (cork_setup): a warm-up call and CORK_CALLS
+    timed calls (ms per call), the device operations one call launches
+    (torch.profiler), every field finite and every flux non-negative;
+    (b) earth_low_res_lw at CORK_T85 with diagnostics_level 0 and 1: s
+    per call and the peak memory a call adds; (c) each case of (a) at
+    CORK_SMALL with diagnostics_level 1 on the card against the CPU,
+    within 10 times the larger of SPREAD_FLOOR and the spread that one
+    ulp more air temperature makes on the CPU.  CORK launches neither
+    kernel: fails if kernel A or B launched in (a) or (b)."""
+    import torch
+
+    for counter in counters.values():
+        counter.launches = 0
+    for name in CORK_CASES:
+        comp, state = cork_setup(name, dev, CORK_SIZE)
+        secs = []
+        for _ in range(CORK_CALLS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = cork_outputs(comp, state, torch, name)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        launches = device_launches(lambda: comp(state), torch)
+        olr = out['upwelling_longwave_flux_in_air'][-1]
+        bands = (2, 1) if name == 'parmentier' else (
+            comp.num_longwave_bands, comp._num_gpts)
+        phase(23, '%s %dx%dx%d f64, %d bands x %d g-points: %.3f ms/call '
+              '[min %.3f, max %.3f; first %.3f], %d device operations a '
+              'call; OLR %.1f-%.1f W/m^2; on %s' % (
+                  name, *CORK_SIZE, *bands, 1e3 * median(secs[1:]),
+                  1e3 * min(secs[1:]), 1e3 * max(secs[1:]), 1e3 * secs[0],
+                  launches, float(olr.min()), float(olr.max()), card))
+        del comp, state, out
+    for level in (0, 1):
+        comp, state = cork_setup('earth_low_res_lw', dev, CORK_T85, level)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = cork_outputs(comp, state, torch, 'earth_low_res_lw T85')
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            del out
+        peak = torch.cuda.max_memory_allocated()
+        phase(23, 'earth_low_res_lw %dx%dx%d f64 diagnostics_level %d: '
+              '%.4f s/call [first %.4f], peak memory %.2f GB (%.2f GB above '
+              'the state and tables); on %s' % (
+                  *CORK_T85, level, median(secs[1:]), secs[0], peak / 1e9,
+                  (peak - before) / 1e9, card))
+        del comp, state
+        torch.cuda.empty_cache()
+    if any(c.launches for c in counters.values()):
+        fail('phase 23: CORK launched kernel A %d, B %d times' % (
+            counters['A'].launches, counters['B'].launches))
+
+    cpu = torch.device('cpu')
+    worst_case = (0.0, None)
+    for name in CORK_CASES:
+        runs = {}
+        for label, device, nudge in (('cpu', cpu, False), ('nudged', cpu, True),
+                                     ('card', dev, False)):
+            comp, state = cork_setup(name, device, CORK_SMALL, 1, nudge)
+            runs[label] = cork_outputs(comp, state, torch, name)
+        spread = largest_difference(runs['nudged'], runs['cpu'])
+        limit = 10.0 * max(spread, SPREAD_FLOOR)
+        worst = largest_difference(runs['card'], runs['cpu'])
+        if not worst <= limit:
+            fail('phase 23 %s: the card differs from the CPU by %.3g of '
+                 'max, more than %.3g (10 x the one-ulp spread %.3g, floor '
+                 '%.3g)' % (name, worst, limit, spread, SPREAD_FLOOR))
+        phase(23, '%s %dx%dx%d f64 diagnostics_level 1, card against the '
+              'CPU: %.3g of max, limit %.3g (one-ulp spread %.3g)' % (
+                  name, *CORK_SMALL, worst, limit, spread))
+
+
+def matmul_dft_phase(dev, card, counters, init_fft, step_fft):
+    """Phase 24: the matmul zonal DFT.  The T85 moist GCM of phase 6 built
+    with fft_impl='matmul' (float32): one step from seed 0, every field of
+    the now state (in grid space) and of aux within MATMUL_RATIO times
+    the larger of FLOAT32_EPS and the distance of phase 6's fft model
+    (``init_fft``, ``step_fft``) from the float64 fft model's step, as a
+    distance from that step (max |a - b| / max |b|).  The two float32
+    DFTs round differently, and the physics' thresholds (convection,
+    RRTMG's reference levels) turn that into differences beyond
+    MESH_FIELD_TOL and MESH_AUX_TOL in a few columns (q 3.19 times its
+    limit at T85 on an H100), as they do between either float32 model
+    and the float64 one.  Then windows of T85_STEPS steps of the fft
+    model, the matmul model, the matmul model and the fft model, each
+    going on from its own carry, timed step by step, with both kernels'
+    launch counts set to 0 before each matmul window and read after it
+    (exactly 24 B and 4 A launches per refresh).  Then the model at
+    GRID_SMALL, float64, 7 steps on the card against the CPU within
+    SMALL_TOL; then phase 21 (a)'s replicated layout (one NCCL rank,
+    shard_lon False and True) with the matmul DFT: one step against the
+    single-device matmul step within MESH_FIELD_TOL and MESH_AUX_TOL."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from climt_tpu_torch.convert import carry_to_global, carry_to_numpy
+    from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
+    from climt_tpu_torch.parallel import shard_model_state
+    from climt_tpu_torch.profile_step import world_of_one
+
+    def grid_fields(carry):
+        """{name: float64 numpy} of a numpy carry's now state in grid space
+        (synthesized in float64), and its aux."""
+        out = {'aux ' + k: np.float64(v) for k, v in carry[3].items()}
+        for name, v in carry[1].items():
+            out[name] = (sht64.synthesize(torch.as_tensor(
+                v, device=dev).to(torch.complex128)).cpu().numpy()
+                if np.iscomplexobj(v) else np.float64(v))
+        return out
+
+    def one_step_against(ref, got, sht, label):
+        worst = {}
+        for name, b in ref[1].items():
+            a = got[1][name]
+            if np.iscomplexobj(b):
+                a, b = (sht.synthesize(torch.as_tensor(
+                    x, device=dev)).cpu().numpy() for x in (a, b))
+            worst[name] = check_close(a, b, MESH_FIELD_TOL,
+                                      'phase 24 %s %s' % (label, name))
+        for name, b in ref[3].items():
+            worst['aux ' + name] = check_close(
+                got[3][name], b, MESH_AUX_TOL,
+                'phase 24 %s aux %s' % (label, name))
+        if int(got[4]) != int(ref[4]):
+            fail('phase 24 %s: step index %s, not %s' % (label, got[4],
+                                                         ref[4]))
+        return max(worst.values()), max(worst, key=worst.get)
+
+    total = {k: 0 for k in counters}
+    refreshes = sum(1 for k in range(T85_STEPS) if k % T85['rad_every'] == 0)
+    dycore64, init64, step64, _ = build_moist_gcm(
+        dtype=torch.float64, device=dev, **T85)
+    sht64 = dycore64.sht
+    ref64 = grid_fields(carry_to_numpy(step64(init64(0))[0]))
+    del dycore64, init64, step64
+    torch.cuda.empty_cache()
+    dycore, init_fn, step_fn, _ = build_moist_gcm(
+        dtype=torch.float32, device=dev, fft_impl='matmul', **T85)
+    if dycore.sht.fft_impl != 'matmul':
+        fail('phase 24: the model transforms with %r' % dycore.sht.fft_impl)
+    fft = carry_to_numpy(step_fft(init_fft(0))[0])
+    mm = carry_to_numpy(step_fn(init_fn(0))[0])
+    if int(mm[4]) != int(fft[4]):
+        fail('phase 24: step index %s, not %s' % (mm[4], fft[4]))
+    grids = {'fft': grid_fields(fft), 'matmul': grid_fields(mm)}
+    err, ratios, apart = {}, {}, {}
+    for name, b in ref64.items():
+        scale = np.abs(b).max()
+        for label, g in grids.items():
+            err[label, name] = float(np.abs(g[name] - b).max() / scale)
+        apart[name] = float(np.abs(grids['matmul'][name]
+                                   - grids['fft'][name]).max() / scale)
+        ratios[name] = err['matmul', name] / max(err['fft', name],
+                                                 FLOAT32_EPS)
+    worst = max(ratios, key=ratios.get)
+    phase(24, 'T85 f32 fft_impl=matmul, one step from seed 0: distance '
+          'from the f64 fft step (of max) matmul/fft, and the matmul '
+          'step\'s difference from the fft step: %s; on %s' % (
+              ', '.join('%s %.3g/%.3g (%.3g)' % (
+                  name, err['matmul', name], err['fft', name], apart[name])
+                  for name in ref64), card))
+    if not ratios[worst] <= MATMUL_RATIO:
+        fail('phase 24: one step of the matmul model is %.3g of max from '
+             'the float64 model in %s, %.3g times the fft model\'s %.3g '
+             '(limit %g)' % (err['matmul', worst], worst, ratios[worst],
+                             err['fft', worst], MATMUL_RATIO))
+    phase(24, 'T85 f32 fft_impl=matmul: largest ratio of the distances '
+          'from the f64 step %.3g (%s; limit %g, floor %.3g of max)' % (
+              ratios[worst], worst, MATMUL_RATIO, FLOAT32_EPS))
+    del fft, mm, ref64, grids, sht64
+
+    carries = {'fft': init_fft(0), 'matmul': init_fn(0)}
+    steps = {'fft': step_fft, 'matmul': step_fn}
+    seconds = {'fft': [], 'matmul': []}
+    windows = []
+    for kind in ('fft', 'matmul', 'matmul', 'fft'):
+        torch.cuda.synchronize()
+        for counter in counters.values():
+            counter.launches = 0
+        carries[kind], diag, step_s = timed_steps(steps[kind], carries[kind],
+                                                  T85_STEPS, torch)
+        seconds[kind] += step_s
+        windows.append('%s %.4f' % (kind, median(step_s)))
+        if kind != 'matmul':
+            continue
+        launches = {k: c.launches for k, c in counters.items()}
+        if launches != {'B': 24 * refreshes, 'A': 4 * refreshes}:
+            fail('phase 24: kernel launches A=%d B=%d in %d refreshes, not '
+                 '4 and 24 each' % (launches['A'], launches['B'], refreshes))
+        for k in total:
+            total[k] += launches[k]
+        T = dycore.sht.synthesize(carries[kind][1]['T'])
+        for key, val in [('T', T)] + list(diag.items()):
+            if not bool(torch.isfinite(val).all()):
+                fail('phase 24: NaN or inf in %s' % key)
+        if not 150.0 < float(T.min()) < float(T.max()) < 350.0:
+            fail('phase 24: T in [%g, %g]' % (float(T.min()),
+                                               float(T.max())))
+    phase(24, 'T85 f32, %d-step windows (median s/step: %s): matmul %.4f '
+          's/step, fft %.4f (medians over two windows each); per refresh '
+          'kernel B %g, kernel A %g; on %s' % (
+              T85_STEPS, ', '.join(windows), median(seconds['matmul']),
+              median(seconds['fft']), total['B'] / (2 * refreshes),
+              total['A'] / (2 * refreshes), card))
+    del carries, steps, diag, T
+    torch.cuda.empty_cache()
+
+    finals = {}
+    for label, where in (('cpu', torch.device('cpu')), ('card', dev)):
+        _, small_init, _, small_run = build_moist_gcm(
+            device=where, dtype=torch.float64, fft_impl='matmul',
+            **GRID_SMALL)
+        finals[label] = carry_to_numpy(small_run(small_init(0), 7)[0])[2]
+    diffs = {}
+    for key, tol in SMALL_TOL.items():
+        a, b = finals['card'][key], finals['cpu'][key]
+        if not np.isfinite(a).all():
+            fail('phase 24: non-finite %s on the card' % key)
+        diffs[key] = float(np.abs(a - b).max())
+        if not diffs[key] <= tol:
+            fail('phase 24: %s differs by %g > %g' % (key, diffs[key], tol))
+    phase(24, '%dx%dx%d f64 fft_impl=matmul, 7 steps, card against the '
+          'CPU, max abs diff: %s (limits %s)' % (
+              GRID_SMALL['nlon'], GRID_SMALL['nlat'], GRID_SMALL['nz'],
+              ', '.join('%s %.3g' % kv for kv in diffs.items()),
+              ', '.join('%s %g' % kv for kv in SMALL_TOL.items())))
+
+    with world_of_one() as mesh:
+        if dist.get_world_size() != 1 or dist.get_backend() != 'nccl':
+            fail('phase 24: a world of %d %s ranks, not one NCCL rank' % (
+                dist.get_world_size(), dist.get_backend()))
+        ref = carry_to_numpy(step_fn(init_fn(0))[0])
+        for shard_lon in (False, True):
+            got = carry_to_global(step_fn(shard_model_state(
+                mesh, *init_fn(0), shard_lon=shard_lon))[0])
+            worst, where = one_step_against(
+                ref, got, dycore.sht, 'replicated shard_lon=%s' % shard_lon)
+            phase(24, 'world of one NCCL rank, T85 f32 fft_impl=matmul, '
+                  'replicated shard_lon=%s, one step against the '
+                  'single-device step: largest difference over its limit '
+                  '%.3g (%s); on %s' % (shard_lon, worst, where, card))
+    del dycore, init_fn, step_fn, ref, got
+    torch.cuda.empty_cache()
+
+
 def check_close(a, b, tol, label):
     """max of |a - b| / (atol + rtol |b|), failing above 1."""
     import numpy as np
@@ -2254,7 +2591,13 @@ def main():
     # ---- phase 22: examples printing card fields ------------------------
     verbose_examples_phase(card)
 
+    # ---- phases 23-24: CORK longwave radiation, the matmul zonal DFT ----
+    cork_phase(dev, card, counters)
+    torch.cuda.empty_cache()
+    matmul_dft_phase(dev, card, counters, init_fn, step_fn)
+
     # the float32 entries count the T85 runs of phases 6, 17, 20 and 21
+    # (phase 24 checks its own: 24 B and 4 A launches per refresh)
     kernels = [
         dict(name='mix_groups_cuda', route='cuda',
              source='climt_tpu_torch/csrc/mix_rows.cu',

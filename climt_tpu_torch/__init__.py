@@ -23,8 +23,11 @@ and the fused models
 ``climt_tpu_torch.dycore.moist_gcm.build_moist_gcm`` and
 ``climt_tpu_torch.dycore.compiled.build_held_suarez_model``.  Moisture
 and registered tracers move in spectral or grid space (``ops/``'s FV and
-semi-Lagrangian operators).  Whatever builds on a device takes
-``device=`` and defaults to the CUDA card.
+semi-Lagrangian operators).  CORK longwave radiation (correlated-k
+tables and Parmentier picket-fence optics) is
+``climt_tpu_torch.components.cork.lw.CorkLongwaveRadiation``, not
+exported here, as the JAX package does not export it.  Whatever builds on
+a device takes ``device=`` and defaults to the CUDA card.
 """
 
 from .core.base_components import (

@@ -25,6 +25,11 @@ A carry in the replicated-spectral layout (``parallel.shard_model_state``
 of a model built without a mesh) holds DTensors: ``carry_to_layout``
 places a global numpy carry so, and ``carry_to_global`` gathers each
 DTensor's global tensor (its ``full_tensor()``).
+
+Nothing else carries over: a model built with ``fft_impl='matmul'``
+rebuilds its DFT matrices from nlon and the truncation, and CORK
+radiation has no parameters beyond its k-table, a numpy dict that
+``components.cork.ck_tables.load_k_table`` takes in both packages.
 """
 
 from __future__ import annotations

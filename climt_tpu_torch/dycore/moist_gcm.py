@@ -88,7 +88,7 @@ class MoistGCM(nn.Module):
                  ocean_depth, dtype, rad_every, rad_col_chunk,
                  conserve_water, device='cuda',
                  moisture_advection='spectral', mesh=None,
-                 layout='m_sharded', shard_lon=False):
+                 layout='m_sharded', shard_lon=False, fft_impl='fft'):
         super().__init__()
         device = resolve_device(device)
         # the arguments a rank-local twin is built with (``_layout_twin``)
@@ -97,14 +97,15 @@ class MoistGCM(nn.Module):
             number_of_damped_levels=number_of_damped_levels,
             ocean_depth=ocean_depth, dtype=dtype, rad_every=rad_every,
             rad_col_chunk=rad_col_chunk, conserve_water=conserve_water,
-            device=device, moisture_advection=moisture_advection)
+            device=device, moisture_advection=moisture_advection,
+            fft_impl=fft_impl)
         self._twins = {}
         ak, bk = hybrid_sigma_pressure_coefficients(nz + 1, 1e5, 20.0)
         self.dycore = SpectralDycore(
             nlon, nlat, nz, ak, bk, timestep=timestep,
             number_of_damped_levels=number_of_damped_levels, dtype=dtype,
             device=device, moisture_advection=moisture_advection, mesh=mesh,
-            layout=layout, shard_lon=shard_lon)
+            layout=layout, shard_lon=shard_lon, fft_impl=fft_impl)
         # the latitude rows and longitude columns this model holds: all,
         # or its mesh block
         self.rows, self.cols = self.dycore.sht.rows, self.dycore.sht.cols
@@ -422,8 +423,11 @@ def build_moist_gcm(nlon=128, nlat=64, nz=28, timestep=600.0,
 
     moisture_advection: 'spectral', 'fv' or 'sl'.  'fv' is locally
     conservative, so the global water fixer is off; 'sl' is not, and
-    keeps it on, acting on the grid q.  The matmul DFT raises
-    NotImplementedError.
+    keeps it on, acting on the grid q.
+
+    fft_impl: the zonal transform, 'fft' (``torch.fft``) or 'matmul'
+    (the truncated DFT as real matmuls, ``ops.sht``); every layout's
+    transforms take it.
 
     mesh: a ``torch.distributed`` ``DeviceMesh`` with a 'lat' axis
     (``parallel.make_mesh``), the production multi-GPU layout: every rank
@@ -441,14 +445,11 @@ def build_moist_gcm(nlon=128, nlat=64, nz=28, timestep=600.0,
         raise TypeError(
             'mesh: expected a torch.distributed.device_mesh.DeviceMesh '
             '(climt_tpu_torch.parallel.make_mesh), got %r' % (mesh,))
-    if fft_impl != 'fft':
-        raise NotImplementedError(
-            "fft_impl=%r: only 'fft' is ported; 'matmul' is on ROADMAP.md's "
-            "do-not-port list" % (fft_impl,))
     if moisture_advection == 'fv':
         conserve_water = False        # FV is conservative by construction
     device = resolve_device(device)
     model = MoistGCM(nlon, nlat, nz, timestep, number_of_damped_levels,
                      ocean_depth, dtype, rad_every, rad_col_chunk,
-                     conserve_water, device, moisture_advection, mesh)
+                     conserve_water, device, moisture_advection, mesh,
+                     fft_impl=fft_impl)
     return model.dycore, model.init, model.step, model.run

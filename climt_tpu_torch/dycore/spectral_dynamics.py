@@ -73,13 +73,17 @@ class SpectralDycore(nn.Module):
                  asselin_strength=0.05,
                  rd=287.0, cpd=1004.64, g=9.80665,
                  radius=6.371e6, omega=7.292e-5,
-                 dtype=torch.float64, device='cuda',
+                 dtype=torch.float64, fft_impl='fft', device='cuda',
                  moisture_advection='spectral', fv_max_wind=120.0,
                  mesh=None, dist_axis='lat', layout='m_sharded',
                  shard_lon=False):
         """``ak``, ``bk``: bottom-up interface coefficients with
         p_interface = ak + bk (ps - p_top), as in the JAX constructor
         (spectral_dynamics.py:43).
+
+        ``fft_impl``: the zonal transform, 'fft' (``torch.fft``) or
+        'matmul' (the truncated DFT as real matmuls); a mesh's transforms
+        take the same.
 
         ``moisture_advection``: 'spectral' (advective form), 'fv'
         (conservative flux-form transport in grid space on the dycore's
@@ -119,7 +123,7 @@ class SpectralDycore(nn.Module):
         self.nlon, self.nlat, self.nz = nlon, nlat, nz
         self.sht = SphericalHarmonicTransform(
             nlon, nlat, truncation, radius=radius, dtype=dtype,
-            device=device)
+            device=device, fft_impl=fft_impl)
         if mesh is not None and layout == 'replicated':
             self.sht = ReplicatedSHT(self.sht, mesh, shard_lon=shard_lon)
         elif mesh is not None:

@@ -3,10 +3,11 @@
 Same conventions as the JAX module: triangular truncation with dense
 (M+1, N+1) complex coefficient arrays masked to n >= m, P̄ normalised so
 that (1/2) ∫ P̄² dmu = 1, grid latitude index 0 northernmost.  The zonal
-stage is ``torch.fft.rfft``/``irfft`` (the JAX module's
-``fft_impl='fft'``); each Legendre stage is a batched matmul over m (the
-real and imaginary parts contracted separately, so every product is a
-real float matmul).
+stage is ``torch.fft.rfft``/``irfft`` (``fft_impl='fft'``) or the
+truncated DFT as two real matmuls against matrices built at construction
+(``fft_impl='matmul'``, sht.py:148-186); each Legendre stage is a batched
+matmul over m (the real and imaginary parts contracted separately, so
+every product is a real float matmul).
 """
 
 from __future__ import annotations
@@ -55,6 +56,11 @@ def _legendre_tensors(truncation, mu):
     return P[:, :T + 1, :], H
 
 
+FFT_IMPLS = ('fft', 'matmul')
+# the matmul DFT's buffers: analysis (nlon, M+1), synthesis (M+1, nlon)
+DFT_BUFFERS = ('dft_cos', 'dft_sin', 'idft_cos', 'idft_sin')
+
+
 def complex_dtype(dtype):
     return torch.complex64 if dtype == torch.float32 else torch.complex128
 
@@ -69,9 +75,16 @@ class SphericalHarmonicTransform(nn.Module):
     cols = slice(None)
 
     def __init__(self, nlon, nlat, truncation=None, radius=6.371e6,
-                 dtype=torch.float64, device='cuda'):
+                 dtype=torch.float64, device='cuda', fft_impl='fft'):
+        """``fft_impl``: 'fft' takes ``torch.fft``; 'matmul' evaluates the
+        truncated zonal DFT as real matmuls with the M+1 retained
+        wavenumbers only."""
         super().__init__()
         device = resolve_device(device)
+        if fft_impl not in FFT_IMPLS:
+            raise ValueError('fft_impl %r: expected one of %s'
+                             % (fft_impl, FFT_IMPLS))
+        self.fft_impl = fft_impl
         if truncation is None:
             truncation = min((2 * nlat - 1) // 3, (nlon - 1) // 3)
         self.nlon, self.nlat = nlon, nlat
@@ -111,15 +124,28 @@ class SphericalHarmonicTransform(nn.Module):
         buf('coslat', np.sqrt(1.0 - mu ** 2)[:, None])     # (lat, 1)
         buf('im_m', (1j * m.astype(np.float64))[:, None],   # (M, 1)
             self.cdtype)
+        if fft_impl == 'matmul':
+            # the real factors of the truncated zonal DFT (sht.py:148)
+            theta = 2.0 * np.pi * np.outer(np.arange(nlon), m) / nlon
+            wm = np.full(truncation + 1, 2.0)
+            wm[0] = 1.0
+            buf('dft_cos', np.cos(theta) / nlon)
+            buf('dft_sin', -np.sin(theta) / nlon)
+            buf('idft_cos', (np.cos(theta) * wm[None, :]).T)
+            buf('idft_sin', (np.sin(theta) * wm[None, :]).T)
 
     # -- zonal (Fourier) stage ------------------------------------------
     def _fft(self, grid):
         """(..., nlat, nlon) -> (..., nlat, M+1) complex Fourier coeffs."""
+        if self.fft_impl == 'matmul':
+            return torch.complex(grid @ self.dft_cos, grid @ self.dft_sin)
         fm = torch.fft.rfft(grid, dim=-1) / self.nlon
         return fm[..., :self.truncation + 1]
 
     def _ifft(self, fm):
         """(..., nlat, M+1) -> (..., nlat, nlon) real grid."""
+        if self.fft_impl == 'matmul':
+            return fm.real @ self.idft_cos - fm.imag @ self.idft_sin
         nfreq = self.nlon // 2 + 1
         fm_full = nn.functional.pad(fm, (0, nfreq - fm.shape[-1]))
         return torch.fft.irfft(fm_full * self.nlon, n=self.nlon, dim=-1)

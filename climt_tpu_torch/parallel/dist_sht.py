@@ -31,7 +31,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from ..ops.sht import SphericalHarmonicTransform
+from ..ops.sht import DFT_BUFFERS, SphericalHarmonicTransform
 
 
 def transpose(x, group):
@@ -101,7 +101,7 @@ class DistributedSHT(nn.Module):
         self.cdtype = sht.cdtype
         self.mu = sht.mu
         self.weights = sht.weights
-        self.fft_impl = 'fft'
+        self.fft_impl = sht.fft_impl
 
         def buf(name, t):
             self.register_buffer(name, t.contiguous())
@@ -117,6 +117,9 @@ class DistributedSHT(nn.Module):
                          device=sht.P.device)[self.m_rows]
         buf('im_m', torch.complex(torch.zeros_like(m), m)[:, None])
         buf('coslat', sht.coslat[self.rows])
+        if self.fft_impl == 'matmul':       # the zonal DFT is row-local
+            for name in DFT_BUFFERS:
+                buf(name, getattr(sht, name))
 
     # -- where the blocks are cut ------------------------------------------
     def m_block_of(self, a, fill='edge'):

@@ -7,14 +7,16 @@ its partitioner derive the collectives of ``climt_tpu/ops/sht.py``.  This
 module is what that partitioning amounts to, written out:
 
   synthesis   no communication: the Legendre sum over every m on the
-              rank's latitude rows, ``irfft`` to whole rows, and with
-              ``shard_lon`` the rank's columns kept;
+              rank's latitude rows, the inverse zonal transform to whole
+              rows, and with ``shard_lon`` the rank's columns kept;
   analysis    one reduction: with ``shard_lon`` the rank's rows are first
               made whole by an ``all_gather`` over the 'lon' group (the
-              zonal ``rfft`` then is the single-device one); the Legendre
-              partial sum over the rank's latitudes; ``all_reduce(SUM)``
-              over the 'lat' group.  ``analyze_many`` puts every analysis
-              of a dycore stage through one gather and one reduction.
+              zonal transform, ``rfft`` or the matmul DFT as
+              ``sht.fft_impl`` says, then is the single-device one); the
+              Legendre partial sum over the rank's latitudes;
+              ``all_reduce(SUM)`` over the 'lat' group.  ``analyze_many``
+              puts every analysis of a dycore stage through one gather
+              and one reduction.
 
 Every rank of a 'lat' group receives the same all-reduced bits, and the
 'lon' ranks of one row block gather the same whole rows, so the spectral
@@ -35,7 +37,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from ..ops.sht import SphericalHarmonicTransform
+from ..ops.sht import DFT_BUFFERS, SphericalHarmonicTransform
 
 
 def all_reduce_sum(xs, group):
@@ -140,7 +142,7 @@ class ReplicatedSHT(nn.Module):
         self.cdtype = sht.cdtype
         self.mu = sht.mu
         self.weights = sht.weights
-        self.fft_impl = 'fft'
+        self.fft_impl = sht.fft_impl
 
         def buf(name, t):
             self.register_buffer(name, t.contiguous())
@@ -153,11 +155,15 @@ class ReplicatedSHT(nn.Module):
         n = torch.arange(M, dtype=sht.dtype, device=sht.P.device)
         buf('n_2d', n[None, :].expand(M, M))
         buf('coslat', sht.coslat[self.rows])
+        if self.fft_impl == 'matmul':       # the zonal DFT is row-local
+            for name in DFT_BUFFERS:
+                buf(name, getattr(sht, name))
 
     # -- zonal stage: whole rows in, the rank's columns out -------------------
     def _fft(self, grid):
-        """(..., rows, cols) -> (..., rows, M+1): the single-device rfft of
-        the whole rows (gathered over 'lon' first under ``shard_lon``)."""
+        """(..., rows, cols) -> (..., rows, M+1): the single-device zonal
+        transform of the whole rows (gathered over 'lon' first under
+        ``shard_lon``)."""
         if self.shard_lon:
             grid = all_gather_cat(grid, self.lon_group, self.K, -1)
         return SphericalHarmonicTransform._fft(self, grid)

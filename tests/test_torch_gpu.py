@@ -467,3 +467,102 @@ def test_numpy_reads_a_card_field_and_writes_stay_on_the_card(cuda):
     assert field.values.is_cuda
     assert float(field.values.min()) == float(field.values.max()) == 250.0
     assert np.asarray(state['air_temperature'].values).max() == 250.0
+
+
+CORK_CASES = ('earth_low_res_lw', 'earth_low_res_lw_4band_ngpt2_before',
+              'mars_lw', 'single_band_gray_lw', 'single_band_unit_lw',
+              'test_2band_lw', 'titan_lw', 'tour_gray_lw',
+              'trappist1e_hab1_lw', 'trappist1e_hab2_lw', 'venus_lw', 'esft',
+              'parmentier')
+
+
+@pytest.fixture
+def band_count():
+    """CORK declares its band count in a module global: restore it."""
+    from climt_tpu_torch.core import initialization
+    saved = initialization._num_longwave_bands
+    yield
+    initialization._num_longwave_bands = saved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name', CORK_CASES)
+def test_cork_on_the_card_matches_the_cpu(cuda, band_count, name):
+    """CorkLongwaveRadiation.array_call on 28 levels x 16 columns with
+    clouds and diagnostics_level 1, every output on the card within 1e-12
+    of the CPU's max (the same operations; exp, log and pow round
+    differently on the card)."""
+    from climt_tpu_torch.components.cork.lw import CorkLongwaveRadiation
+    from torch_helpers import cork_columns, esft_table
+    kw = (dict(optics='parmentier') if name == 'parmentier' else
+          dict(table=esft_table() if name == 'esft' else name))
+    out = {}
+    for dev in ('cpu', cuda):
+        comp = CorkLongwaveRadiation(device=dev, diagnostics_level=1, **kw)
+        tend, diag = comp.array_call(cork_columns(comp.num_longwave_bands,
+                                                  hot=name == 'parmentier'))
+        out[str(dev)] = dict(diag, tendency=tend['T'])
+    for key, ref in out['cpu'].items():
+        got = out['cuda:0'][key]
+        assert got.is_cuda, key
+        assert rel_err(got, ref) < 1e-12, key
+
+
+@pytest.mark.gpu
+def test_cork_builds_on_the_card_by_default(cuda, band_count):
+    from climt_tpu_torch.components.cork.lw import CorkLongwaveRadiation
+    comp = CorkLongwaveRadiation(table='mars_lw')
+    assert comp.device.type == 'cuda'
+    state = ct.get_default_state([comp], grid_state=ct.get_grid(
+        nx=16, ny=8, nz=8))
+    tendencies, diagnostics = comp(state)
+    assert tendencies['air_temperature'].values.is_cuda
+    assert diagnostics['upwelling_longwave_flux_in_air'].values.is_cuda
+
+
+@pytest.mark.gpu
+def test_matmul_dft_on_the_card_matches_the_cpu(cuda):
+    """The matmul zonal DFT's analysis and synthesis at 64x32 float64
+    within 1e-12 of the CPU, and 2 float32 steps of the moist GCM with it
+    at 32x16x10, as test_moist_gcm_gpu_matches_cpu."""
+    from climt_tpu_torch.ops.sht import SphericalHarmonicTransform
+    grid = np.random.RandomState(8).randn(4, 32, 64)
+    spec = {}
+    for dev in ('cpu', cuda):
+        sht = SphericalHarmonicTransform(64, 32, dtype=torch.float64,
+                                         device=dev, fft_impl='matmul')
+        s = sht.analyze(to_torch(grid, device=dev))
+        spec[str(dev)] = (s, sht.synthesize(s))
+    for got, ref in zip(spec['cuda:0'], spec['cpu']):
+        assert rel_err(got, ref) < 1e-12
+    kw = dict(nlon=32, nlat=16, nz=10, rad_every=6, rad_col_chunk=128,
+              dtype=torch.float32, fft_impl='matmul')
+    out = {}
+    for dev in ('cpu', cuda):
+        _, init_fn, _, run_fn = build_moist_gcm(device=dev, **kw)
+        carry, _ = run_fn(init_fn(0), 2)
+        out[str(dev)] = carry_to_numpy(carry)[2]
+    for key, tol in (('T', 0.01), ('u', 0.02), ('v', 0.02), ('ps', 15.0)):
+        assert np.abs(out['cuda:0'][key] - out['cpu'][key]).max() < tol
+
+
+@pytest.mark.gpu
+def test_parmentier_optics_copy_no_state_field_to_the_host(cuda, band_count):
+    """The Parmentier optics run on the card where JAX runs them in numpy
+    on the host: under CUDA's sync debug mode 'error' no operation of
+    theirs may wait for the card (a device-to-host copy does)."""
+    from climt_tpu_torch.components.cork.lw import CorkLongwaveRadiation
+    from torch_helpers import cork_columns
+    comp = CorkLongwaveRadiation(optics='parmentier', device=cuda)
+    c = {k: to_torch(v, device=cuda) for k, v in cork_columns(2).items()}
+    comp.array_call(c)              # the coefficients reach the card
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        tau, planck_src, surf_src = comp._parmentier_optics(
+            c['T'], c['p'], c['p_int'], c['T_surf'], c['T_irr'],
+            c['T_int'], 5.670374e-8, 9.80665)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert tau.is_cuda and tau.shape == (2, 1, 28, 16)
+    assert planck_src.is_cuda and surf_src.shape == (2, 1, 16)

@@ -234,13 +234,10 @@ def test_default_device_is_cuda():
 
 def test_unported_options_raise():
     """A mesh that is not a torch.distributed DeviceMesh is refused with
-    the type it expected; the matmul DFT (not to be ported) is refused; an
-    unknown moisture scheme too."""
+    the type it expected; an unknown moisture scheme too."""
     from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
     with pytest.raises(TypeError, match='DeviceMesh'):
         build_moist_gcm(mesh=object(), device='cpu')
-    with pytest.raises(NotImplementedError, match='matmul'):
-        build_moist_gcm(fft_impl='matmul', device='cpu')
     with pytest.raises(ValueError):
         build_moist_gcm(nlon=32, nlat=16, nz=10, moisture_advection='upwind',
                         device='cpu')

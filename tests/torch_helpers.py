@@ -246,6 +246,91 @@ def radiation_columns(nz=40, ncol=16):
                 nz=nz, ncol=ncol)
 
 
+# one effective temperature inside each region of the Parmentier
+# coefficients (T_eff_boundaries 0, 200, 300, 600, 1400, 2000, inf), each
+# more than 1% from a boundary: the region picks the coefficients
+CORK_T_EFF = np.array([150.0, 250.0, 450.0, 1000.0, 1700.0, 2500.0])
+# Freedman's fit switches branch at 800 K; the hot columns sit above it
+CORK_HOT_SHIFT = 700.0
+
+
+def cork_profiles(p, ps, rng, hot=False):
+    """(T, q, co2, T_surf, T_irr, T_int) for CORK on levels ``p`` (nlev,
+    *columns) over surface pressures ``ps`` (*columns): a lapse-rate
+    temperature floored at 205 K, humidity falling as (p/ps)^3, CO2 at
+    400-600 ppm, and irradiation temperatures that put the columns'
+    T_eff in turn in each Parmentier region (``CORK_T_EFF``, internal
+    temperature 100 K).  ``hot`` adds ``CORK_HOT_SHIFT`` to every other
+    column, so Freedman's fit runs both branches."""
+    cols = ps.shape
+    Ts = 285.0 + 15.0 * rng.rand(*cols)
+    T = (np.maximum(Ts * (p / ps) ** 0.19, 205.0)
+         * (1.0 + 0.003 * rng.randn(*p.shape)))
+    if hot:
+        T = T + CORK_HOT_SHIFT * (np.arange(ps.size) % 2).reshape(cols)
+    q = 0.015 * (p / ps) ** 3 * (1.0 + 0.1 * rng.rand(*p.shape))
+    co2 = 400e-6 * (1.0 + 0.5 * rng.rand(*p.shape))
+    T_int = np.full(cols, 100.0)
+    T_irr = np.resize(((CORK_T_EFF ** 4 - 100.0 ** 4) / 0.25) ** 0.25, cols)
+    return T, q, co2, T[0] + 1.5, T_irr, T_int
+
+
+def cork_columns(nband, nlev=28, ncol=16, seed=0, hot=False):
+    """The array_call state of CorkLongwaveRadiation (its aliases) for
+    ``ncol`` columns with surface pressures 550-1050 hPa: ``cork_profiles``,
+    emissivity 0.90-0.99, and cloud of optical depth up to 0.6 per band
+    in levels 5-8."""
+    rng = np.random.RandomState(seed)
+    ps = np.linspace(55000.0, 105000.0, ncol)
+    p_int = np.linspace(1.0, 0.002, nlev + 1)[:, None] * ps[None, :]
+    p = 0.5 * (p_int[1:] + p_int[:-1])
+    T, q, co2, T_surf, T_irr, T_int = cork_profiles(p, ps, rng, hot)
+    cloud = np.zeros((nlev, ncol, nband))
+    cloud[5:9] = 0.6 * rng.rand(4, ncol, nband)
+    return dict(T=T, p=p, p_int=p_int, T_surf=T_surf, h2o=q, co2=co2,
+                emissivity=0.9 + 0.09 * rng.rand(nband, ncol),
+                tau_cloud_lw=cloud, T_irr=T_irr, T_int=T_int)
+
+
+def cork_fields(state, rng, hot=False):
+    """``cork_profiles`` and ``cork_columns``' emissivity and cloud for a
+    default state's grid (only the fields the state holds)."""
+    p = np.asarray(state['air_pressure'].values)
+    ps = np.asarray(state['surface_air_pressure'].values)
+    T, q, co2, T_surf, T_irr, T_int = cork_profiles(p, ps, rng, hot)
+    emis = state['surface_longwave_emissivity'].values.shape
+    cloud = np.zeros(state['longwave_optical_thickness_due_to_cloud']
+                     .values.shape)
+    cloud[5:9] = 0.6 * rng.rand(*cloud[5:9].shape)
+    fields = {'air_temperature': T, 'specific_humidity': q,
+              'mole_fraction_of_carbon_dioxide_in_air': co2,
+              'surface_temperature': T_surf,
+              'irradiation_temperature': T_irr,
+              'internal_temperature': T_int,
+              'surface_longwave_emissivity': 0.9 + 0.09 * rng.rand(*emis),
+              'longwave_optical_thickness_due_to_cloud': cloud}
+    return {k: v for k, v in fields.items() if k in state}
+
+
+def esft_table(seed=5):
+    """A synthetic two-gas (H2O, CO2) k-table whose gases overlap by ESFT:
+    3 bands of 2 g-points on 6 temperatures and 5 log-pressures, k
+    log-uniform in 1e-5-1e-1 m^2/kg.  No shipped table has two gases."""
+    rng = np.random.RandomState(seed)
+    nband, ngpt, nT, nP = 3, 2, 6, 5
+    frac = rng.rand(nband, ngpt, nT)
+    return {
+        'k_coefficients': 10.0 ** rng.uniform(-5.0, -1.0,
+                                              (2, nband, ngpt, nT, nP)),
+        'gpoint_weights': np.tile([0.7, 0.3], (nband, 1)),
+        'temperature_grid': np.linspace(150.0, 350.0, nT),
+        'pressure_grid_log': np.linspace(np.log(100.0), np.log(1.1e5), nP),
+        'planck_fraction': frac / frac.sum(axis=(0, 1)),
+        'gas_names': np.array(['h2o', 'co2']),
+        'overlap_method': np.array('esft'),
+    }
+
+
 def varying_ps_columns(nz=28, ncol=64):
     """Columns whose surface pressure runs from 550 to 1050 hPa, so that
     one model level spans several taumol pressure blocks across columns
@@ -510,8 +595,9 @@ def sht_rank_results(dsht, grids):
 def parallel_ops_rank(rank, world, sht_cases, fv_case):
     """The parallel layer on one rank of a CPU world: start-up, meshes,
     DistributedSHT on each case of ``sht_cases`` ({name: (nlon, nlat,
-    truncation, (grid_a, grid_b))}), and FVAdvection with the latitude
-    halo on ``fv_case`` ((mu, w, nlon, dt), (q, dp, u, v, mdot))."""
+    truncation, (grid_a, grid_b), fft_impl)}), and FVAdvection with the
+    latitude halo on ``fv_case`` ((mu, w, nlon, dt), (q, dp, u, v,
+    mdot))."""
     import torch.distributed as dist
     from torch.distributed.tensor import distribute_tensor
     from climt_tpu_torch.ops.fv_advection import FVAdvection
@@ -534,11 +620,13 @@ def parallel_ops_rank(rank, world, sht_cases, fv_case):
     n = 16 // world
     out['dtensor_block'] = bool(torch.equal(
         local, x[:, rank * n:(rank + 1) * n]))
-    for name, (nlon, nlat, truncation, grids) in sht_cases.items():
+    for name, (nlon, nlat, truncation, grids, fft_impl) in sht_cases.items():
         dsht = DistributedSHT(SphericalHarmonicTransform(
-            nlon, nlat, truncation, dtype=torch.float64, device='cpu'), mesh)
+            nlon, nlat, truncation, dtype=torch.float64, device='cpu',
+            fft_impl=fft_impl), mesh)
         out[name] = sht_rank_results(dsht, grids)
         out[name]['M_padded'] = dsht.M_padded
+        out[name]['fft_impl'] = dsht.fft_impl
     (mu, w, nlon, dt), fields = fv_case
     fv = FVAdvection(mu, w, nlon, 6.371e6, dt, dtype=torch.float64,
                      device='cpu', halo_exchange=make_lat_halo(mesh))
