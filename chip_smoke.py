@@ -133,7 +133,22 @@ Phases, each of which fails loudly (no exception is turned into exit 0):
      float32 limits, then 12-step windows alternating with the fft model
      (exactly 24 kernel-B and 4 kernel-A launches per refresh, s/step);
      at 64x32x10 float64, 7 steps on the card against the CPU within
-     SMALL_TOL; phase 21 (a)'s replicated layout with it, one step.
+     SMALL_TOL; phase 21 (a)'s replicated layout with it, one step;
+ 25. installed LW k-tables: the surrogate's tables with every absorption
+     array times exp(0.3 N(0, 1)) from seed 0 (tests/torch_helpers.py:
+     seeded_lw_tables), written to a temporary directory and installed
+     with load_aer_tables.  (a) kernel B's LW taug and fracs groups of
+     phase 3's T85 chunk (float32) and of the full-radiation example's
+     first call (float64) on those tables against the plain version
+     (1e-6 and 1e-12 of max), timed beside phase 3's surrogate numbers,
+     and the time of the first call after the install (the repack);
+     (b) one T85 refresh step of phase 6's model: exactly 24 kernel-B and
+     4 kernel-A launches, every field finite, T in (150, 350) K, OLR and
+     the LW heating apart from the surrogate step's; (c) RRTMGLongwave at
+     16x8x8 on the card against the CPU under phase 12's one-ulp rule
+     (floor SPREAD_FLOOR); (d) the override removed: the T85 chunk's LW
+     fluxes and the 16x8x8 component's outputs equal the pre-install
+     ones bitwise, and the cached layouts are the surrogate's again.
 The examples run through tests/torch_helpers.py:port_example, which the
 CPU tests use too.
 The line before the last is a JSON object with each kernel's launches,
@@ -240,6 +255,8 @@ CORK_CALLS = 5
 # MATMUL_RATIO times as far from the float64 model as the fft model's
 # (floored at one float32 epsilon of max)
 MATMUL_RATIO = 10.0
+# phase 25: RRTMGLongwave's card-against-CPU size
+KTABLE_SMALL = (16, 8, 8)
 FLOAT32_EPS = 2.0 ** -23
 # phase 17's card-against-CPU size
 GRID_SMALL = dict(nlon=64, nlat=32, nz=10, rad_every=6, rad_col_chunk=2048)
@@ -324,11 +341,11 @@ def group_cost(layout, ncell):
     return nbytes, ops
 
 
-def kernel_b_groups(groups, tol, card, torch):
-    """Phase 3 on one set of kernel-B groups {name: (layout, idx, w)}: each
-    against its plain version within tol of max, timed beside its bound,
-    the plain version and F.embedding_bag per band.  Returns the summed
-    record with one entry per group."""
+def kernel_b_groups(groups, tol, card, torch, n=3):
+    """Phase ``n`` on one set of kernel-B groups {name: (layout, idx, w)}:
+    each against its plain version within tol of max, timed beside its
+    bound, the plain version and F.embedding_bag per band.  Returns the
+    summed record with one entry per group."""
     from climt_tpu_torch.components.rrtmg import fused_mix
 
     total = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
@@ -367,7 +384,7 @@ def kernel_b_groups(groups, tol, card, torch):
         for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms'):
             total[key] += rec[key]
         total['max_abs_err'] = max(total['max_abs_err'], err)
-        phase(3, 'kernel B %s %s: %d cells, %d bands, %d terms: max abs err '
+        phase(n, 'kernel B %s %s: %d cells, %d bands, %d terms: max abs err '
               '%.3g (max %.3g, limit %g of max); %.4f ms, plain %.4f ms, '
               'embedding_bag %.4f ms, bound %.4f ms (%s, %.1f MB), %.0f%% of '
               'bound' % (gname, str(dtype).replace('torch.', ''), ncell,
@@ -377,12 +394,92 @@ def kernel_b_groups(groups, tol, card, torch):
         del out, ref, lib_fn, lib_check
     total['share'] = total['bound_ms'] / total['ms']
     total['bound_by'] = 'bytes'
-    phase(3, 'kernel B %s, 6 groups (6 launches): %.4f ms, plain %.4f ms, '
-          'embedding_bag %.4f ms, bound %.4f ms, %.0f%% of bound; on %s'
-          % (str(dtype).replace('torch.', ''), total['ms'],
+    phase(n, 'kernel B %s, %d groups (%d launches): %.4f ms, plain %.4f '
+          'ms, embedding_bag %.4f ms, bound %.4f ms, %.0f%% of bound; on %s'
+          % (str(dtype).replace('torch.', ''), len(groups), len(groups),
+             total['ms'],
              total['plain_ms'], total['library_ms'], total['bound_ms'],
              100.0 * total['share'], card))
     return total
+
+
+def t85_chunk(step_fn, init_fn, dev):
+    """The radiation inputs (play, plev, tlay, tlev, tsfc, h2o, o3, co2,
+    o2, emis) of the first radiation chunk of the T85 initial state."""
+    import torch
+
+    model = step_fn.__self__
+    _, _, grids, aux, _ = init_fn(0)
+    cols = model._to_cols
+    ph_c = cols(grids['p_half'])
+    inputs = model.radiation_inputs(
+        cols(grids['T']), torch.clamp(cols(grids['q']), min=0.0),
+        0.5 * (ph_c[1:] + ph_c[:-1]), ph_c, aux['Ts'].reshape(-1),
+        torch.tensor(0.0, device=dev))
+    chunk = T85['rad_col_chunk']
+    (play, plev, tlay, tlev, tsfc, h2o, o3, co2, o2, _, _, emis) = [
+        x[:chunk] if x.dim() == 1 else x[:, :chunk] for x in inputs]
+    return play, plev, tlay, tlev, tsfc, h2o, o3, co2, o2, emis
+
+
+def chunk_lw_coefs(chunk):
+    """gas_coefs_lw of a ``t85_chunk``, as the moist GCM calls it: (cs,
+    wx)."""
+    import torch
+    from climt_tpu_torch.components.rrtmg import lw_spectral as LW
+
+    play, plev, tlay, tlev, tsfc, h2o, o3, co2, o2, emis = chunk
+    zero = torch.zeros_like(play)
+    cs, wx, _ = LW.gas_coefs_lw(play, plev, tlay, tlev, tsfc, emis, h2o, o3,
+                                co2, zero, zero, o2, zero, zero, zero, zero,
+                                G, AVOGADRO)
+    return cs, wx
+
+
+def chunk_lw_fluxes(chunk):
+    """The moist GCM's LW call on a ``t85_chunk`` (kernels B and A):
+    rrtmg_lw_fluxes' six outputs."""
+    import torch
+    from climt_tpu_torch.components.rrtmg import lw_spectral as LW
+
+    play, plev, tlay, tlev, tsfc, h2o, o3, co2, o2, emis = chunk
+    zero = torch.zeros_like(play)
+    z16 = torch.zeros(play.shape + (16,), dtype=play.dtype,
+                      device=play.device)
+    return LW.rrtmg_lw_fluxes(
+        play, plev, tlay, tlev, tsfc, h2o, o3, co2, zero, zero, o2, zero,
+        zero, zero, zero, emis, zero, z16, zero, zero,
+        torch.full_like(play, 25.0), torch.full_like(play, 10.0), z16, G,
+        AVOGADRO, 1004.64, use_tables=False)
+
+
+def example_f64_groups():
+    """{name: (layout, idx, w)} of the float64 kernel-B groups of the
+    full-radiation example's first call at its own 128x62x28, captured as
+    the components run them."""
+    import torch
+    from climt_tpu_torch.components.rrtmg import fused_mix
+
+    captured = {}
+    run_group = fused_mix.Group.run
+
+    def capture(group):
+        layout, idx, w = group.finish()
+        if w.dtype == torch.float64:
+            key = group.key[0]
+            captured[key if isinstance(key, str) else key[0]] = (
+                layout, idx.clone(), w.clone())
+        return run_group(group)
+
+    fused_mix.Group.run = capture
+    try:
+        run_example(FULL_RADIATION, 1, n_steps=1)
+    finally:
+        fused_mix.Group.run = run_group
+    if len(captured) != 6:
+        fail('the full-radiation example ran %d float64 kernel-B groups, '
+             'not 6: %s' % (len(captured), sorted(captured)))
+    return captured
 
 
 def embedding_bag_call(layout, idx, w, torch):
@@ -1948,9 +2045,12 @@ def cork_phase(dev, card, counters):
     CORK_SMALL with diagnostics_level 1 on the card against the CPU,
     within 10 times the larger of SPREAD_FLOOR and the spread that one
     ulp more air temperature makes on the CPU.  CORK launches neither
-    kernel: fails if kernel A or B launched in (a) or (b)."""
+    kernel: fails if kernel A or B launched in (a) or (b).  Restores the
+    longwave band count that the CORK components declare."""
     import torch
+    from climt_tpu_torch.core import initialization
 
+    band_count = initialization._num_longwave_bands
     for counter in counters.values():
         counter.launches = 0
     for name in CORK_CASES:
@@ -2017,6 +2117,7 @@ def cork_phase(dev, card, counters):
         phase(23, '%s %dx%dx%d f64 diagnostics_level 1, card against the '
               'CPU: %.3g of max, limit %.3g (one-ulp spread %.3g)' % (
                   name, *CORK_SMALL, worst, limit, spread))
+    initialization._num_longwave_bands = band_count
 
 
 def matmul_dft_phase(dev, card, counters, init_fft, step_fft):
@@ -2192,6 +2293,189 @@ def matmul_dft_phase(dev, card, counters, init_fft, step_fft):
     torch.cuda.empty_cache()
 
 
+def rrtmg_lw_setup(device, nudge=False, size=KTABLE_SMALL):
+    """(component, state) of RRTMGLongwave on ``device`` and a default
+    nx x ny x nz float64 state with cloud in layers 3-4 (fraction 0.5, ice
+    0.3 g/m^2), the fields it reads on ``device``; with ``nudge`` the air
+    temperature is one ulp higher."""
+    import torch
+
+    import climt_tpu_torch as ct
+
+    comp = ct.RRTMGLongwave(device=device)
+    nx, ny, nz = size
+    state = ct.get_default_state([comp], grid_state=ct.get_grid(
+        nx=nx, ny=ny, nz=nz))
+    state['cloud_area_fraction_in_atmosphere_layer'].values[3:5] = 0.5
+    state['mass_content_of_cloud_ice_in_atmosphere_layer'].values[3:5] = 0.3
+    if nudge:
+        nudge_temperature(state)
+    for key in comp.input_properties:
+        state[key].values = torch.as_tensor(state[key].values,
+                                            device=device)
+    return comp, state
+
+
+def rrtmg_lw_outputs(device, nudge=False):
+    """{name: tensor} of one ``rrtmg_lw_setup`` call's tendency and
+    diagnostics, checked finite."""
+    import torch
+
+    comp, state = rrtmg_lw_setup(device, nudge)
+    tendencies, diagnostics = comp(state)
+    out = finite_float_fields(diagnostics, torch, 'RRTMGLongwave')
+    out.update({'tendency of ' + k: v for k, v in finite_float_fields(
+        tendencies, torch, 'RRTMGLongwave').items()})
+    return out
+
+
+def ktables_phase(dev, card, counters, init_fn, step_fn, report):
+    """Phase 25: installed LW k-tables through kernel B (see the module
+    docstring).  ``report`` holds phase 3's surrogate records.  Returns
+    (b)'s launch counts."""
+    import tempfile
+
+    import torch
+    from climt_tpu_torch.components.rrtmg import fused_mix
+    from climt_tpu_torch.components.rrtmg import lw_spectral as LW
+    from torch_helpers import seeded_lw_tables
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    chunk = t85_chunk(step_fn, init_fn, dev)
+    cs, wx = chunk_lw_coefs(chunk)
+    LW._KDIST_OVERRIDE[0] = None
+    surrogate = LW.load_kdist()
+    before = {'chunk': [x.clone() for x in chunk_lw_fluxes(chunk)],
+              'component': rrtmg_lw_outputs(dev)}
+    carry0 = init_fn(0)
+    _, diag_s = step_fn(carry0)
+    torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tables = LW.load_aer_tables(
+            seeded_lw_tables(os.path.join(tmp, 'seeded.npz'), seed=0))
+    if LW.load_kdist() is not tables:
+        fail('phase 25: load_aer_tables did not install the tables')
+
+    # (a) the LW groups on the installed tables, the first call packing
+    def lw_groups():
+        return dict(zip(('lw_taug', 'lw_fracs'),
+                        (g.finish() for g in LW.taumol_lw_terms(cs, wx,
+                                                                f32))))
+
+    timings = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        groups = lw_groups()
+        torch.cuda.synchronize()
+        timings.append(time.perf_counter() - t0)
+    # the packing alone, from the bands and parts a call writes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for group in LW.taumol_lw_terms(cs, wx, f32):
+        fused_mix.Layout(group.ngs, group.parts, f32, dev, tables)
+    torch.cuda.synchronize()
+    timings.append(time.perf_counter() - t0)
+    for layout, _, _ in groups.values():
+        if layout.source is not tables:
+            fail('phase 25: a float32 LW group packed the old tables')
+    rec32 = kernel_b_groups(groups, 1e-6, card, torch, n=25)
+    del groups
+    f64 = {k: v for k, v in example_f64_groups().items()
+           if k in ('lw_taug', 'lw_fracs')}
+    for layout, _, _ in f64.values():
+        if layout.source is not tables:
+            fail('phase 25: a float64 LW group packed the old tables')
+    rec64 = kernel_b_groups(f64, 1e-12, card, torch, n=25)
+    del f64
+    for label, rec, old in (('float32 T85 chunk', rec32, report['B']),
+                            ('float64 example', rec64, report['B_f64'])):
+        phase(25, 'kernel B %s on the installed tables: %s; phase 3 on the '
+              'surrogate: %s; on %s' % (label, ', '.join(
+                  '%s %.4f ms' % (k, rec['groups'][k]['ms'])
+                  for k in ('lw_taug', 'lw_fracs')), ', '.join(
+                  '%s %.4f ms' % (k, old['groups'][k]['ms'])
+                  for k in ('lw_taug', 'lw_fracs')), card))
+    phase(25, 'float32 LW groups built and finished: first call after the '
+          'install %.2f ms, second %.2f ms; packing both groups\' tables '
+          'alone %.2f ms' % tuple(1e3 * t for t in timings))
+
+    # (b) one T85 refresh step on the installed tables
+    carry0 = init_fn(0)
+    torch.cuda.synchronize()
+    for counter in counters.values():
+        counter.launches = 0
+    t0 = time.perf_counter()
+    carry, diag = step_fn(carry0)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    if launches != {'A': 4, 'B': 24}:
+        fail('phase 25: a T85 refresh step launched %s, not A=4, B=24'
+             % launches)
+    T_grid = step_fn.__self__.dycore.sht.synthesize(carry[1]['T'])
+    for key, val in [('T', T_grid)] + list(diag.items()):
+        if not bool(torch.isfinite(val).all()):
+            fail('phase 25: NaN or inf in %s' % key)
+    if not (150.0 < float(T_grid.min()) and float(T_grid.max()) < 350.0):
+        fail('phase 25: temperature out of range [%g, %g]' % (
+            float(T_grid.min()), float(T_grid.max())))
+    olr_err, olr_scale = max_rel_err(diag['olr'], diag_s['olr'])
+    if not olr_err > 1e-4 * olr_scale:
+        fail('phase 25: the installed tables moved OLR by %g of max only'
+             % (olr_err / olr_scale))
+    phase(25, 'T85 refresh step on the installed tables: %.4f s, launches '
+          'A=%d B=%d, T in [%.1f, %.1f] K, OLR %.4g of max from the '
+          'surrogate step\'s; on %s' % (
+              step_s, launches['A'], launches['B'], float(T_grid.min()),
+              float(T_grid.max()), olr_err / olr_scale, card))
+    del carry, carry0, diag, diag_s, T_grid
+
+    # (c) RRTMGLongwave on the card against the CPU
+    cpu = torch.device('cpu')
+    host = rrtmg_lw_outputs(cpu)
+    spread = largest_difference(rrtmg_lw_outputs(cpu, nudge=True), host)
+    limit = 10.0 * max(spread, SPREAD_FLOOR)
+    installed_card = rrtmg_lw_outputs(dev)
+    worst = largest_difference(installed_card, host)
+    if not worst <= limit:
+        fail('phase 25: RRTMGLongwave on the installed tables differs from '
+             'the CPU by %.3g of max, more than %.3g (10 x the one-ulp '
+             'spread %.3g, floor %.3g)' % (worst, limit, spread,
+                                           SPREAD_FLOOR))
+    moved = largest_difference(installed_card, before['component'])
+    phase(25, 'RRTMGLongwave %dx%dx%d f64 on the installed tables, card '
+          'against the CPU: %.3g of max, limit %.3g (one-ulp spread %.3g); '
+          '%.3g of max from the surrogate' % (
+              *KTABLE_SMALL, worst, limit, spread, moved))
+
+    # (d) the override removed: the surrogate's results, bitwise
+    LW._KDIST_OVERRIDE[0] = None
+    after = {'chunk': chunk_lw_fluxes(chunk),
+             'component': rrtmg_lw_outputs(dev)}
+    if LW.load_kdist() is not surrogate:
+        fail('phase 25: load_kdist did not go back to the surrogate')
+    if not all(torch.equal(a, b) for a, b in zip(after['chunk'],
+                                                  before['chunk'])):
+        fail('phase 25: the T85 chunk\'s LW fluxes after the override was '
+             'removed differ from the pre-install ones')
+    for name, ref in before['component'].items():
+        if not torch.equal(after['component'][name], ref):
+            fail('phase 25: RRTMGLongwave %s after the override was removed '
+                 'differs from the pre-install one' % name)
+    stale = [key for key, layout in fused_mix.Group._LAYOUTS.items()
+             if key[2] == str(dev) and layout.source is tables]
+    if stale:
+        fail('phase 25: card layouts still packed from the installed '
+             'tables: %s' % stale)
+    phase(25, 'override removed: T85 chunk LW fluxes and RRTMGLongwave '
+          'outputs equal the pre-install ones bitwise; phase 25 in %.1f s'
+          % (time.perf_counter() - t_phase))
+    return launches
+
+
 def check_close(a, b, tol, label):
     """max of |a - b| / (atol + rtol |b|), failing above 1."""
     import numpy as np
@@ -2273,29 +2557,19 @@ def main():
     dycore, init_fn, step_fn, _ = build_moist_gcm(
         dtype=f32, device=dev, **T85)
     model = step_fn.__self__
-    _, _, grids, aux, _ = init_fn(0)
-    cols = model._to_cols
-    ph_c = cols(grids['p_half'])
-    inputs = model.radiation_inputs(
-        cols(grids['T']), torch.clamp(cols(grids['q']), min=0.0),
-        0.5 * (ph_c[1:] + ph_c[:-1]), ph_c, aux['Ts'].reshape(-1),
-        torch.tensor(0.0, device=dev))
-    chunk = T85['rad_col_chunk']
-    (play, plev, tlay, tlev, tsfc, h2o, o3, co2, o2, _, _, emis) = [
-        x[:chunk] if x.dim() == 1 else x[:, :chunk] for x in inputs]
-    zero = torch.zeros_like(play)
-    cs, wx, _ = LW.gas_coefs_lw(play, plev, tlay, tlev, tsfc, emis, h2o, o3,
-                                co2, zero, zero, o2, zero, zero, zero, zero,
-                                G, AVOGADRO)
-    css = SW.gas_coefs_sw(play, plev, tlay, h2o, o3, co2, zero, zero, o2, G,
-                          AVOGADRO)
+    chunk = t85_chunk(step_fn, init_fn, dev)
+    play, plev, tlay, tlev, tsfc, h2o, o3, co2, o2, emis = chunk
+    cs, wx = chunk_lw_coefs(chunk)
+    css = SW.gas_coefs_sw(play, plev, tlay, h2o, o3, co2,
+                          torch.zeros_like(play), torch.zeros_like(play), o2,
+                          G, AVOGADRO)
     groups = dict(zip(
         ('lw_planck', 'lw_taug', 'lw_fracs', 'sw_taug', 'sw_taur',
          'sw_sflux'),
         (LW.planck_terms(tlay, tlev, tsfc),)
         + LW.taumol_lw_terms(cs, wx, f32)
         + SW.taumol_sw_terms(css, -1, *model.solar_config[:6], f32)))
-    del grids, aux, inputs, cs, css
+    del chunk, cs, css
     report['B'] = kernel_b_groups(
         {name: group.finish() for name, group in groups.items()}, 1e-6,
         card, torch)
@@ -2303,29 +2577,10 @@ def main():
     torch.cuda.empty_cache()
 
     # the six float64 groups of the full-radiation example's first call
-    # at 128x62x28, captured as the components run them
-    captured = {}
-    run_group = fused_mix.Group.run
-
-    def capture(group):
-        layout, idx, w = group.finish()
-        if w.dtype == torch.float64:
-            key = group.key[0]
-            captured[key if isinstance(key, str) else key[0]] = (
-                layout, idx.clone(), w.clone())
-        return run_group(group)
-
-    fused_mix.Group.run = capture
-    try:
-        run_example(FULL_RADIATION, 1, n_steps=1)
-    finally:
-        fused_mix.Group.run = run_group
-    if len(captured) != 6:
-        fail('the full-radiation example ran %d float64 kernel-B groups, '
-             'not 6: %s' % (len(captured), sorted(captured)))
-    # float64 sums in another order than the plain version's: a few ulps
-    report['B_f64'] = kernel_b_groups(captured, 1e-12, card, torch)
-    del captured
+    # at 128x62x28, captured as the components run them; float64 sums in
+    # another order than the plain version's: a few ulps
+    report['B_f64'] = kernel_b_groups(example_f64_groups(), 1e-12, card,
+                                      torch)
     torch.cuda.empty_cache()
 
     # ---- phase 4: kernel A -------------------------------------------
@@ -2595,9 +2850,15 @@ def main():
     cork_phase(dev, card, counters)
     torch.cuda.empty_cache()
     matmul_dft_phase(dev, card, counters, init_fn, step_fn)
+    torch.cuda.empty_cache()
 
-    # the float32 entries count the T85 runs of phases 6, 17, 20 and 21
-    # (phase 24 checks its own: 24 B and 4 A launches per refresh)
+    # ---- phase 25: installed LW k-tables through kernel B -------------
+    for kernel, count in ktables_phase(dev, card, counters, init_fn,
+                                       step_fn, report).items():
+        launches[kernel] += count
+
+    # the float32 entries count the T85 runs of phases 6, 17, 20, 21 and
+    # 25 (phase 24 checks its own: 24 B and 4 A launches per refresh)
     kernels = [
         dict(name='mix_groups_cuda', route='cuda',
              source='climt_tpu_torch/csrc/mix_rows.cu',

@@ -75,30 +75,16 @@ from .core.tracers import (
 from .io.monitors import (
     NetCDFMonitor, PlotFunctionMonitor, RestartMonitor,
 )
-from .components.berger_solar_insolation import BergerSolarInsolation
-from .components.boundary_layer import SimpleBoundaryLayer
-from .components.bucket_hydrology import BucketHydrology
-from .components.condensation import GridScaleCondensation
-from .components.dcmip import DcmipInitialConditions
-from .components.dry_convection import DryConvectiveAdjustment
-from .components.emanuel_convection import (
+from .components import (
+    BergerSolarInsolation, BestSoilProperties, BestSubsurfaceTransport,
+    BestSurfaceAlbedo, BestSurfaceFluxes, BestSurfaceLayer, BucketHydrology,
+    DataOcean, DcmipInitialConditions, DryConvectiveAdjustment,
     EmanuelConvection, EmanuelConvectionPython,
-)
-from .components.geodata import DataOcean, LandMask
-from .components.held_suarez import HeldSuarez
-from .components.instellation import Instellation
-from .components.radiation import (
     Frierson06LongwaveOpticalDepth, GrayLongwaveRadiation,
+    GridScaleCondensation, HeldSuarez, IceSheet, Instellation, LandIce,
+    LandMask, RRTMGLongwave, RRTMGShortwave, SeaIce, SecondBEST,
+    SimpleBoundaryLayer, SimplePhysics, SlabSurface,
 )
-from .components.rrtmg.longwave import RRTMGLongwave
-from .components.rrtmg.shortwave import RRTMGShortwave
-from .components.second_best import (
-    BestSoilProperties, BestSubsurfaceTransport, BestSurfaceAlbedo,
-    BestSurfaceFluxes, BestSurfaceLayer, SecondBEST,
-)
-from .components.simple_physics import SimplePhysics
-from .components.slab_surface import SlabSurface
-from .components.snow_ice import IceSheet, LandIce, SeaIce
 from .dycore.gfs import GFSDynamicalCore
 from .dycore.spectral_dynamics import SpectralDycore
 

@@ -130,8 +130,9 @@ class CorkLongwaveRadiation(TendencyComponent):
                  device='cuda', **kwargs):
         """optics='correlated_k' runs a shipped or user k-table (see
         ck_tables.load_k_table); optics='parmentier' runs the two-band
-        picket-fence scheme with the Rosseland means of
-        ``rosseland_mean_fit`` (Freedman et al. 2014, the one fit shipped).
+        picket-fence scheme with the Rosseland means of Freedman et al.
+        2014, the one fit shipped, whatever ``rosseland_mean_fit`` names
+        (JAX accepts the argument and ignores it, cork/lw.py:122).
         diffusivity_factor sets D in trans = exp(-D tau);
         diagnostics_level 1 adds the g-point-averaged transmittance and
         per-g-point fluxes.  Declares the band count
@@ -142,9 +143,6 @@ class CorkLongwaveRadiation(TendencyComponent):
         self._has_co2_axis = False
         self._tensors = {}
         if optics == 'parmentier':
-            if rosseland_mean_fit != 'freedman2014':
-                raise ValueError('rosseland_mean_fit %r: only freedman2014 '
-                                 'is shipped' % (rosseland_mean_fit,))
             self._coefficients = load_parmentier_coefficients(coefficients)
             self._freedman_coeffs = load_freedman2014_coefficients()
             self._num_bands = 2

@@ -35,17 +35,35 @@ def _sweep(flux, trans, source, levels):
     return out
 
 
+def _layer_terms(T, tau, sigma_sb):
+    """Each layer's transmission e^{-dtau} and emission sigma T^4 (1 -
+    e^{-dtau})."""
+    trans = torch.exp(-(tau[1:] - tau[:-1]))
+    return trans, sigma_sb * T ** 4 * (1.0 - trans)
+
+
+def upward_longwave_flux(T, T_surface, tau, sigma_sb):
+    """Upward grey LW flux on interfaces (level axis first, bottom first)
+    (radiation.py:27)."""
+    trans, source = _layer_terms(T, tau, sigma_sb)
+    f0 = sigma_sb * T_surface ** 4
+    return torch.stack([f0] + _sweep(f0, trans, source, range(T.shape[0])))
+
+
+def downward_longwave_flux(T, tau, sigma_sb):
+    """Downward grey LW flux on interfaces, zero at the top of the
+    atmosphere (radiation.py:43)."""
+    trans, source = _layer_terms(T, tau, sigma_sb)
+    top = torch.zeros_like(T[0])
+    down = _sweep(top, trans, source, range(T.shape[0] - 1, -1, -1))
+    return torch.stack(down[::-1] + [top])
+
+
 def gray_longwave_fluxes(T, p_interface, T_surface, tau, sigma_sb, g, cpd):
     """(downward, upward, net, tendency): fluxes on the interfaces
     (bottom first), heating in K/s on the mid levels (radiation.py:60)."""
-    trans = torch.exp(-(tau[1:] - tau[:-1]))
-    source = sigma_sb * T ** 4 * (1.0 - trans)
-    nz = T.shape[0]
-    f0 = sigma_sb * T_surface ** 4
-    upward = torch.stack([f0] + _sweep(f0, trans, source, range(nz)))
-    top = torch.zeros_like(T[0])
-    down = _sweep(top, trans, source, range(nz - 1, -1, -1))
-    downward = torch.stack(down[::-1] + [top])
+    upward = upward_longwave_flux(T, T_surface, tau, sigma_sb)
+    downward = downward_longwave_flux(T, tau, sigma_sb)
     net = upward - downward
     tendency = (g / cpd) * (net[1:] - net[:-1]) / (
         p_interface[1:] - p_interface[:-1])

@@ -34,11 +34,14 @@ float32 and a float64 instantiation: the fused moist GCM runs in float32,
 the climt components (``RRTMGLongwave``, ``RRTMGShortwave``) at their
 state's float64.
 
-Layout (``Layout``): built once per output, dtype and device and cached.
-Every part's table is padded to a multiple of 4 elements per row and packed
-band by band into one flat buffer; each band has a descriptor (ng, padded
-ng, first term, term count, output offset, table offset and length) and
-each term one (flat offset of its part's row 0, its part's row count).
+Layout (``Layout``): packed once and cached, one per output, dtype and
+device; a group whose tables come from another
+source than the cached layout's (new LW k-tables installed, or passed with
+``tables=``) packs again and replaces it.  Every part's table is padded to
+a multiple of 4 elements per row and packed band by band into one flat
+buffer; each band has a descriptor (ng, padded ng, first term, term
+count, output offset, table offset and length) and each term one (flat
+offset of its part's row 0, its part's row count).
 Callers write raw, part-relative row indices and their weights straight
 into one preallocated (terms, *cells) int32 and float pair (``Group``);
 the kernel clips and offsets the index itself, and reads no index at all
@@ -66,10 +69,12 @@ class Layout:
     """The packed tables and descriptors of one group of bands.
 
     ``parts`` is a list of (band, table, nterms); ``table`` is a (rows, ng)
-    array or tensor, or a (ng,) row or a scalar for a one-row table."""
+    array or tensor, or a (ng,) row or a scalar for a one-row table.
+    ``source`` is the object the tables were taken from (``Group``'s)."""
 
-    def __init__(self, ngs, parts, dtype, device):
+    def __init__(self, ngs, parts, dtype, device, source=None):
         self.signature = _signature(ngs, parts)
+        self.source = source
         flat, bands, terms = [], [], []
         off = t = goff = 0
         for b, ng in enumerate(ngs):
@@ -185,18 +190,26 @@ class Group:
     A caller opens each band with ``band(ng)``, each part of it with
     ``part(table)``, and writes the part's terms through ``slot()`` (an
     index and a weight view to fill with ``out=``), ``lin`` or ``row``.
-    ``run()`` launches.  The packed layout is cached under ``key``: on the
-    first call the terms are collected and the tables packed; later calls
-    write into one preallocated (terms, *cells) pair and must produce the
-    same bands, parts and term counts."""
+    ``run()`` launches.  The packed layout is cached under ``key``, with
+    ``source``, the object the caller takes its tables from (the LW
+    k-table dict; None for fixed tables): on the first call, or when the
+    cached layout was packed from another source, the terms are collected
+    and the tables packed, replacing the cached layout; later calls from
+    the same source write into one preallocated (terms, *cells) pair and
+    must produce the same bands, parts and term counts.  The source is
+    compared by identity and the layout keeps a reference to it, so a
+    dict installed later is never taken for an earlier one."""
 
     _LAYOUTS = {}
 
-    def __init__(self, key, cells, dtype, device):
+    def __init__(self, key, cells, dtype, device, source=None):
         self.key = (key, dtype, str(torch.device(device)))
         self.cells = tuple(cells)
         self.dtype, self.device = dtype, device
+        self.source = source
         self.layout = self._LAYOUTS.get(self.key)
+        if self.layout is not None and self.layout.source is not source:
+            self.layout = None
         self.ngs, self.parts, self.fresh = [], [], []
         self.nterms = 0
         if self.layout is not None:
@@ -252,10 +265,10 @@ class Group:
 
     def finish(self):
         """(layout, idx, w) of the written terms, packing the tables on
-        the first call for this key."""
+        the first call for this key and source."""
         if self.layout is None:
             self.layout = Layout(self.ngs, self.parts, self.dtype,
-                                 self.device)
+                                 self.device, self.source)
             self._LAYOUTS[self.key] = self.layout
             shape = (0,) + self.cells
             self.idx = (torch.stack([i for i, _ in self.fresh]) if self.fresh

@@ -16,13 +16,19 @@ analytic transmittance, no idrv, band clouds; every other configuration
 runs the general sweep here in plain PyTorch, as JAX runs it in XLA.
 
 Layout as in the JAX module: layers bottom-up, columns trailing, g-points
-innermost, taug (nz, ncol, 140).  The tables are the same surrogate
-k-distribution files (docs/RRTMG_LW_STATUS.md).
+innermost, taug (nz, ncol, 140).  The gas k-tables are chosen as the JAX
+module chooses them (``load_kdist``): tables installed with
+``load_aer_tables``, then an npz named by $CLIMT_TPU_LW_KTABLES, then the
+real AER tables dropped in as ``climt_tpu/data/rrtmg_lw_kdist_aer.npz``,
+then the calibrated surrogate (docs/RRTMG_LW_STATUS.md).  An install
+takes effect at the next call: kernel B's packed layout is keyed by the
+tables it packed (``fused_mix.Group``).
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -135,9 +141,46 @@ def load_support(dtype, device):
     return data.load_tensors(data.LW_SUPPORT, dtype, device)
 
 
-def load_kdist(dtype, device):
-    """The surrogate gas k-distribution tables as working-dtype tensors."""
-    return data.load_tensors(data.LW_KDIST, dtype, device)
+_KDIST_OVERRIDE = [None]     # set by load_aer_tables (lw_spectral.py:175)
+
+
+def load_kdist():
+    """Gas k-distribution tables, a dict of numpy arrays (:183).
+
+    Preference order: (1) tables installed via ``load_aer_tables``,
+    (2) the npz named by $CLIMT_TPU_LW_KTABLES, (3) the real AER tables
+    dropped in as ``data.LW_KDIST_AER``, (4) the calibrated surrogate.  As
+    in JAX, the choice is kept in ``_KDIST_OVERRIDE`` until the next
+    install (or until the override is set back to None).  A variable that
+    names no file raises, where JAX goes on to the next choice."""
+    if _KDIST_OVERRIDE[0] is not None:
+        return _KDIST_OVERRIDE[0]
+    env = os.environ.get('CLIMT_TPU_LW_KTABLES')
+    drop_in = os.path.join(data.DATA_DIR, data.LW_KDIST_AER)
+    if env:
+        _KDIST_OVERRIDE[0] = data.load_npz(env)
+    elif os.path.exists(drop_in):
+        _KDIST_OVERRIDE[0] = data.load_npz(drop_in)
+    else:
+        _KDIST_OVERRIDE[0] = data.load_numpy(data.LW_KDIST)
+    return _KDIST_OVERRIDE[0]
+
+
+def load_aer_tables(path):
+    """Install real AER RRTMG-LW k-tables for all subsequent calls (:202)
+    and return them.
+
+    ``path`` is an npz whose keys follow the surrogate layout
+    (tools/build_lw_surrogate_ktables.py): per band ``b{n}_absa`` /
+    ``b{n}_absb`` with rows flattened as (jp*5 + jt)*nspa + js (the
+    Fortran ka/kb index order of rrtmg_lw_k_g.f90, g-points last),
+    ``b{n}_selfref`` (10, ng), ``b{n}_forref`` (4, ng),
+    ``b{n}_fracrefa``/``fracrefb`` ((ng,) or (ng, neta)),
+    ``b{n}_k{a|b}_m{gas}`` minor-gas tables (19, ng), and the
+    ``ccl4/cfc11adj/cfc12/cfc22adj`` cross-sections (ng,).  The file is
+    read afresh on every install; a missing or malformed file raises."""
+    _KDIST_OVERRIDE[0] = data.load_npz(path)
+    return _KDIST_OVERRIDE[0]
 
 
 def _support_scalar(name):
@@ -303,9 +346,11 @@ def _adjusted_column(gas, mode, cs):
     return torch.where(rat > thresh, adj, col)
 
 
-def taumol_lw_terms(cs, wx, dtype):
+def taumol_lw_terms(cs, wx, dtype, tables=None):
     """The terms of taumol (:396) as two kernel-B groups, unlaunched:
-    taug and the Planck fractions, each (nz, ncol, 140) once run.
+    taug and the Planck fractions, each (nz, ncol, 140) once run, from
+    ``tables`` (a dict of numpy arrays in ``load_aer_tables``' layout;
+    None: ``load_kdist()``).
 
     Every band's key-species 2x2x2 interpolation (one part, the merged
     [absa; absb] table), continua, minor gases and cross-sections are
@@ -315,7 +360,7 @@ def taumol_lw_terms(cs, wx, dtype):
     trop = cs['trop']
     nz, ncol = trop.shape
     device = trop.device
-    t = data.load_numpy(data.LW_KDIST)
+    t = load_kdist() if tables is None else tables
     sup = data.load_numpy(data.LW_SUPPORT)
     jp, jt0, jt10 = cs['jp'], cs['jt0'], cs['jt10']
     pavel = cs['pavel']
@@ -324,8 +369,9 @@ def taumol_lw_terms(cs, wx, dtype):
     trop_f = trop.to(dtype)
     upper_f = 1.0 - trop_f
     taug_g = fused_mix.Group(('lw_taug', tuple(sorted(wx))), (nz, ncol),
-                             dtype, device)
-    fracs_g = fused_mix.Group('lw_fracs', (nz, ncol), dtype, device)
+                             dtype, device, source=t)
+    fracs_g = fused_mix.Group('lw_fracs', (nz, ncol), dtype, device,
+                              source=t)
 
     for bi, bd in enumerate(BANDS_LW):
         num, ng = bd['num'], NG[bi]
@@ -494,11 +540,12 @@ def taumol_lw_terms(cs, wx, dtype):
     return taug_g, fracs_g
 
 
-def taumol_lw(cs, wx, dtype):
-    """Gaseous optical depth and Planck fractions per g-point (:396).
+def taumol_lw(cs, wx, dtype, tables=None):
+    """Gaseous optical depth and Planck fractions per g-point (:396) from
+    ``tables`` (None: ``load_kdist()``).
 
     Returns taug, fracs: (nz, ncol, 140), one kernel-B launch each."""
-    taug_g, fracs_g = taumol_lw_terms(cs, wx, dtype)
+    taug_g, fracs_g = taumol_lw_terms(cs, wx, dtype, tables)
     return taug_g.run(), fracs_g.run()
 
 
@@ -757,9 +804,10 @@ def rrtmg_lw_fluxes(play, plev, tlay, tlev, tsfc, h2ovmr, o3vmr, co2vmr,
                     ccl4vmr, emis, cldfrac, taucld, ciwp, clwp, rei, rel,
                     tauaer, grav, avogad, cpdair, inflag=2, iceflag=1,
                     liqflag=1, idrv=False, per_g_cloud=False,
-                    cldfrac_g=None, taucld_g=None, use_tables=True):
+                    cldfrac_g=None, taucld_g=None, tables=None,
+                    use_tables=True):
     """Full LW pipeline inatm -> setcoef -> taumol -> cldprop -> rtrn
-    (:959).  Profiles (nz, ncol) bottom-up, plev/tlev (nz+1, ncol), tsfc
+    (:959), with the gas k-tables ``tables`` (None: ``load_kdist()``).  Profiles (nz, ncol) bottom-up, plev/tlev (nz+1, ncol), tsfc
     (ncol,), emis (16, ncol), taucld/tauaer (nz, ncol, 16).  With
     per_g_cloud, the McICA subcolumns cldfrac_g/taucld_g (nz, ncol, 140)
     replace cldfrac/taucld.
@@ -770,7 +818,7 @@ def rrtmg_lw_fluxes(play, plev, tlay, tlev, tsfc, h2ovmr, o3vmr, co2vmr,
         play, plev, tlay, tlev, tsfc, emis, h2ovmr, o3vmr, co2vmr, ch4vmr,
         n2ovmr, o2vmr, cfc11vmr, cfc12vmr, cfc22vmr, ccl4vmr, grav, avogad,
         idrv=idrv)
-    taug, fracs = taumol_lw(cs, wx, play.dtype)
+    taug, fracs = taumol_lw(cs, wx, play.dtype, tables)
     ngb = torch.as_tensor(NGB, dtype=torch.int64, device=play.device)
     taug = taug + tauaer[..., ngb]
     heatfac = grav * 8.64e4 / (cpdair * 1.0e2)

@@ -23,6 +23,9 @@ DATA_DIR = os.path.join(
 
 LW_SUPPORT = 'rrtmg_lw_support.npz'
 LW_KDIST = 'rrtmg_lw_kdist_surrogate.npz'
+# the real AER LW k-tables, where a user drops them in (the JAX package
+# reads the same file, climt_tpu/components/rrtmg/lw_spectral.py:174)
+LW_KDIST_AER = 'rrtmg_lw_kdist_aer.npz'
 SW_KDIST = 'rrtmg_sw_kdist.npz'
 OZONE = 'ozone_profile.npy'
 BERGER = 'berger_orbital_tables.npz'
@@ -33,12 +36,23 @@ SST = os.path.join('data_ocean', 'earth_sst_climatology_1deg.nc')
 
 @functools.lru_cache()
 def load_numpy(name):
-    """Raw float64 numpy contents of one data file (dict for an npz)."""
-    path = os.path.join(DATA_DIR, name)
+    """Raw float64 numpy contents of one data file (dict for an npz),
+    cached by name."""
     if name.endswith('.npz'):
-        with np.load(path) as f:
-            return {k: f[k] for k in f.files}
-    return np.load(path)
+        return load_npz(name)
+    return np.load(os.path.join(DATA_DIR, name))
+
+
+def load_npz(path):
+    """Raw contents of an npz as a dict of numpy arrays, read from
+    ``path`` (absolute, or relative to the data directory) on every call:
+    a file rewritten at the same path gives the new arrays.  A missing
+    file or one that is not an npz archive raises."""
+    f = np.load(os.path.join(DATA_DIR, path))
+    if not hasattr(f, 'files'):
+        raise ValueError('%s is not an npz archive' % path)
+    with f:
+        return {k: f[k] for k in f.files}
 
 
 @functools.lru_cache()

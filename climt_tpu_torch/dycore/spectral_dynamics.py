@@ -236,6 +236,10 @@ class SpectralDycore(nn.Module):
             if mesh is not None:
                 self.fv = GatheredTransport(self.fv, self.sht)
 
+    def dBnp(self):
+        """The layer differences of B as a numpy array (:235)."""
+        return self.dB.cpu().numpy()
+
     def set_surface_geopotential(self, phi_s_grid):
         """Set the (nlat, nlon) surface geopotential field (:238); under a
         mesh, from the global field, of which the rank keeps its block."""

@@ -215,6 +215,19 @@ class SphericalHarmonicTransform(nn.Module):
     def laplacian(self, spec):
         return spec * self.laplacian_eig
 
+    def inverse_laplacian(self, spec):
+        return spec * self.inv_laplacian_eig
+
+    def filter_spec(self, spec):
+        """Apply the triangular truncation mask."""
+        return spec * self.mask
+
+    @property
+    def total_wavenumber(self):
+        """(M+1, N+1) int64: the total wavenumber n of each coefficient."""
+        n = torch.arange(self.truncation + 1, device=self.mask.device)
+        return n[None, :].expand(self.truncation + 1, -1)
+
     def analyze_many(self, grids, pairs=()):
         """([analyze(g) for g in grids], [vort_div_analysis(A, B) for A, B
         in pairs]): a dycore stage's analyses together, which a mesh layout

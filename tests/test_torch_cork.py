@@ -305,13 +305,26 @@ def test_hot_columns_cross_the_freedman_branch():
     assert c['T'][:, ::2].max() < FREEDMAN_BOUNDARY
 
 
+def test_any_rosseland_mean_fit_runs_freedman_as_jax():
+    """A rosseland_mean_fit other than 'freedman2014' is accepted and runs
+    Freedman's fit, as JAX's component does (cork/lw.py:122): the same
+    outputs as JAX's with that value, and as the port's default."""
+    kw = dict(optics='parmentier', rosseland_mean_fit='guillot2010')
+    comp_t = TLW.CorkLongwaveRadiation(device='cpu', **kw)
+    comp_j = JLW.CorkLongwaveRadiation(**kw)
+    c = cork_columns(2, hot=True)
+    tend_t, diag_t = comp_t.array_call(c)
+    tend_j, diag_j = comp_j.array_call({k: jnp.asarray(v)
+                                        for k, v in c.items()})
+    assert rel_err(tend_t['T'], np.asarray(tend_j['T'])) <= 1e-10
+    _assert_diagnostics_match(diag_t, diag_j, np.ones(2))
+    default = TLW.CorkLongwaveRadiation(optics='parmentier', device='cpu')
+    assert torch.equal(default.array_call(c)[0]['T'], tend_t['T'])
+
+
 def test_options_and_device_default():
     with pytest.raises(ValueError, match='Unknown optics'):
         TLW.CorkLongwaveRadiation(optics='grey', device='cpu')
-    with pytest.raises(ValueError, match='freedman2014'):
-        TLW.CorkLongwaveRadiation(optics='parmentier',
-                                  rosseland_mean_fit='guillot2010',
-                                  device='cpu')
     comp = TLW.CorkLongwaveRadiation(table='earth_low_res_lw', device='cpu')
     assert tinit.get_num_longwave_bands() == 14
     assert 'mole_fraction_of_carbon_dioxide_in_air' in comp.input_properties

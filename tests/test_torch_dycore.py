@@ -84,6 +84,35 @@ def test_sht_vector_transforms(shts):
         assert rel_err(a, b) < 1e-12
 
 
+@pytest.mark.parametrize('entry', ['inverse_laplacian', 'filter_spec',
+                                   'total_wavenumber', 'dBnp'])
+def test_transform_and_dycore_entry_points_match_jax(shts, entry):
+    """SphericalHarmonicTransform.inverse_laplacian, filter_spec and
+    total_wavenumber (sht.py:279-288) and SpectralDycore.dBnp
+    (spectral_dynamics.py:235) against JAX's."""
+    jsht, tsht = shts
+    if entry == 'dBnp':
+        ak, bk = tgrid.hybrid_sigma_pressure_coefficients(NZ + 1, 1e5, 20.0)
+        got = TDycore(NLON, NLAT, NZ, ak, bk, dtype=torch.float64,
+                      device='cpu').dBnp()
+        ref = JDycore(NLON, NLAT, NZ, ak, bk, dtype=jnp.float64).dBnp()
+        assert isinstance(got, np.ndarray) and got.dtype == ref.dtype
+        np.testing.assert_array_equal(got, ref)
+    elif entry == 'total_wavenumber':
+        got, ref = tsht.total_wavenumber, jsht.total_wavenumber
+        assert got.dtype == torch.int64 and ref.dtype == jnp.int64
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    else:
+        # unmasked coefficients, so that filter_spec has work to do
+        rng = np.random.RandomState(8)
+        shape = (NZ,) + tuple(jsht.mask.shape)
+        s = rng.randn(*shape) + 1j * rng.randn(*shape)
+        got = getattr(tsht, entry)(torch.as_tensor(s))
+        ref = getattr(jsht, entry)(jnp.asarray(s))
+        assert got.dtype == torch.complex128
+        assert rel_err(got, ref) < 1e-14
+
+
 def test_dycore_initial_step_and_three_steps():
     """One initial_step and 3 leapfrog steps with grid physics
     tendencies, from the same seeded state."""

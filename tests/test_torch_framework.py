@@ -444,3 +444,21 @@ def test_values_tensor_is_read_by_numpy_and_transparent_to_torch():
     da.values[1:2] = torch.zeros(4, dtype=torch.float64)
     assert float(base[1].abs().sum()) == 0.0
     assert type(TDataArray(np.ones(3), dims=('x',)).values) is np.ndarray
+
+
+def test_components_namespace_exports_the_jax_classes():
+    """climt_tpu_torch.components exports the component classes that
+    climt_tpu.components exports, under the same names, and the package
+    root the same classes."""
+    import climt_tpu.components as jcomp
+    import climt_tpu_torch.components as tcomp
+
+    def classes(module):
+        return {name for name, value in vars(module).items()
+                if isinstance(value, type) and not name.startswith('_')}
+
+    names = classes(tcomp)
+    assert names == classes(jcomp)
+    assert len(names) == 27
+    for name in names:
+        assert getattr(tct, name) is getattr(tcomp, name), name

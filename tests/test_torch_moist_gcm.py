@@ -17,7 +17,7 @@ from climt_tpu.dycore.moist_gcm import build_moist_gcm as jax_build
 from climt_tpu_torch.convert import carry_from_numpy, carry_to_numpy
 from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm as port_build
 
-from torch_helpers import rel_err
+from torch_helpers import assert_carries_close, rel_err
 
 KW = dict(nlon=32, nlat=16, nz=10, rad_every=6, rad_col_chunk=128)
 
@@ -36,25 +36,12 @@ def port_model():
     return port_build(dtype=torch.float64, device='cpu', **KW)
 
 
-def _assert_carries_close(port_np, jax_np, sht, tol):
-    """Every carry field within tol * max |field|; spectral fields are
-    compared in grid space."""
-    for i in range(4):
-        for key, b in jax_np[i].items():
-            a = port_np[i][key]
-            if i < 2:       # prev, now: complex spectral
-                a = np.asarray(sht.synthesize(jnp.asarray(a)))
-                b = np.asarray(sht.synthesize(jnp.asarray(b)))
-            assert rel_err(a, b) < tol, (i, key, rel_err(a, b))
-    assert int(port_np[4]) == int(jax_np[4])
-
-
 def test_seven_steps_match_jax_f64(jax_model, port_model):
     jd, j_init, _, j_run = jax_model
     _, p_init, _, p_run = port_model
     j_carry, j_diag = j_run(j_init(0), 7)
     p_carry, p_diag = p_run(p_init(0), 7)
-    _assert_carries_close(carry_to_numpy(p_carry), _np(j_carry), jd.sht,
+    assert_carries_close(carry_to_numpy(p_carry), _np(j_carry), jd.sht,
                           1e-8)
     assert set(p_diag) == set(j_diag)
     for key in j_diag:
@@ -81,12 +68,12 @@ def test_converter_round_trip(jax_model, port_model):
     j0 = j_init(0)
     p1, _ = p_step(carry_from_numpy(_np(j0), 'cpu', torch.float64))
     j1, _ = j_run(j0, 1)
-    _assert_carries_close(carry_to_numpy(p1), _np(j1), jd.sht, 1e-10)
+    assert_carries_close(carry_to_numpy(p1), _np(j1), jd.sht, 1e-10)
 
     back = jax.tree_util.tree_map(jnp.asarray, carry_to_numpy(p1))
     j2_via_port, _ = j_run(back, 1)
     j2, _ = j_run(j0, 2)
-    _assert_carries_close(_np(j2_via_port), _np(j2), jd.sht, 1e-10)
+    assert_carries_close(_np(j2_via_port), _np(j2), jd.sht, 1e-10)
 
 
 def test_default_device_is_the_card_and_never_the_cpu():

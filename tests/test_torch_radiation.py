@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import (AVOG, G, jax_lw, jax_sw, port_lw, port_sw,
+from torch_helpers import (jax_lw, jax_sw, jax_taumol, port_lw, port_sw,
                            port_taumol_groups, radiation_columns, rel_err,
                            varying_ps_columns)
 
@@ -89,39 +89,6 @@ def test_f32_inputs_give_f32_outputs(columns, band):
     assert all(a.dtype == torch.float32 for a in out)
 
 
-def _jax_taumol(c):
-    """JAX taumol_lw (taug, fracs) and taumol_sw (taug, taur, sflux) at
-    float64 on columns ``c``, set up as the JAX rrtmg_lw_fluxes and
-    rrtmg_sw_fluxes set them up."""
-    from climt_tpu.components.rrtmg import lw_spectral as JL
-    from climt_tpu.components.rrtmg import sw_spectral as JS
-    j = {k: jnp.asarray(v) for k, v in c.items()
-         if isinstance(v, np.ndarray)}
-    z = j['zero']
-    vmr = dict(h2o=j['h2o'], co2=j['co2'], o3=j['o3'], n2o=z, co=z, ch4=z,
-               o2=j['o2'])
-    coldry, wkl, wbroad, _ = JL.inatm_lw(j['play'], j['plev'], j['tlay'],
-                                         vmr, G, AVOG)
-    wx = {name: coldry * z * 1.0e-20
-          for name in ('ccl4', 'cfc11', 'cfc12', 'cfc22')}
-    cs = JL.setcoef_lw(j['play'], j['tlay'], j['tlev'], j['tsfc'],
-                       j['emis'], coldry, wkl, wbroad)
-    cs['pavel'] = j['play']
-    lw = JL.taumol_lw(cs, wx, jnp.float64)
-    pdp = j['plev'][:-1] - j['plev'][1:]
-    h2o = j['h2o']
-    amm = (1.0 - h2o) * JS.AMD + h2o * JS.AMW
-    coldry = pdp * 1.0e3 * AVOG / (1.0e2 * G * amm * (1.0 + h2o))
-    wkl = {g: v * coldry for g, v in (
-        ('h2o', h2o), ('co2', j['co2']), ('o3', j['o3']), ('n2o', z),
-        ('ch4', z), ('o2', j['o2']))}
-    css = JS.setcoef_sw(j['play'], j['tlay'], coldry, wkl)
-    sw = JS.taumol_sw(css, -1, *JS.solar_variability(-1, 0.0)[:6],
-                      jnp.float64)
-    return dict(zip(('lw_taug', 'lw_fracs', 'sw_taug', 'sw_taur',
-                     'sw_sflux'), lw + sw))
-
-
 @pytest.mark.parametrize('which', ['columns', 'varying_ps'])
 def test_taumol_groups_match_jax_f64(which):
     """The port's five kernel-B groups, run on the CPU, against the JAX
@@ -129,9 +96,35 @@ def test_taumol_groups_match_jax_f64(which):
     float64: the same gathers, summed in another order, so within 1e-10
     of max."""
     c = radiation_columns() if which == 'columns' else varying_ps_columns()
-    ref = _jax_taumol(c)
+    ref = jax_taumol(c)
     groups = port_taumol_groups(c, torch.float64)
     for name, group in groups.items():
         out = group.run()
         assert out.dtype == torch.float64, name
         assert rel_err(out, ref[name]) < 1e-10, name
+
+
+@pytest.mark.parametrize('direction', ['upward', 'downward'])
+def test_grey_longwave_fluxes_match_jax(direction):
+    """upward_longwave_flux and downward_longwave_flux
+    (climt_tpu/components/radiation.py:27, :43) on 12 levels x 20
+    columns, the optical depth growing with the level index as
+    Frierson06LongwaveOpticalDepth's does."""
+    from climt_tpu.components import radiation as JR
+    from climt_tpu_torch.components import radiation as TR
+    rng = np.random.RandomState(9)
+    nz, ncol, sigma = 12, 20, 5.67e-8
+    T = 200.0 + 100.0 * rng.rand(nz, ncol)
+    tau = np.cumsum(rng.rand(nz + 1, ncol), axis=0)
+    Ts = 280.0 + 20.0 * rng.rand(ncol)
+    if direction == 'upward':
+        got = TR.upward_longwave_flux(*map(torch.as_tensor, (T, Ts, tau)),
+                                      sigma)
+        ref = JR.upward_longwave_flux(*map(jnp.asarray, (T, Ts, tau)), sigma)
+    else:
+        got = TR.downward_longwave_flux(torch.as_tensor(T),
+                                        torch.as_tensor(tau), sigma)
+        ref = JR.downward_longwave_flux(jnp.asarray(T), jnp.asarray(tau),
+                                        sigma)
+    assert got.shape == (nz + 1, ncol)
+    assert rel_err(got, ref) < 1e-13

@@ -109,6 +109,22 @@ def assert_states_match(st, sj, tol=1e-10):
         assert rel_err(st[name].values, value.values) <= tol, name
 
 
+def assert_carries_close(port_np, jax_np, sht, tol):
+    """Every field of a moist-GCM carry (numpy, port's and JAX's) within
+    tol of its max; complex spectral fields compared in grid space through
+    the JAX ``sht``, grid q as it is."""
+    import jax.numpy as jnp
+    for i in range(4):
+        for key, b in jax_np[i].items():
+            a = port_np[i][key]
+            if np.iscomplexobj(b):
+                assert np.iscomplexobj(a), (i, key)
+                a = np.asarray(sht.synthesize(jnp.asarray(a)))
+                b = np.asarray(sht.synthesize(jnp.asarray(b)))
+            assert rel_err(a, b) < tol, (i, key, rel_err(a, b))
+    assert int(port_np[4]) == int(jax_np[4])
+
+
 def reset_port_registries():
     """The port keeps its own constants and tracer registries; its test
     files reset them around each test, as tests/conftest.py resets the
@@ -352,7 +368,26 @@ def varying_ps_columns(nz=28, ncol=64):
                 nz=nz, ncol=ncol)
 
 
-def port_lw(c, dtype, device='cpu'):
+def seeded_lw_tables(path, seed=0, sigma=0.3):
+    """Write to ``path`` the surrogate LW k-tables with every absorption
+    array (key-species absa/absb, selfref, forref, the minor-gas and
+    cross-section tables) times exp(sigma N(0, 1)), drawn per element
+    from ``seed``; the Planck fractions (fracref*) as they are.  The AER
+    layout with new numbers and the surrogate's shapes.  Returns path."""
+    from climt_tpu_torch import data
+    rng = np.random.default_rng(seed)
+    tables = dict(data.load_npz(data.LW_KDIST))
+    for key in sorted(tables):
+        if 'fracref' not in key:
+            tables[key] = tables[key] * np.exp(
+                sigma * rng.standard_normal(tables[key].shape))
+    np.savez(path, **tables)
+    return path
+
+
+def port_lw(c, dtype, device='cpu', **kw):
+    """The port's rrtmg_lw_fluxes on columns ``c`` (analytic
+    transmittance); ``kw`` goes to it (``tables=``)."""
     from climt_tpu_torch.components.rrtmg.lw_spectral import rrtmg_lw_fluxes
     t = {k: to_torch(v, dtype, device) for k, v in c.items()
          if isinstance(v, np.ndarray)}
@@ -362,7 +397,7 @@ def port_lw(c, dtype, device='cpu'):
         t['play'], t['plev'], t['tlay'], t['tlev'], t['tsfc'], t['h2o'],
         t['o3'], t['co2'], z, z, t['o2'], z, z, z, z, t['emis'], z, z16,
         z, z, torch.full_like(z, 25.0), torch.full_like(z, 10.0), z16,
-        G, AVOG, CPD, use_tables=False)
+        G, AVOG, CPD, use_tables=False, **kw)
 
 
 def port_sw(c, dtype, device='cpu'):
@@ -380,7 +415,7 @@ def port_sw(c, dtype, device='cpu'):
         icld=0, use_tables=False)
 
 
-def jax_lw(c, dtype, use_tables):
+def jax_lw(c, dtype, use_tables, **kw):
     import jax.numpy as jnp
     from climt_tpu.components.rrtmg.lw_spectral import rrtmg_lw_fluxes
     j = {k: jnp.asarray(v, dtype) for k, v in c.items()
@@ -391,7 +426,7 @@ def jax_lw(c, dtype, use_tables):
         j['play'], j['plev'], j['tlay'], j['tlev'], j['tsfc'], j['h2o'],
         j['o3'], j['co2'], z, z, j['o2'], z, z, z, z, j['emis'], z, z16,
         z, z, jnp.full_like(z, 25.0), jnp.full_like(z, 10.0), z16,
-        G, AVOG, CPD, use_tables=use_tables)
+        G, AVOG, CPD, use_tables=use_tables, **kw)
 
 
 def jax_sw(c, dtype, use_tables):
@@ -410,9 +445,10 @@ def jax_sw(c, dtype, use_tables):
         icld=0, use_tables=use_tables)
 
 
-def port_taumol_groups(c, dtype, device='cpu'):
+def port_taumol_groups(c, dtype, device='cpu', tables=None):
     """The port's five taumol kernel-B groups (LW taug, LW fracs, SW taug,
-    SW taur, SW sflux) of columns ``c``, unlaunched, by name."""
+    SW taur, SW sflux) of columns ``c``, unlaunched, by name; the LW ones
+    from the k-tables ``tables`` (None: the installed ones)."""
     from climt_tpu_torch.components.rrtmg import lw_spectral as TL
     from climt_tpu_torch.components.rrtmg import sw_spectral as TS
     t = {k: to_torch(v, dtype, device) for k, v in c.items()
@@ -424,10 +460,47 @@ def port_taumol_groups(c, dtype, device='cpu'):
     css = TS.gas_coefs_sw(t['play'], t['plev'], t['tlay'], t['h2o'],
                           t['o3'], t['co2'], z, z, t['o2'], G, AVOG)
     solar = TS.solar_variability(-1, 0.0)
-    groups = (TL.taumol_lw_terms(cs, wx, dtype)
+    groups = (TL.taumol_lw_terms(cs, wx, dtype, tables)
               + TS.taumol_sw_terms(css, -1, *solar[:6], dtype))
     return dict(zip(('lw_taug', 'lw_fracs', 'sw_taug', 'sw_taur',
                      'sw_sflux'), groups))
+
+
+def jax_taumol(c, tables=None, sw=True):
+    """JAX taumol_lw (taug, fracs) and, with ``sw``, taumol_sw (taug,
+    taur, sflux) at float64 on columns ``c``, set up as the JAX
+    rrtmg_lw_fluxes and rrtmg_sw_fluxes set them up, by port group name;
+    the LW ones from the k-tables ``tables`` (None: the installed ones)."""
+    import jax.numpy as jnp
+    from climt_tpu.components.rrtmg import lw_spectral as JL
+    from climt_tpu.components.rrtmg import sw_spectral as JS
+    j = {k: jnp.asarray(v) for k, v in c.items()
+         if isinstance(v, np.ndarray)}
+    z = j['zero']
+    vmr = dict(h2o=j['h2o'], co2=j['co2'], o3=j['o3'], n2o=z, co=z, ch4=z,
+               o2=j['o2'])
+    coldry, wkl, wbroad, _ = JL.inatm_lw(j['play'], j['plev'], j['tlay'],
+                                         vmr, G, AVOG)
+    wx = {name: coldry * z * 1.0e-20
+          for name in ('ccl4', 'cfc11', 'cfc12', 'cfc22')}
+    cs = JL.setcoef_lw(j['play'], j['tlay'], j['tlev'], j['tsfc'],
+                       j['emis'], coldry, wkl, wbroad)
+    cs['pavel'] = j['play']
+    lw = JL.taumol_lw(cs, wx, jnp.float64, tables=tables)
+    if not sw:
+        return dict(zip(('lw_taug', 'lw_fracs'), lw))
+    pdp = j['plev'][:-1] - j['plev'][1:]
+    h2o = j['h2o']
+    amm = (1.0 - h2o) * JS.AMD + h2o * JS.AMW
+    coldry = pdp * 1.0e3 * AVOG / (1.0e2 * G * amm * (1.0 + h2o))
+    wkl = {g: v * coldry for g, v in (
+        ('h2o', h2o), ('co2', j['co2']), ('o3', j['o3']), ('n2o', z),
+        ('ch4', z), ('o2', j['o2']))}
+    css = JS.setcoef_sw(j['play'], j['tlay'], coldry, wkl)
+    sw = JS.taumol_sw(css, -1, *JS.solar_variability(-1, 0.0)[:6],
+                      jnp.float64)
+    return dict(zip(('lw_taug', 'lw_fracs', 'sw_taug', 'sw_taur',
+                     'sw_sflux'), lw + sw))
 
 
 # bands of unequal width, none of them all multiples of 4; the last one
