@@ -148,7 +148,24 @@ Phases, each of which fails loudly (no exception is turned into exit 0):
      16x8x8 on the card against the CPU under phase 12's one-ulp rule
      (floor SPREAD_FLOOR); (d) the override removed: the T85 chunk's LW
      fluxes and the 16x8x8 component's outputs equal the pre-install
-     ones bitwise, and the cached layouts are the surrogate's again.
+     ones bitwise, and the cached layouts are the surrogate's again;
+ 26. the repository's entry points on the port
+     (climt_tpu_torch.entry_points): (a) entry() with no arguments builds
+     the flagship step (the moist GCM at 32x16x10 float32) on the card
+     and runs fn once: a finite complex64 CUDA spectral temperature, T in
+     grid space in (150, 350) K, exactly 6 kernel-B and 1 kernel-A
+     launches (one radiation chunk of a refresh step), added to the kernel
+     lines; then the inputs of each launch of a third step, captured
+     where the dispatchers call the wrappers: kernel B on its six groups
+     within 1e-6 and kernel A (nz 10, 512 columns) within 2e-6 of max of
+     their plain versions, timed, their errors folded into the kernel
+     lines; (b) that step against entry(device='cpu')'s within
+     SMALL_TOL['T']; (c) dryrun_multichip(1) on the card (one spawned
+     NCCL rank, after any process group left running here is torn down):
+     one m-sharded step at 8x4x8 against one device, each field's error
+     beside its limit, and dryrun_multichip(n) when the machine has n > 1
+     cards; (d) each call's time (fn twice: the first call and a warm
+     one) beside the card's name and power limit.
 The examples run through tests/torch_helpers.py:port_example, which the
 CPU tests use too.
 The line before the last is a JSON object with each kernel's launches,
@@ -157,6 +174,7 @@ error, time, bound, plain and library times; the last line is
 It imports neither jax nor climt_tpu.
 """
 
+import contextlib
 import datetime
 import json
 import os
@@ -2476,6 +2494,170 @@ def ktables_phase(dev, card, counters, init_fn, step_fn, report):
     return launches
 
 
+@contextlib.contextmanager
+def captured_launches():
+    """{'B': [(layout, idx, w)], 'A': [args]}: the inputs of every kernel-B
+    and kernel-A launch made in the block, cloned (a group reuses its
+    buffers), taken where the dispatchers call the wrappers; the wrappers
+    launch as usual, and count on the stand-ins that their module names
+    hold meanwhile, which carry the counts over both ways."""
+    import torch
+    from climt_tpu_torch.components.rrtmg import fused_mix, rtrn_kernel
+
+    seen = {'B': [], 'A': []}
+    mix, rtrn = fused_mix.mix_groups_cuda, rtrn_kernel.rtrn_lw_cuda
+
+    def mix_seen(layout, idx, w):
+        seen['B'].append((layout, idx.clone(), w.clone()))
+        return mix(layout, idx, w)
+
+    def rtrn_seen(*args):
+        seen['A'].append(tuple(a.clone() if torch.is_tensor(a) else a
+                               for a in args))
+        return rtrn(*args)
+
+    mix_seen.launches, rtrn_seen.launches = mix.launches, rtrn.launches
+    fused_mix.mix_groups_cuda, rtrn_kernel.rtrn_lw_cuda = mix_seen, rtrn_seen
+    try:
+        yield seen
+    finally:
+        fused_mix.mix_groups_cuda, rtrn_kernel.rtrn_lw_cuda = mix, rtrn
+        mix.launches, rtrn.launches = mix_seen.launches, rtrn_seen.launches
+
+
+def group_name(layout):
+    """The name of the group whose cached layout ``layout`` is."""
+    from climt_tpu_torch.components.rrtmg import fused_mix
+
+    key = next(k for k, v in fused_mix.Group._LAYOUTS.items()
+               if v is layout)[0]
+    return key if isinstance(key, str) else key[0]
+
+
+def kernel_a_check(args, tol, card, torch, n):
+    """Phase ``n``: kernel A on ``args`` (rtrn_lw_cuda's, rec_6 last)
+    against its plain version within tol of max for each flux, timed
+    beside its bound and the plain version.  Returns the record."""
+    from climt_tpu_torch.components.rrtmg import rtrn_kernel
+
+    nz, ncol = args[0].shape[:2]
+    outs = rtrn_kernel.rtrn_lw_cuda(*args)
+    refs = rtrn_kernel.rtrn_lw_plain(*args)
+    torch.cuda.synchronize()
+    worst = worst_rel = 0.0
+    for o, rf, nm in zip(outs, refs, ('up', 'dn', 'up_clr', 'dn_clr')):
+        err, scale = max_rel_err(o, rf)
+        if not err <= tol * scale:
+            fail('kernel A disagrees at nz=%d ncol=%d (%s): %g > %g * %g'
+                 % (nz, ncol, nm, err, tol, scale))
+        worst = max(worst, err)
+        worst_rel = max(worst_rel, err / scale)
+    ms = cuda_ms(lambda: rtrn_kernel.rtrn_lw_cuda(*args), 10, torch)
+    plain_ms = cuda_ms(lambda: rtrn_kernel.rtrn_lw_plain(*args), 3, torch)
+    # each input read once, each output written once
+    nbytes = (sum(a.numel() for a in args[:-1]) + 4 * (nz + 1) * ncol) * 4
+    bound_ms, bound_by = bound(nbytes, RTRN_OPS_PER_POINT * 140 * nz * ncol)
+    phase(n, 'kernel A nz=%d ncol=%d: max abs err %.3g W/m^2 (%.3g of max, '
+          'limit %g), %.4f ms, plain %.4f ms, bound %.4f ms (%s, %.1f MB), '
+          '%.0f%% of bound; on %s' % (
+              nz, ncol, worst, worst_rel, tol, ms, plain_ms, bound_ms,
+              bound_by, nbytes / 1e6, 100.0 * bound_ms / ms, card))
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms)
+
+
+def entry_points_phase(dev, card, counters):
+    """Phase 26: the repository's two entry points on the port (see the
+    module docstring).  Returns (a)'s launch counts and the records of
+    both kernels held against their plain versions at (a)'s shapes."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from climt_tpu_torch import entry_points
+    from climt_tpu_torch.ops.sht import SphericalHarmonicTransform
+
+    seconds = {}
+    t0 = time.perf_counter()
+    fn, (carry,) = entry_points.entry()
+    torch.cuda.synchronize()
+    seconds['entry()'] = time.perf_counter() - t0
+    for counter in counters.values():
+        counter.launches = 0
+    t0 = time.perf_counter()
+    spec = fn(carry)
+    torch.cuda.synchronize()
+    seconds['fn(carry)'] = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    if launches != {'B': 6, 'A': 1}:
+        fail('phase 26: entry() step launched kernel A %d and B %d times, '
+             'not 1 and 6' % (launches['A'], launches['B']))
+    t0 = time.perf_counter()
+    fn(carry)
+    torch.cuda.synchronize()
+    seconds['fn(carry) again'] = time.perf_counter() - t0
+    # each kernel against its plain version on the inputs the step gives
+    # it, at the step's shapes (nz 10, its one column chunk)
+    with captured_launches() as seen:
+        fn(carry)
+        torch.cuda.synchronize()
+    if (len(seen['B']), len(seen['A'])) != (6, 1):
+        fail('phase 26: the captured step made %d B and %d A launches'
+             % (len(seen['B']), len(seen['A'])))
+    checked = dict(B=kernel_b_groups(
+        {group_name(g[0]): g for g in seen['B']}, 1e-6, card, torch, n=26),
+        A=kernel_a_check(seen['A'][0], 2e-6, card, torch, n=26))
+    del seen
+    if not (spec.is_cuda and spec.dtype == torch.complex64
+            and bool(torch.isfinite(torch.view_as_real(spec)).all())):
+        fail('phase 26: entry() step gave %s %s, not a finite complex64 '
+             'CUDA tensor' % (spec.device, spec.dtype))
+    sht = SphericalHarmonicTransform(32, 16, dtype=torch.float32, device=dev)
+    T = sht.synthesize(spec)
+    if not 150.0 < float(T.min()) < float(T.max()) < 350.0:
+        fail('phase 26: entry() T in [%g, %g]' % (float(T.min()),
+                                                   float(T.max())))
+    t0 = time.perf_counter()
+    fn_cpu, (carry_cpu,) = entry_points.entry(device='cpu')
+    T_cpu = SphericalHarmonicTransform(32, 16, dtype=torch.float32,
+                                       device='cpu').synthesize(
+        fn_cpu(carry_cpu))
+    seconds["entry(device='cpu') and fn"] = time.perf_counter() - t0
+    diff = float(np.abs(T.cpu().numpy() - T_cpu.numpy()).max())
+    if not diff <= SMALL_TOL['T']:
+        fail('phase 26: entry() T differs from the CPU by %g K > %g'
+             % (diff, SMALL_TOL['T']))
+    phase(26, 'entry(): spectral T %s %s, grid T in [%.2f, %.2f] K; kernel '
+          'B %d, kernel A %d launches; against the CPU step %.3g K (limit '
+          '%g)' % (tuple(spec.shape), spec.dtype, float(T.min()),
+                   float(T.max()), launches['B'], launches['A'], diff,
+                   SMALL_TOL['T']))
+
+    if dist.is_initialized():
+        phase(26, 'a process group of %d ranks was left running: torn down'
+              % dist.get_world_size())
+        dist.destroy_process_group()
+    counts = [1] + ([torch.cuda.device_count()]
+                    if torch.cuda.device_count() > 1 else [])
+    for n in counts:
+        t0 = time.perf_counter()
+        errors = entry_points.dryrun_multichip(n)
+        seconds['dryrun_multichip(%d)' % n] = time.perf_counter() - t0
+        phase(26, 'dryrun_multichip(%d) on %d NCCL rank(s), %dx%dx8 f32: '
+              'error / limit %s (fields rtol %g atol %g, aux rtol %g atol '
+              '%g)' % (n, n, 8 * n, 4 * n, ', '.join(
+                  '%s %.3g (max abs %.3g)' % (name, e['of_limit'],
+                                              e['max_abs_err'])
+                  for name, e in errors.items()),
+                  entry_points.FIELD_TOL['rtol'],
+                  entry_points.FIELD_TOL['atol'],
+                  entry_points.AUX_TOL['rtol'], entry_points.AUX_TOL['atol']))
+    if len(counts) == 1:
+        phase(26, 'one card present: dryrun_multichip(n > 1) not run')
+    phase(26, 'seconds per call: %s; on %s' % (', '.join(
+        '%s %.3f' % kv for kv in seconds.items()), card))
+    return launches, checked
+
+
 def check_close(a, b, tol, label):
     """max of |a - b| / (atol + rtol |b|), failing above 1."""
     import numpy as np
@@ -2584,7 +2766,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- phase 4: kernel A -------------------------------------------
-    sup = LW.load_support(f32, dev)
+    sup = LW.support_tensors(f32, dev)
     rec_6 = LW._support_scalar('rec_6')
     ngb = torch.as_tensor(rtrn_kernel.NGB, device=dev)
     dwave_g = (sup['delwave'][ngb] * LW._support_scalar('wtdiff')
@@ -2600,40 +2782,13 @@ def main():
                 1.5 + 0.3 * r(16, ncol), (cld > 0.5) * r(nz, ncol),
                 r(nz, ncol, 16) * 3.0, dwave_g)
 
-    report['A'] = dict(max_abs_err=0.0, library_ms=None)
-    for nz in (28, 60):
-        ncol = 8192
-        args = rtrn_inputs(nz, ncol)
-        outs = rtrn_kernel.rtrn_lw_cuda(*args, rec_6)
-        refs = rtrn_kernel.rtrn_lw_plain(*args, rec_6)
-        torch.cuda.synchronize()
-        worst = worst_rel = 0.0
-        for o, rf, nm in zip(outs, refs, ('up', 'dn', 'up_clr', 'dn_clr')):
-            err, scale = max_rel_err(o, rf)
-            if not err <= 2e-6 * scale:
-                fail('kernel A disagrees at nz=%d (%s): %g > 2e-6 * %g'
-                     % (nz, nm, err, scale))
-            worst = max(worst, err)
-            worst_rel = max(worst_rel, err / scale)
-        report['A']['max_abs_err'] = max(report['A']['max_abs_err'], worst)
-        ms = cuda_ms(lambda: rtrn_kernel.rtrn_lw_cuda(*args, rec_6), 10,
-                     torch)
-        # each input read once, each output written once
-        nbytes = (sum(a.numel() for a in args) + 4 * (nz + 1) * ncol) * 4
-        bound_ms, bound_by = bound(nbytes, RTRN_OPS_PER_POINT * 140 * nz
-                                   * ncol)
-        msg = ('kernel A nz=%d ncol=%d: max abs err %.3g W/m^2 (%.3g of '
-               'max), %.4f ms, bound %.4f ms (%s, %.1f MB), %.0f%% of '
-               'bound' % (nz, ncol, worst, worst_rel, ms, bound_ms, bound_by,
-                          nbytes / 1e6, 100.0 * bound_ms / ms))
-        if nz == 28:            # the main path's shape
-            plain_ms = cuda_ms(
-                lambda: rtrn_kernel.rtrn_lw_plain(*args, rec_6), 3, torch)
-            report['A'].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by, share=bound_ms / ms)
-            msg += ', plain %.3f ms' % plain_ms
-        phase(4, msg + '; on ' + card)
-        del args, outs, refs
+    report['A'] = dict(library_ms=None)
+    for nz in (60, 28):       # 28 last: the main path's shape
+        rec = kernel_a_check(rtrn_inputs(nz, 8192) + (rec_6,), 2e-6, card,
+                             torch, n=4)
+        rec['max_abs_err'] = max(rec['max_abs_err'],
+                                 report['A'].get('max_abs_err', 0.0))
+        report['A'].update(rec)
     torch.cuda.empty_cache()
 
     # ---- phase 5: small model, GPU vs CPU ------------------------------
@@ -2857,8 +3012,17 @@ def main():
                                        step_fn, report).items():
         launches[kernel] += count
 
+    # ---- phase 26: the repository's entry points on the port ----------
+    torch.cuda.empty_cache()
+    entry_launches, checked = entry_points_phase(dev, card, counters)
+    for kernel, count in entry_launches.items():
+        launches[kernel] += count
+        report[kernel]['max_abs_err'] = max(report[kernel]['max_abs_err'],
+                                            checked[kernel]['max_abs_err'])
+
     # the float32 entries count the T85 runs of phases 6, 17, 20, 21 and
-    # 25 (phase 24 checks its own: 24 B and 4 A launches per refresh)
+    # 25 and the flagship step of phase 26 (phase 24 checks its own: 24 B
+    # and 4 A launches per refresh)
     kernels = [
         dict(name='mix_groups_cuda', route='cuda',
              source='climt_tpu_torch/csrc/mix_rows.cu',

@@ -26,8 +26,11 @@ and registered tracers move in spectral or grid space (``ops/``'s FV and
 semi-Lagrangian operators).  CORK longwave radiation (correlated-k
 tables and Parmentier picket-fence optics) is
 ``climt_tpu_torch.components.cork.lw.CorkLongwaveRadiation``, not
-exported here, as the JAX package does not export it.  Whatever builds on
-a device takes ``device=`` and defaults to the CUDA card.
+exported here, as the JAX package does not export it.  The repository's
+two entry points, the flagship step ``entry()`` and the m-sharded check
+``dryrun_multichip(n)`` of ``__graft_entry__.py``, are
+``climt_tpu_torch.entry_points``.  Whatever builds on a device takes
+``device=`` and defaults to the CUDA card.
 """
 
 from .core.base_components import (
@@ -87,6 +90,7 @@ from .components import (
 )
 from .dycore.gfs import GFSDynamicalCore
 from .dycore.spectral_dynamics import SpectralDycore
+from . import entry_points
 
 __version__ = '0.1.0'
 

@@ -25,12 +25,18 @@ def bucket_step(
         conv_precip, strat_precip, q_lowest, q_surface, T_lowest,
         p_lowest, v_lowest, u_lowest, w_deep, T_deep, dt,
         s_max, beta_param, latent_heat, bulk_coeff, rd, cp, rho_water,
-        deep_smax, tau_m, deep_ratio, tau_drain):
-    """One bucket step over all columns (:27).  w_deep and T_deep are
-    None for one layer; tau_drain None means no deep drainage.  Returns
-    (precipitation, latent, sensible, evaporation, new T_s, new soil
-    moisture) and, with two layers, (new T_deep, new w_deep, runoff, deep
-    moisture fraction)."""
+        deep_smax, tau_m, deep_ratio, tau_drain,
+        two_layer=None, have_tau_drain=None):
+    """One bucket step over all columns (:27): (precipitation, latent,
+    sensible, evaporation, new T_s, new soil moisture, new T_deep, new
+    w_deep, runoff, deep moisture fraction), the last four zeros for one
+    layer.  ``two_layer`` and ``have_tau_drain`` have JAX's meaning;
+    omitted, w_deep None means one layer and tau_drain None no deep
+    drainage."""
+    if two_layer is None:
+        two_layer = w_deep is not None
+    if have_tau_drain is None:
+        have_tau_drain = tau_drain is not None
     wind_speed = torch.sqrt(u_lowest ** 2 + v_lowest ** 2)
     # lowest-level air density from the ideal gas law: the bulk formulae
     # are mass fluxes
@@ -55,7 +61,7 @@ def bucket_step(
     fluxes = (precipitation_rate, latent_flux, sensible_flux,
               evaporation_rate)
 
-    if w_deep is None:
+    if not two_layer:
         soil_moisture_tendency = torch.where(
             (soil_moisture < s_max)
             | (precipitation_rate <= evaporation_rate),
@@ -64,13 +70,13 @@ def bucket_step(
         new_T_s = T_s + net_heat_flux / heat_capacity_surface * dt
         new_soil = torch.clamp(
             soil_moisture + soil_moisture_tendency * dt, max=s_max)
-        return fluxes + (new_T_s, new_soil)
+        return fluxes + (new_T_s, new_soil) + (torch.zeros_like(T_s),) * 4
 
     # two layers: shallow<->deep exchange toward equal relative saturation,
     # optional deep drainage, overflow runoff, conductive thermal coupling
     f_sd = ((soil_moisture / s_max - w_deep / deep_smax)
             * (0.5 * (s_max + deep_smax)) / tau_m)
-    drain = (w_deep / tau_drain if tau_drain is not None
+    drain = (w_deep / tau_drain if have_tau_drain
              else torch.zeros_like(w_deep))
 
     w_s_new = soil_moisture + (precipitation_rate - evaporation_rate
@@ -211,7 +217,8 @@ class BucketHydrology(Stepper):
             get_constant('heat_capacity_of_dry_air_at_constant_pressure',
                          'J kg^-1 K^-1'),
             get_constant('density_of_liquid_water', 'kg m^-3'),
-            self._deep_smax, tau_m, self._deep_ratio, self._tau_drain)
+            self._deep_smax, tau_m, self._deep_ratio, self._tau_drain,
+            two_layer, self._tau_drain is not None)
 
         diagnostics = dict(zip(
             ('precipitation_rate', 'surface_upward_latent_heat_flux',

@@ -15,13 +15,25 @@ from ..core.dataarray import as_tensor
 from ..core.util import resolve_device
 
 
-def held_suarez_forcing(u, v, T, p, ps, sinlat2, coslat2,
+def held_suarez_forcing(u, v, T, p, ps, latitude,
                         sigma_b, k_f, k_a, k_s, delta_T_y, delta_theta_z,
                         p0, kappa):
-    """(du, dv, dT) of the winds, temperature and pressure ``p``;
-    ``ps`` (surface pressure) and ``sinlat2``, ``coslat2`` (sin^2 and
-    cos^2 of latitude) broadcast against them (held_suarez.py:19).  Both
-    the component and the fused model (dycore/compiled.py) call it."""
+    """(du, dv, dT) of the winds, temperature and pressure ``p``, each
+    (ncol, nz), with ``ps`` (surface pressure) and ``latitude`` (degrees)
+    of shape (ncol,), as JAX takes them (held_suarez.py:20)."""
+    lat_rad = torch.deg2rad(latitude)[:, None]
+    return _held_suarez_tendencies(
+        u, v, T, p, ps[:, None], torch.sin(lat_rad) ** 2,
+        torch.cos(lat_rad) ** 2, sigma_b, k_f, k_a, k_s, delta_T_y,
+        delta_theta_z, p0, kappa)
+
+
+def _held_suarez_tendencies(u, v, T, p, ps, sinlat2, coslat2,
+                            sigma_b, k_f, k_a, k_s, delta_T_y,
+                            delta_theta_z, p0, kappa):
+    """``held_suarez_forcing`` with ``ps``, ``sinlat2`` and ``coslat2``
+    (sin^2 and cos^2 of latitude) broadcasting against the fields, so
+    that the fused model (dycore/compiled.py) passes its grid blocks."""
     sigma = p / ps
 
     Teq = torch.clamp(
@@ -88,10 +100,8 @@ class HeldSuarez(TendencyComponent):
             for name in ('eastward_wind', 'northward_wind',
                          'air_temperature', 'air_pressure',
                          'surface_air_pressure', 'latitude'))
-        lat_rad = torch.deg2rad(latitude)[:, None]
         du, dv, dT = held_suarez_forcing(
-            u, v, T, p, ps[:, None], torch.sin(lat_rad) ** 2,
-            torch.cos(lat_rad) ** 2, self._sigma_b, self._k_f, self._k_a, self._k_s,
-            self._delta_T_y, self._delta_theta_z, p0, rd / cpd)
+            u, v, T, p, ps, latitude, self._sigma_b, self._k_f, self._k_a,
+            self._k_s, self._delta_T_y, self._delta_theta_z, p0, rd / cpd)
         return ({'eastward_wind': du, 'northward_wind': dv,
                  'air_temperature': dT}, {})

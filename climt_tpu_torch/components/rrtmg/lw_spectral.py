@@ -35,7 +35,8 @@ import torch
 
 from ... import data
 from . import fused_mix
-from .rtrn_kernel import NG, NGB, lw_sweeps, rtrn_lw_fused
+from .rtrn_kernel import (NBANDS, NG, NGB, NGPT, NGS, lw_sweeps,
+                          rtrn_lw_fused)
 
 ONEMINUS = 1.0 - 1.0e-6
 AMD, AMW = 28.9660, 18.0160      # molecular weights (g/mol), inatm
@@ -136,8 +137,14 @@ RAT_PAIRS = dict(h2oco2=('h2o', 'co2'), o3co2=('o3', 'co2'),
                  h2on2o=('h2o', 'n2o'), n2oco2=('n2o', 'co2'))
 
 
-def load_support(dtype, device):
-    """rrtmg_lw_support.npz as tensors of the working dtype."""
+def load_support():
+    """rrtmg_lw_support.npz as a dict of numpy arrays (:179)."""
+    return data.load_npz(data.LW_SUPPORT)
+
+
+def support_tensors(dtype, device):
+    """rrtmg_lw_support.npz as tensors of ``dtype`` on ``device``
+    (cached)."""
     return data.load_tensors(data.LW_SUPPORT, dtype, device)
 
 
@@ -226,7 +233,7 @@ def setcoef_lw(pavel, tavel, tz, tbound, semiss, coldry, wkl, wbroad,
                idrv=False):
     """Interpolation indices/factors and Planck values (:246); with idrv
     also the surface Planck derivative ``dplankbnd_dt`` (:342-346)."""
-    t = load_support(pavel.dtype, pavel.device)
+    t = support_tensors(pavel.dtype, pavel.device)
     preflog, tref, chi = t['preflog'], t['tref'], t['chi_mls']
     stpfac = 296.0 / 1013.0
 
@@ -549,10 +556,11 @@ def taumol_lw(cs, wx, dtype, tables=None):
     return taug_g.run(), fracs_g.run()
 
 
-def _cloud_abs_coeffs(iceflag, liqflag, ciwp, clwp, rei, rel):
+def _cloud_abs_coeffs(iceflag, liqflag, ciwp, clwp, rei, rel, dtype=None):
     """Per-band ice/liquid mass absorption coefficients, mapped through
-    the icb pattern onto the 16 bands: (nz, ncol, 16) each (:615)."""
-    t = load_support(ciwp.dtype, ciwp.device)
+    the icb pattern onto the 16 bands: (nz, ncol, 16) each (:615), from
+    the tables in ``dtype`` (None: the inputs' dtype)."""
+    t = support_tensors(dtype or ciwp.dtype, ciwp.device)
     shape = tuple(ciwp.shape) + (16,)
     rei_safe = torch.clamp(rei, min=1.0e-20)
     if iceflag == 0:
@@ -604,10 +612,12 @@ def _cloudy_mask(cldfrac, ciwp, clwp, tauc):
 
 
 def cldprop_lw(inflag, iceflag, liqflag, cldfrac, tauc, ciwp, clwp,
-               rei, rel):
+               rei, rel, dtype=None):
     """Cloud optical depth per LW band, (nz, ncol, 16), already mapped
     through the icb pattern (:672): direct input (inflag 0), one cloud
-    type (1), or ice and liquid with iceflag 0-3 and liqflag 0-1 (2)."""
+    type (1), or ice and liquid with iceflag 0-3 and liqflag 0-1 (2).
+    ``dtype`` is that of the absorption tables, which the result is
+    promoted with as in JAX; None takes the inputs' dtype."""
     cloudy = _cloudy_mask(cldfrac, ciwp, clwp, tauc)[..., None]
     if inflag == 0:
         return torch.where(cloudy, tauc, 0.0)
@@ -615,17 +625,19 @@ def cldprop_lw(inflag, iceflag, liqflag, cldfrac, tauc, ciwp, clwp,
         abscld1 = _support_scalar('abscld1')
         tau = (abscld1 * (ciwp + clwp))[..., None].expand(
             tuple(ciwp.shape) + (16,))
+        if dtype is not None:
+            tau = tau.to(torch.promote_types(tau.dtype, dtype))
         return torch.where(cloudy, tau, 0.0)
     absice16, absliq16 = _cloud_abs_coeffs(iceflag, liqflag, ciwp, clwp,
-                                           rei, rel)
+                                           rei, rel, dtype)
     tau = ciwp[..., None] * absice16 + clwp[..., None] * absliq16
     return torch.where(cloudy, tau, 0.0)
 
 
 def cldprmc_lw(inflag, iceflag, liqflag, cldfmc, ciwpmc, clwpmc, taucmc,
-               rei, rel):
+               rei, rel, dtype=None):
     """Per-g-point McICA cloud optical depth, (nz, ncol, 140) (:693): the
-    optics of cldprop applied to each subcolumn."""
+    optics of cldprop applied to each subcolumn, ``dtype`` as there."""
     if inflag == 0:
         return taucmc
     if inflag == 1:
@@ -634,7 +646,7 @@ def cldprmc_lw(inflag, iceflag, liqflag, cldfmc, ciwpmc, clwpmc, taucmc,
     # the coefficients' masks see "any subcolumn has water"
     absice16, absliq16 = _cloud_abs_coeffs(
         iceflag, liqflag, torch.amax(ciwpmc, -1), torch.amax(clwpmc, -1),
-        rei, rel)
+        rei, rel, dtype)
     return ciwpmc * absice16[..., ngb] + clwpmc * absliq16[..., ngb]
 
 
@@ -694,7 +706,7 @@ def rtrn_lw(taug, fracs, planklay, planklev, plankbnd, semiss, pwvcm,
     Kernel A takes exactly the configurations the JAX package gives its
     Pallas kernel (:772-773): float32, analytic, no idrv, band clouds."""
     dtype, device = taug.dtype, taug.device
-    t = load_support(dtype, device)
+    t = support_tensors(dtype, device)
     ngb = torch.as_tensor(NGB, dtype=torch.int64, device=device)
     secdiff = _secdiff(pwvcm, t)                     # (16, ncol)
     rec_6 = _support_scalar('rec_6')

@@ -57,7 +57,12 @@ def mcica_subcolumns(generator, overlap, cldfrac, ciwp, clwp, tauc_band,
                      ngb):
     """Draw the deviates from ``generator`` (a torch.Generator on the
     fields' device) and build the subcolumns, as
-    ``subcolumns_from_deviates``."""
+    ``subcolumns_from_deviates``.  JAX takes a PRNG key in this place;
+    anything but a ``torch.Generator`` raises ``TypeError``."""
+    if not isinstance(generator, torch.Generator):
+        raise TypeError('mcica_subcolumns: the first argument must be a '
+                        'torch.Generator (the JAX package takes a PRNG key '
+                        'there), got %s' % type(generator).__name__)
     nz, ncol = cldfrac.shape
     shape = (1 if overlap == 3 else nz, ncol, len(ngb))
     raw = torch.rand(shape, generator=generator, dtype=cldfrac.dtype,

@@ -27,15 +27,20 @@ Pallas body divides by 6 (a 2e-6 relative difference in that branch).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ... import _build
 
+# the LW band layout (lw_spectral.py:59-64), one definition for the
+# kernel and for lw_spectral, which exports it: g-points per band (ngc of
+# rrtmg_lw_init.f90), each band's first g-point, each g-point's 0-based
+# band
 NBANDS = 16
 NGPT = 140
-# band of each g-point (lw_spectral.py:62-64)
 NG = [10, 12, 16, 14, 16, 8, 12, 8, 12, 6, 8, 8, 4, 2, 2, 2]
-NGB = [b for b, n in enumerate(NG) for _ in range(n)]
+NGS = np.concatenate([[0], np.cumsum(NG)])
+NGB = np.concatenate([np.full(n, b) for b, n in enumerate(NG)])
 
 MAX_SMEM_BYTES = 232448     # shared memory one block may use on Hopper
 WARPS = 5                   # warps of one block of kernel A

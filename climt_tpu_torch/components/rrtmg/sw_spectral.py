@@ -26,6 +26,7 @@ from . import fused_mix
 NBANDS = 14
 NGPT = 112
 NG = [6, 12, 8, 8, 10, 10, 2, 10, 8, 6, 6, 8, 6, 12]
+NGS = np.concatenate([[0], np.cumsum(NG)])          # offsets into 112
 NSPA = [9, 9, 9, 9, 1, 9, 9, 1, 9, 1, 0, 1, 9, 1]
 NSPB = [1, 5, 1, 1, 1, 5, 1, 0, 1, 0, 0, 1, 5, 1]
 NGB = np.concatenate([np.full(n, b) for b, n in enumerate(NG)])
@@ -104,8 +105,15 @@ BANDS = [
 ]
 
 
-def load_tables(dtype, device):
-    """rrtmg_sw_kdist.npz as tensors of the working dtype (:140)."""
+def load_tables():
+    """rrtmg_sw_kdist.npz as a dict of numpy arrays, with the Pade table
+    ``exp_tbl`` (:140)."""
+    return dict(data.load_npz(data.SW_KDIST), exp_tbl=EXP_TBL)
+
+
+def table_tensors(dtype, device):
+    """rrtmg_sw_kdist.npz as tensors of ``dtype`` on ``device``
+    (cached)."""
     return data.load_tensors(data.SW_KDIST, dtype, device)
 
 
@@ -115,7 +123,7 @@ def _trunc_int(x):
 
 def setcoef_sw(pavel, tavel, coldry, wkl):
     """Interpolation indices/fractions and column amounts (:151)."""
-    t = load_tables(pavel.dtype, pavel.device)
+    t = table_tensors(pavel.dtype, pavel.device)
     preflog, tref = t['preflog'], t['tref']
     stpfac = 296.0 / 1013.0
 
@@ -521,16 +529,20 @@ def _lin_rows(table, i0, fint):
 
 
 def cldprop_sw(inflag, iceflag, liqflag, cldfrac, tauc, ssac, asmc, fsfc,
-               ciwp, clwp, rei, rel):
+               ciwp, clwp, rei, rel, dtype=None):
     """Cloud optical properties per band (:633): direct input (inflag 0)
     or Hu & Stamnes liquid with Ebert-Curry (iceflag 1), Key (2) or Fu
     (3) ice (inflag 2).  Arrays (nz, ncol[, nband]); returns (taucloud,
-    ssacloud, asmcloud, taucldorig), each (nz, ncol, nband).  liqflag
-    selects nothing: the liquid optics are always Hu & Stamnes, as in
-    JAX."""
-    t = load_tables(cldfrac.dtype, cldfrac.device)
+    ssacloud, asmcloud, taucldorig), each (nz, ncol, nband), with the
+    tables read and the results cast to ``dtype`` as in JAX (None: the
+    inputs' dtype, uncast).  liqflag selects nothing: the liquid optics
+    are always Hu & Stamnes, as in JAX."""
+    t = table_tensors(dtype or cldfrac.dtype, cldfrac.device)
     cldmin = 1.0e-20
     cloudy = (cldfrac >= cldmin)[..., None]
+
+    def out(*xs):
+        return xs if dtype is None else tuple(x.to(dtype) for x in xs)
 
     if inflag == 0:
         ffp = fsfc
@@ -540,10 +552,10 @@ def cldprop_sw(inflag, iceflag, liqflag, cldfrac, tauc, ssac, asmc, fsfc,
         taucloud = ffpssa * tauc
         asmcloud = (asmc - ffp) / ffp1
         sel = cloudy & (torch.sum(tauc, -1, keepdim=True) >= cldmin)
-        return (torch.where(sel, taucloud, 0.0),
-                torch.where(sel, ssacloud, 1.0),
-                torch.where(sel, asmcloud, 0.0),
-                torch.where(sel, tauc, 0.0))
+        return out(torch.where(sel, taucloud, 0.0),
+                   torch.where(sel, ssacloud, 1.0),
+                   torch.where(sel, asmcloud, 0.0),
+                   torch.where(sel, tauc, 0.0))
     if inflag != 2:
         raise ValueError('shortwave cldprop supports inflag 0 or 2')
 
@@ -618,10 +630,10 @@ def cldprop_sw(inflag, iceflag, liqflag, cldfrac, tauc, ssac, asmc, fsfc,
     asmcloud = (scatliq * g_l + scatice * g_i) / (scatliq + scatice)
 
     sel = cloudy & ((ciwp + clwp >= cldmin)[..., None])
-    return (torch.where(sel, taucloud, 0.0),
-            torch.where(sel, ssacloud, 1.0),
-            torch.where(sel, asmcloud, 0.0),
-            torch.where(sel, taucldorig, 0.0))
+    return out(torch.where(sel, taucloud, 0.0),
+               torch.where(sel, ssacloud, 1.0),
+               torch.where(sel, asmcloud, 0.0),
+               torch.where(sel, taucldorig, 0.0))
 
 
 def _top_down_g(x, ngb):
@@ -754,17 +766,20 @@ def spcvmc_sw(taug, taur, sflux, adjflux_band, mu0, alb_dir_band,
                       alb_dif_band, incflx, 1, use_tables)
 
 
-def ecmwf_aerosol_optics(ecaer):
+def ecmwf_aerosol_optics(ecaer, dtype=None):
     """ECMWF six-type aerosol optical depth at 0.55 micron, (6, nz, ncol),
-    to band optics (taua, ssaa, asma), each (nz, ncol, nband) (:1090)."""
-    t = load_tables(ecaer.dtype, ecaer.device)
+    to band optics (taua, ssaa, asma), each (nz, ncol, nband) (:1090):
+    the tables read in ``dtype`` (None: ecaer's), the products in the
+    promotion of the two, as in JAX."""
+    t = table_tensors(dtype or ecaer.dtype, ecaer.device)
     rsrtaua = t['aer_rsrtaua']                        # (nband, naer)
     rsrpiza = t['aer_rsrpiza']
     rsrasya = t['aer_rsrasya']
-    ec = torch.movedim(ecaer, 0, -1)                  # (nz, ncol, naer)
-    taua = torch.einsum('zca,ba->zcb', ec, rsrtaua)
-    zomga = torch.einsum('zca,ba->zcb', ec, rsrtaua * rsrpiza)
-    zasya = torch.einsum('zca,ba->zcb', ec, rsrtaua * rsrpiza * rsrasya)
+    work = torch.promote_types(ecaer.dtype, rsrtaua.dtype)
+    ec = torch.movedim(ecaer, 0, -1).to(work)         # (nz, ncol, naer)
+    taua, zomga, zasya = (
+        torch.einsum('zca,ba->zcb', ec, x.to(work))
+        for x in (rsrtaua, rsrtaua * rsrpiza, rsrtaua * rsrpiza * rsrasya))
     asma = torch.where(zomga != 0.0,
                        zasya / torch.where(zomga == 0, 1.0, zomga), zasya)
     ssaa = torch.where(taua != 0.0,

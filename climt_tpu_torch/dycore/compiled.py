@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..components.held_suarez import held_suarez_forcing
+from ..components.held_suarez import _held_suarez_tendencies
 from ..core.grid import hybrid_sigma_pressure_coefficients
 from ..core.util import resolve_device
 from ..parallel.mesh import carry_layout, unwrap_carry, wrap_carry
@@ -37,7 +37,7 @@ def held_suarez_physics_fn(dycore, sigma_b=0.7, k_f=1.0 / 86400.0,
 
     def physics(gs):
         p = 0.5 * (gs['p_half'][1:] + gs['p_half'][:-1])
-        du, dv, dT = held_suarez_forcing(
+        du, dv, dT = _held_suarez_tendencies(
             gs['u'], gs['v'], gs['T'], p, gs['ps'][None], sinlat2, coslat2,
             sigma_b, k_f, k_a, k_s, delta_T_y, delta_theta_z, p0,
             dycore.kappa)

@@ -73,9 +73,9 @@ class SpectralDycore(nn.Module):
                  asselin_strength=0.05,
                  rd=287.0, cpd=1004.64, g=9.80665,
                  radius=6.371e6, omega=7.292e-5,
-                 dtype=torch.float64, fft_impl='fft', device='cuda',
-                 moisture_advection='spectral', fv_max_wind=120.0,
-                 mesh=None, dist_axis='lat', layout='m_sharded',
+                 dtype=torch.float64, fft_impl='fft', mesh=None,
+                 dist_axis='lat', moisture_advection='spectral',
+                 fv_max_wind=120.0, device='cuda', layout='m_sharded',
                  shard_lon=False):
         """``ak``, ``bk``: bottom-up interface coefficients with
         p_interface = ak + bk (ps - p_top), as in the JAX constructor

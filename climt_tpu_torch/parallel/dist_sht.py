@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import Replicate, Shard
 
 from ..ops.sht import DFT_BUFFERS, SphericalHarmonicTransform
 
@@ -120,6 +121,20 @@ class DistributedSHT(nn.Module):
         if self.fft_impl == 'matmul':       # the zonal DFT is row-local
             for name in DFT_BUFFERS:
                 buf(name, getattr(sht, name))
+
+    # -- the layout as DTensor placements (dist_sht.py:163-167) -------------
+    def grid_sharding(self):
+        """DTensor placements of a rank's grid block (nz, nlat/L, nlon):
+        dim 1 sharded over the transform's axis, repeated on every other
+        mesh axis, so that ``DTensor.from_local(block, mesh,
+        placements)`` is the global field (``parallel.grid_sharding``
+        gives the placements of a rank-2 field)."""
+        return tuple(Shard(1) if name == self.axis else Replicate()
+                     for name in self.mesh.mesh_dim_names)
+
+    # a spectral block (nz, m_block, N+1) is cut on dim 1 as well; its
+    # global field has M_padded rows (``pad_spec``)
+    spec_sharding = grid_sharding
 
     # -- where the blocks are cut ------------------------------------------
     def m_block_of(self, a, fill='edge'):

@@ -18,13 +18,20 @@ where ``my_model.py`` does
 ``torchrun`` describes the cluster in the environment (``RANK``,
 ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``); without
 it, pass ``coordinator_address``, ``num_processes`` and ``process_id``.
+``spawn_ranks`` starts the processes itself: one per card, or gloo ranks
+on the CPU.
 """
 
 from __future__ import annotations
 
 import datetime
 import logging
+import multiprocessing
 import os
+import pickle
+import tempfile
+import time
+import traceback
 
 import torch
 import torch.distributed as dist
@@ -107,3 +114,83 @@ def process_info():
         return 0, 1, 1, 1
     world = dist.get_world_size()
     return dist.get_rank(), world, 1, world
+
+
+def spawn_ranks(target, world, kwargs=None, device='cpu', timeout=600.0,
+                out_dir=None):
+    """Run ``target(rank, world, **kwargs)`` in ``world`` spawned
+    processes of one process group; returns each rank's result.
+
+    ``target`` is a module-level callable (the spawned processes import
+    it by name).  ``device='cpu'`` gives gloo ranks of one thread each;
+    ``'cuda'`` gives NCCL ranks, rank r on card r.  The ranks meet
+    through a FileStore file in ``out_dir`` (a temporary directory when
+    None), and the inputs and results go through pickle files there.
+    Joins with ``timeout`` seconds and kills every rank still alive then;
+    a rank that fails or is killed raises here, with its traceback."""
+    if out_dir is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            return spawn_ranks(target, world, kwargs, device, timeout, tmp)
+    out_dir = str(out_dir)
+    # the inputs go through a file: a start-up message larger than a pipe
+    # buffer would make each start wait for the previous rank's imports
+    with open(os.path.join(out_dir, 'inputs.pkl'), 'wb') as f:
+        pickle.dump(kwargs or {}, f)
+    ctx = multiprocessing.get_context('spawn')
+    procs = [ctx.Process(target=_rank_main,
+                         args=(rank, world, target, device, out_dir))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for r in hung:
+        procs[r].kill()
+    for p in procs:
+        p.join(10.0)
+    errors = []
+    for rank, p in enumerate(procs):
+        err = os.path.join(out_dir, 'rank%d.err' % rank)
+        if os.path.exists(err):
+            with open(err) as f:
+                errors.append('rank %d:\n%s' % (rank, f.read()))
+        elif p.exitcode != 0:
+            errors.append('rank %d: exit code %s%s' % (
+                rank, p.exitcode, ' (killed after %g s)' % timeout
+                if rank in hung else ''))
+    if errors:
+        raise RuntimeError('%s on %d %s ranks failed:\n%s' % (
+            getattr(target, '__name__', target), world, device,
+            '\n'.join(errors)))
+    results = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, 'rank%d.pkl' % rank), 'rb') as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def _rank_main(rank, world, target, device, out_dir):
+    """One spawned rank: join the group, run the target on the inputs of
+    ``spawn_ranks``, write its result (or its traceback), leave the
+    group."""
+    try:
+        if device == 'cpu':
+            torch.set_num_threads(1)     # the ranks share the host's cores
+        with open(os.path.join(out_dir, 'inputs.pkl'), 'rb') as f:
+            kwargs = pickle.load(f)
+        initialize_distributed(
+            'file://' + os.path.join(out_dir, 'store'), world, rank,
+            local_device_ids=[rank] if device == 'cuda' else None,
+            device=device)
+        result = target(rank, world, **kwargs)
+        with open(os.path.join(out_dir, 'rank%d.pkl' % rank), 'wb') as f:
+            pickle.dump(result, f)
+    except BaseException:
+        with open(os.path.join(out_dir, 'rank%d.err' % rank), 'w') as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -566,3 +566,20 @@ def test_parmentier_optics_copy_no_state_field_to_the_host(cuda, band_count):
         torch.cuda.set_sync_debug_mode('default')
     assert tau.is_cuda and tau.shape == (2, 1, 28, 16)
     assert planck_src.is_cuda and surf_src.shape == (2, 1, 16)
+
+
+@pytest.mark.gpu
+def test_entry_points_run_on_the_card(cuda):
+    """entry() builds on the card by default; its step is one radiation
+    chunk of a refresh (6 kernel-B launches, 1 kernel-A); one m-sharded
+    step of dryrun_multichip(1) on a spawned NCCL rank holds against one
+    device."""
+    from climt_tpu_torch import entry_points
+    fn, (carry,) = entry_points.entry()
+    counters = (fused_mix.mix_groups_cuda, rtrn_kernel.rtrn_lw_cuda)
+    before = [c.launches for c in counters]
+    spec = fn(carry)
+    assert [c.launches - b for c, b in zip(counters, before)] == [6, 1]
+    assert spec.is_cuda and spec.dtype == torch.complex64
+    errors = entry_points.dryrun_multichip(1)
+    assert max(e['of_limit'] for e in errors.values()) <= 1.0

@@ -36,6 +36,7 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     assert result['forbidden'] == []
     # the walk reached every subpackage, the CORK component among them
     for name in ('climt_tpu_torch.components.cork.lw',
+                 'climt_tpu_torch.entry_points',
                  'climt_tpu_torch.parallel.rep_sht',
                  'climt_tpu_torch.io.native', 'climt_tpu_torch.ops.sht'):
         assert name in result['imported']

@@ -9,13 +9,10 @@ examples through ``port_example`` too.
 import contextlib
 import functools
 import importlib.util
-import multiprocessing
 import os
-import pickle
 import re
 import sys
 import time
-import traceback
 import types
 
 import numpy as np
@@ -539,51 +536,13 @@ def ragged_group(bands, dtype, device='cpu'):
 
 # -- ranks of a torch.distributed world, spawned ---------------------------
 
-def spawn_ranks(target, world, out_dir, timeout=240.0, backend_device='cpu',
-                **kwargs):
-    """Run ``torch_helpers.<target>(rank, world, **kwargs)`` in ``world``
-    spawned processes of one process group (gloo for backend_device 'cpu'),
-    which meet through a FileStore file in ``out_dir``; returns each rank's
-    result.  Joins with a timeout and kills every rank still alive then; a
-    rank that fails or is killed raises here, with its traceback."""
-    ctx = multiprocessing.get_context('spawn')
-    out_dir = str(out_dir)
-    store = os.path.join(out_dir, 'store')
-    # the inputs go through a file: a start-up message larger than a pipe
-    # buffer would make each start wait for the previous rank's imports
-    with open(os.path.join(out_dir, 'inputs.pkl'), 'wb') as f:
-        pickle.dump(kwargs, f)
-    procs = [ctx.Process(target=_rank_main, args=(
-        rank, world, store, target, out_dir, backend_device))
-        for rank in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + timeout
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    for r in hung:
-        procs[r].kill()
-    for p in procs:
-        p.join(10.0)
-    errors = []
-    for rank, p in enumerate(procs):
-        err = os.path.join(out_dir, 'rank%d.err' % rank)
-        if os.path.exists(err):
-            with open(err) as f:
-                errors.append('rank %d:\n%s' % (rank, f.read()))
-        elif p.exitcode != 0:
-            errors.append('rank %d: exit code %s%s' % (
-                rank, p.exitcode, ' (killed after %g s)' % timeout
-                if rank in hung else ''))
-    if errors:
-        raise RuntimeError('%s on %d ranks failed:\n%s' % (
-            target, world, '\n'.join(errors)))
-    results = []
-    for rank in range(world):
-        with open(os.path.join(out_dir, 'rank%d.pkl' % rank), 'rb') as f:
-            results.append(pickle.load(f))
-    return results
+def spawn_ranks(target, world, out_dir, timeout=240.0, **kwargs):
+    """Run ``torch_helpers.<target>(rank, world, **kwargs)`` on ``world``
+    gloo ranks through the package's ``parallel.spawn_ranks`` (a
+    FileStore in ``out_dir``); returns each rank's result."""
+    from climt_tpu_torch.parallel import spawn_ranks as spawn
+    return spawn(globals()[target], world, kwargs, device='cpu',
+                 timeout=timeout, out_dir=out_dir)
 
 
 @contextlib.contextmanager
@@ -599,30 +558,6 @@ def world_of_one(out_dir):
         yield size
     finally:
         dist.destroy_process_group()
-
-
-def _rank_main(rank, world, store, target, out_dir, backend_device):
-    """One spawned rank: join the group, run the target on the inputs of
-    ``spawn_ranks``, write its result (or its traceback), leave the
-    group."""
-    import torch.distributed as dist
-    from climt_tpu_torch.parallel import initialize_distributed
-    torch.set_num_threads(1)
-    try:
-        with open(os.path.join(out_dir, 'inputs.pkl'), 'rb') as f:
-            kwargs = pickle.load(f)
-        initialize_distributed('file://' + store, world, rank,
-                               device=backend_device)
-        result = globals()[target](rank, world, **kwargs)
-        with open(os.path.join(out_dir, 'rank%d.pkl' % rank), 'wb') as f:
-            pickle.dump(result, f)
-    except BaseException:
-        with open(os.path.join(out_dir, 'rank%d.err' % rank), 'w') as f:
-            f.write(traceback.format_exc())
-        raise
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
 
 
 def _block(x, sht):
