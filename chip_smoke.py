@@ -165,10 +165,29 @@ Phases, each of which fails loudly (no exception is turned into exit 0):
      one m-sharded step at 8x4x8 against one device, each field's error
      beside its limit, and dryrun_multichip(n) when the machine has n > 1
      cards; (d) each call's time (fn twice: the first call and a warm
-     one) beside the card's name and power limit.
+     one) beside the card's name and power limit;
+ 27. the LW k-table calibration (climt_tpu_torch.tools.calibrate_lw_ktables)
+     on the card: (a) the gradient in theta of taumol_lw on phase 3's T85
+     chunk with float32 tables built from the calibrated theta (exactly 2
+     backward launches, finite and nonzero); kernel B's backward
+     (csrc/mix_rows_bwd.cu) on the lw_taug and lw_fracs groups of that
+     call (float32) and of
+     the full-radiation example's first call (float64) with a seeded
+     upstream gradient, against its plain version (2e-5 and 1e-13 of
+     max), timed beside its bound and torch.autograd.grad of
+     F.embedding_bag per band, and the difference between two runs; (b)
+     the calibration loss on the tool's four training cases (targets made
+     by the port on the CPU at the calibrated parameters), the two
+     tropical anchors and the prior, at the prior parameters: value and
+     gradient on the card against the CPU (1e-10 and 1e-9 of max), with
+     exactly 3 kernel-B and 2 backward launches per LW call and no kernel
+     A; (c) 20 Adam steps on the card from the prior: s/step, launches per
+     step, the loss falls; (d) a float32 LW call whose tables require grad
+     raises at kernel A, and kernel B refuses weights that require grad.
 The examples run through tests/torch_helpers.py:port_example, which the
 CPU tests use too.
-The line before the last is a JSON object with each kernel's launches,
+The line before the last is a JSON object with each kernel's launches
+(the backward's float32 entry counts (a)'s taumol gradient),
 error, time, bound, plain and library times; the last line is
 {"ok": true, "device": {...}}.
 It imports neither jax nor climt_tpu.
@@ -275,6 +294,15 @@ CORK_CALLS = 5
 MATMUL_RATIO = 10.0
 # phase 25: RRTMGLongwave's card-against-CPU size
 KTABLE_SMALL = (16, 8, 8)
+# phase 27: kernel B's backward adds with atomics, in an order that
+# changes from run to run, where the plain version adds in index order:
+# limits of max for each type, about 10x the largest error measured on
+# the LW groups (1.5e-6 and 4.2e-15 on an H100 80GB HBM3 at 700 W); the
+# calibration's loss and gradient on the card against the CPU; the Adam
+# steps taken on the card
+BWD_TOL = {'float32': 2e-5, 'float64': 1e-13}
+CALIBRATION_TOL = dict(value=1e-10, grad=1e-9)
+ADAM_STEPS = 20
 FLOAT32_EPS = 2.0 ** -23
 # phase 17's card-against-CPU size
 GRID_SMALL = dict(nlon=64, nlat=32, nz=10, rad_every=6, rad_col_chunk=2048)
@@ -2658,6 +2686,285 @@ def entry_points_phase(dev, card, counters):
     return launches, checked
 
 
+def embedding_bag_bwd_call(layout, idx, w, gout, torch):
+    """torch.autograd.grad of one F.embedding_bag per band (pre-clipped,
+    pre-offset indices, per_sample_weights, mode='sum') with respect to
+    its table, for the upstream gradient ``gout``: the library yardstick
+    for kernel B's backward, which the port never calls.  Returns (fn,
+    check) where check(grad) is the largest difference from the packed
+    table gradient ``grad``."""
+    F = torch.nn.functional
+    flat_g = gout.reshape(-1, layout.width)
+    outs, tabs, gs, spans = [], [], [], []
+    for ng, ngp, t0, nt, goff, tab0, tablen in layout.bands:
+        if nt == 0:
+            continue
+        term = layout.term_i64[t0:t0 + nt]
+        flat = idx[t0:t0 + nt].reshape(nt, -1).long()
+        rows = torch.minimum(flat.clamp(min=0), term[:, 1:2] - 1) + (
+            (term[:, 0:1] - tab0) // ngp)
+        tab = layout.table[tab0:tab0 + tablen].detach().view(
+            -1, ngp).clone().requires_grad_(True)
+        outs.append(F.embedding_bag(
+            rows.T.contiguous(), tab, mode='sum',
+            per_sample_weights=w[t0:t0 + nt].reshape(nt, -1).T.contiguous()))
+        tabs.append(tab)
+        gs.append(F.pad(flat_g[:, goff:goff + ng], (0, ngp - ng)))
+        spans.append((tab0, tablen))
+
+    def fn():
+        return torch.autograd.grad(outs, tabs, gs, retain_graph=True)
+
+    def check(grad):
+        return max(float((g.reshape(-1) - grad[tab0:tab0 + n]).abs().max())
+                   for g, (tab0, n) in zip(fn(), spans))
+
+    return fn, check
+
+
+def kernel_b_bwd_groups(groups, dtype_name, card, torch, seed):
+    """Phase 27 (a) on one set of kernel-B groups {name: (layout, idx,
+    w)}: the backward kernel against its plain version within
+    BWD_TOL[dtype_name] of max for a seeded upstream gradient, two runs
+    against each other, timed beside its bound, the plain version and the
+    embedding_bag backward.  Returns the summed record."""
+    from climt_tpu_torch.components.rrtmg import fused_mix
+
+    tol = BWD_TOL[dtype_name]
+    gen = torch.Generator(device='cpu').manual_seed(seed)
+    total = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                 bound_ms=0.0, rerun=0.0)
+    for gname, (layout, idx, w) in groups.items():
+        cells = tuple(idx.shape[1:])
+        ncell = idx[0].numel()
+        gout = torch.randn(cells + (layout.width,), generator=gen,
+                           dtype=w.dtype).to(w.device)
+        grad = fused_mix.mix_groups_bwd_cuda(layout, idx, w, gout)
+        again = fused_mix.mix_groups_bwd_cuda(layout, idx, w, gout)
+        ref = fused_mix.mix_groups_bwd_plain(layout, idx, w, gout)
+        lib_fn, lib_check = embedding_bag_bwd_call(layout, idx, w, gout,
+                                                   torch)
+        torch.cuda.synchronize()
+        err, scale = max_rel_err(grad, ref)
+        rerun = float((grad - again).abs().max())
+        lib_err = lib_check(grad)
+        if not err <= tol * scale:
+            fail('kernel B backward disagrees on %s (%s): max abs err %g > '
+                 '%g * %g' % (gname, dtype_name, err, tol, scale))
+        if not lib_err <= tol * scale:
+            fail('embedding_bag backward disagrees on %s (%s) by %g'
+                 % (gname, dtype_name, lib_err))
+        ms = cuda_ms(lambda: fused_mix.mix_groups_bwd_cuda(
+            layout, idx, w, gout), 20, torch)
+        plain_ms = cuda_ms(lambda: fused_mix.mix_groups_bwd_plain(
+            layout, idx, w, gout), 2, torch)
+        library_ms = cuda_ms(lib_fn, 10, torch)
+        nbytes, ops = group_cost(layout, ncell)
+        bound_ms, bound_by = bound(
+            nbytes, ops, FP64_OPS_PER_S if w.dtype == torch.float64
+            else FP32_OPS_PER_S)
+        for key, val in (('ms', ms), ('plain_ms', plain_ms),
+                         ('library_ms', library_ms), ('bound_ms', bound_ms)):
+            total[key] += val
+        total['max_abs_err'] = max(total['max_abs_err'], err)
+        total['rerun'] = max(total['rerun'], rerun)
+        phase(27, 'kernel B backward %s %s: %d cells, %d bands, %d terms: '
+              'max abs err %.3g (max %.3g, limit %g of max), two runs apart '
+              'by %.3g; %.4f ms, plain %.4f ms, embedding_bag backward %.4f '
+              'ms (apart by %.3g), bound %.4f ms (%s, %.1f MB), %.0f%% of '
+              'bound' % (gname, dtype_name, ncell, len(layout.bands),
+                         layout.nterms, err, scale, tol, rerun, ms, plain_ms,
+                         library_ms, lib_err, bound_ms, bound_by,
+                         nbytes / 1e6, 100.0 * bound_ms / ms))
+        del grad, again, ref, lib_fn, lib_check, gout
+    total['share'] = total['bound_ms'] / total['ms']
+    total['bound_by'] = 'bytes'
+    phase(27, 'kernel B backward %s, %d groups: %.4f ms, plain %.4f ms, '
+          'embedding_bag backward %.4f ms, bound %.4f ms, %.0f%% of bound; '
+          'on %s' % (dtype_name, len(groups), total['ms'], total['plain_ms'],
+                     total['library_ms'], total['bound_ms'],
+                     100.0 * total['share'], card))
+    return total
+
+
+def calibration_phase(dev, card, counters, init_fn, step_fn):
+    """Phase 27: the LW k-table calibration on the card (see the module
+    docstring).  Returns the backward kernel's float32 and float64
+    records and the launch counts of (b) and (c): kernel B ('B', float64),
+    its backward ('bwd') and kernel A ('A')."""
+    import numpy as np
+    import torch
+    from climt_tpu_torch.components.rrtmg import fused_mix
+    from climt_tpu_torch.components.rrtmg import lw_spectral as LW
+    from climt_tpu_torch.components.rrtmg import lw_surrogate
+    from climt_tpu_torch.tools import calibrate_lw_ktables as cal
+
+    t_phase = time.perf_counter()
+    bwd = fused_mix.mix_groups_bwd_cuda
+    # (a) the backward kernel at the LW groups' shapes of the main paths.
+    # The float32 path: the gradient in theta of the T85 chunk's gaseous
+    # optical depths and Planck fractions (taumol_lw, as the GCM calls it)
+    # from float32 tables built from the calibrated theta, one backward
+    # launch for each of the two groups
+    cs, wx = chunk_lw_coefs(t85_chunk(step_fn, init_fn, dev))
+    theta32 = torch.as_tensor(lw_surrogate.load_calibrated_params(),
+                              dtype=torch.float32,
+                              device=dev).requires_grad_(True)
+    tables32 = lw_surrogate.build_tables(theta32)
+    gen = torch.Generator(device='cpu').manual_seed(26)
+    bwd.launches = 0
+    outs32 = LW.taumol_lw(cs, wx, torch.float32, tables32)
+    grad32, = torch.autograd.grad(
+        sum((x * torch.randn(x.shape, generator=gen).to(dev)).sum()
+            for x in outs32), theta32)
+    torch.cuda.synchronize()
+    launches_f32 = bwd.launches
+    if launches_f32 != 2:
+        fail('phase 27: the float32 taumol gradient launched the backward '
+             '%d times, not 2' % launches_f32)
+    if not (bool(torch.isfinite(grad32).all()) and bool((grad32 != 0).any())):
+        fail('phase 27: the float32 taumol gradient in theta is not finite '
+             'or is zero')
+    phase(27, 'float32 taumol gradient in theta on the T85 chunk (%d '
+          'cells): %d backward launches, %d of %d nonzero, max %.3g' % (
+              outs32[0].shape[:-1].numel(), launches_f32,
+              int((grad32 != 0).sum()), grad32.numel(),
+              float(grad32.abs().max())))
+    f32_groups = dict(zip(('lw_taug', 'lw_fracs'), (
+        g.finish() for g in LW.taumol_lw_terms(cs, wx, torch.float32,
+                                               tables32))))
+    del outs32, grad32
+    f64_groups = {k: v for k, v in example_f64_groups().items()
+                  if k in ('lw_taug', 'lw_fracs')}
+    del cs, wx
+    records = {'float32': kernel_b_bwd_groups(f32_groups, 'float32', card,
+                                              torch, seed=27),
+               'float64': kernel_b_bwd_groups(f64_groups, 'float64', card,
+                                              torch, seed=28)}
+    records['float32']['launches'] = launches_f32
+    del f32_groups, tables32, theta32
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t_phase
+
+    # (b) the loss and its gradient at the prior, card against CPU; the
+    # training targets are the port's own CPU fluxes at the calibrated
+    # parameters (no reference caches here)
+    cpu = torch.device('cpu')
+    tables_cal = lw_surrogate.build_tables(
+        lw_surrogate.load_calibrated_params())
+
+    def loss_args(device, targets=None):
+        train = []
+        for i, (family, desc) in enumerate(cal.TRAIN):
+            inputs, flags = cal.case_inputs(family, desc, device)
+            train.append((inputs, flags, targets[i] if targets else
+                          cal.synthetic_targets(inputs, flags, tables_cal)))
+        return (train, cal.tropical_inputs(device=device),
+                cal.tropical_inputs(co2_scale=2.0, device=device),
+                torch.as_tensor(lw_surrogate.default_params(),
+                                device=device))
+
+    args_cpu = loss_args(cpu)
+    args = loss_args(dev, [t for _, _, t in args_cpu[0]])
+    theta0 = lw_surrogate.default_params()
+    val_cpu, grad_cpu = cal.value_and_grad(torch.as_tensor(theta0), *args_cpu)
+    kernels = dict(counters, bwd=bwd)
+
+    def zero_counts():
+        for counter in kernels.values():
+            counter.launches = 0
+
+    def counts():
+        return {k: c.launches for k, c in kernels.items()}
+
+    zero_counts()
+    val, grad = cal.value_and_grad(torch.as_tensor(theta0, device=dev),
+                                   *args)
+    torch.cuda.synchronize()
+    launches = counts()
+    n_calls = len(cal.TRAIN) + 2
+    if launches != {'A': 0, 'B': 3 * n_calls, 'bwd': 2 * n_calls}:
+        fail('phase 27: one loss and gradient launched %s for %d LW calls, '
+             'not 3 B, 2 backward and no A each' % (launches, n_calls))
+    val_err = abs(float(val) - float(val_cpu))
+    grad_err, grad_scale = max_rel_err(grad.cpu(), grad_cpu)
+    if not (np.isfinite(float(val)) and bool(torch.isfinite(grad).all())):
+        fail('phase 27: non-finite loss or gradient on the card')
+    if not val_err <= CALIBRATION_TOL['value'] * abs(float(val_cpu)):
+        fail('phase 27: the loss on the card differs from the CPU by %g of '
+             '%g' % (val_err, float(val_cpu)))
+    if not grad_err <= CALIBRATION_TOL['grad'] * grad_scale:
+        fail('phase 27: the gradient on the card differs from the CPU by %g '
+             '(max %g)' % (grad_err, grad_scale))
+    phase(27, 'calibration loss at the prior, %d training cases + 2 anchors '
+          '+ prior, f64: %.10g on the card, %.10g on the CPU (apart by %.3g '
+          'of it, limit %g); gradient (%d of %d nonzero) apart by %.3g of '
+          'max %.3g (limit %g); launches %s' % (
+              len(cal.TRAIN), float(val), float(val_cpu),
+              val_err / abs(float(val_cpu)), CALIBRATION_TOL['value'],
+              int((grad_cpu != 0).sum()), grad_cpu.numel(),
+              grad_err / grad_scale, grad_scale, CALIBRATION_TOL['grad'],
+              launches))
+
+    # (c) Adam steps on the card, the tool's step and learning rate
+    theta = torch.as_tensor(theta0, device=dev)
+    m, v = torch.zeros_like(theta), torch.zeros_like(theta)
+    losses, step_s = [], []
+    zero_counts()
+    for i in range(ADAM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val_i, grad_i = cal.value_and_grad(theta, *args)
+        theta, m, v = cal.adam_step(i, theta, m, v, grad_i, 2e-2, 4000)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(val_i))
+    steps = counts()
+    if steps != {k: n * ADAM_STEPS for k, n in launches.items()}:
+        fail('phase 27: %d Adam steps launched %s, not %d times %s'
+             % (ADAM_STEPS, steps, ADAM_STEPS, launches))
+    for kernel, count in steps.items():
+        launches[kernel] += count
+    if not (all(np.isfinite(losses)) and bool(torch.isfinite(theta).all())):
+        fail('phase 27: non-finite loss or parameters in the Adam steps')
+    if not losses[-1] < losses[0]:
+        fail('phase 27: %d Adam steps did not lower the loss: %s'
+             % (ADAM_STEPS, losses))
+    phase(27, '%d Adam steps on the card: %.4f s/step (median %.4f, first '
+          '%.4f), loss %.6g -> %.6g; per step kernel B %g, backward %g, '
+          'kernel A %g; on %s' % (
+              ADAM_STEPS, sum(step_s) / len(step_s), median(step_s),
+              step_s[0], losses[0], losses[-1], steps['B'] / ADAM_STEPS,
+              steps['bwd'] / ADAM_STEPS, steps['A'] / ADAM_STEPS, card))
+
+    # (d) the loud refusals
+    th32 = torch.as_tensor(theta0, dtype=torch.float32, device=dev)
+    tables32 = lw_surrogate.build_tables(th32.requires_grad_(True))
+    trop32 = {k: x.float() if torch.is_tensor(x) else x
+              for k, x in args[1].items()}
+    try:
+        cal.flux_fn(trop32, tables32, cal.FLAGS0)
+        fail('phase 27: a float32 LW call with tables that require grad '
+             'did not raise')
+    except NotImplementedError as exc:
+        if 'kernel A' not in str(exc):
+            fail('phase 27: the float32 call raised %r, not at kernel A'
+                 % exc)
+        refused_a = str(exc)
+    layout, idx, w = f64_groups['lw_fracs']
+    try:
+        fused_mix.mix_groups(layout, idx, w.clone().requires_grad_(True))
+        fail('phase 27: kernel B took weights that require grad')
+    except NotImplementedError as exc:
+        refused_b = str(exc)
+    del f64_groups, layout, idx, w, args, tables32, trop32
+    torch.cuda.empty_cache()
+    phase(27, 'refused: %r; %r' % (refused_a, refused_b))
+    phase(27, 'phase 27 in %.1f s ((a) %.1f s); on %s' % (
+        time.perf_counter() - t_phase, t_a, card))
+    return records, launches
+
+
 def check_close(a, b, tol, label):
     """max of |a - b| / (atol + rtol |b|), failing above 1."""
     import numpy as np
@@ -3020,6 +3327,12 @@ def main():
         report[kernel]['max_abs_err'] = max(report[kernel]['max_abs_err'],
                                             checked[kernel]['max_abs_err'])
 
+    # ---- phase 27: the LW k-table calibration on the card ---------------
+    torch.cuda.empty_cache()
+    bwd_report, calib_launches = calibration_phase(dev, card, counters,
+                                                   init_fn, step_fn)
+    launches_f64['B'] += calib_launches['B']
+
     # the float32 entries count the T85 runs of phases 6, 17, 20, 21 and
     # 25 and the flagship step of phase 26 (phase 24 checks its own: 24 B
     # and 4 A launches per refresh)
@@ -3039,6 +3352,23 @@ def main():
              source='climt_tpu_torch/csrc/mix_rows.cu',
              replaces='climt_tpu/components/rrtmg/fused_mix.py:76',
              launches=launches_f64['B'], **report['B_f64']),
+        # kernel B's backward: in float64 the calibration's loss and Adam
+        # steps of phase 27, in float32 the taumol gradient of phase 27
+        # (a); JAX differentiates the gather of interp.mix_rows with XLA
+        # there
+        dict(name='mix_groups_bwd_cuda[float64]', route='cuda',
+             source='climt_tpu_torch/csrc/mix_rows_bwd.cu',
+             replaces='climt_tpu/components/rrtmg/interp.py:45',
+             launches=calib_launches['bwd'],
+             **{k: bwd_report['float64'][k] for k in (
+                 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+                 'library_ms')}),
+        dict(name='mix_groups_bwd_cuda[float32]', route='cuda',
+             source='climt_tpu_torch/csrc/mix_rows_bwd.cu',
+             replaces='climt_tpu/components/rrtmg/interp.py:45',
+             **{k: bwd_report['float32'][k] for k in (
+                 'launches', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                 'bound_by', 'library_ms')}),
     ]
     print('chip_smoke: all phases in %.1f s, the nvcc build included'
           % (time.perf_counter() - t_start), flush=True)

@@ -46,6 +46,24 @@ Callers write raw, part-relative row indices and their weights straight
 into one preallocated (terms, *cells) int32 and float pair (``Group``);
 the kernel clips and offsets the index itself, and reads no index at all
 for a one-row table.
+
+Gradient (``MixGroups``): the LW k-table calibration differentiates the
+fluxes with respect to the tables.  ``Layout`` packs with ``pad`` and
+``cat``, so ``Layout.table`` carries the graph back to the tables it was
+packed from; on the card ``mix_groups`` then runs kernel B under an
+``autograd.Function`` whose backward is ``csrc/mix_rows_bwd.cu``,
+
+    dtable[base_t + clip(idx[t, s]) * ngp + g] += w[t, s] * gout[s, goff + g],
+
+with ``mix_groups_bwd_plain`` beside it.  The weights never carry a graph
+(the taumol code writes them with ``out=``), and a weight that requires
+grad is refused on the card.  A layout packed from tables that require
+grad is never cached: each call packs afresh, so one step's graph is never
+handed to another.  On the CPU the plain version is differentiated by
+autograd itself.  JAX differentiates the gather of
+climt_tpu/components/rrtmg/interp.py with XLA in the same place (the path
+``fused_mix._pallas_mode() == 'off'`` selects; its Pallas kernel has no
+gradient).
 """
 
 from __future__ import annotations
@@ -63,6 +81,11 @@ def _padded(ng):
 
 def _signature(ngs, parts):
     return tuple(ngs), tuple((b, np.shape(tab), n) for b, tab, n in parts)
+
+
+def _requires_grad(tables):
+    """Whether any of ``tables`` is a tensor that requires grad."""
+    return any(torch.is_tensor(t) and t.requires_grad for t in tables)
 
 
 class Layout:
@@ -105,6 +128,7 @@ class Layout:
         self.term_desc = torch.as_tensor(
             np.asarray(terms, np.int32).reshape(-1), **i32)
         self.term_i64 = self.term_desc.long().reshape(-1, 2)
+        self.max_tablen = max((b[6] for b in bands), default=0)
 
     @classmethod
     def single(cls, table, nterms):
@@ -177,10 +201,121 @@ def mix_groups_cuda(layout, idx, w):
 mix_groups_cuda.launches = 0
 
 
+def mix_groups_bwd_plain(layout, idx, w, gout):
+    """Plain PyTorch backward of ``mix_groups`` with respect to the packed
+    table: the gradient of sum(gout * mix_groups(layout, idx, w)), a
+    tensor like ``layout.table`` (its padding columns zero).  Each term's
+    w * gout is added into its clipped, offset rows with
+    ``index_put_(accumulate=True)``; a one-row part's term is summed over
+    the cells first."""
+    grad = torch.zeros(layout.table.shape, dtype=w.dtype, device=w.device)
+    ncell = math.prod(idx.shape[1:])
+    g_all = gout.reshape(ncell, layout.width)
+    term = layout.term_i64
+    for ng, ngp, t0, nt, goff, _, _ in layout.bands:
+        if nt == 0:
+            continue
+        cols = torch.arange(ng, device=w.device)
+        g = g_all[:, goff:goff + ng]
+        wt = w[t0:t0 + nt].reshape(nt, ncell)
+        base, rows = term[t0:t0 + nt, 0], term[t0:t0 + nt, 1]
+        one = rows == 1
+        if bool(one.any()):
+            grad.index_put_(((base[one, None] + cols).reshape(-1),),
+                            (wt[one] @ g).reshape(-1), accumulate=True)
+        many = ~one
+        if bool(many.any()):
+            r = torch.minimum(idx[t0:t0 + nt].reshape(nt, ncell)[many]
+                              .long().clamp(min=0), rows[many, None] - 1)
+            pos = (base[many, None] + r * ngp)[..., None] + cols
+            grad.index_put_((pos.reshape(-1),),
+                            (wt[many, :, None] * g).reshape(-1),
+                            accumulate=True)
+    return grad
+
+
+_BWD_ENTRY = {torch.float32: 'climt_mix_groups_bwd_f32',
+              torch.float64: 'climt_mix_groups_bwd_f64'}
+
+
+def mix_groups_bwd_cuda(layout, idx, w, gout):
+    """Launch kernel B's backward (``csrc/mix_rows_bwd.cu``): the gradient
+    of sum(gout * mix_groups(layout, idx, w)) with respect to the packed
+    table, as ``mix_groups_bwd_plain``.  idx, w as ``mix_groups_cuda``
+    takes them; gout (*S, width) contiguous, in w's type."""
+    table = layout.table
+    if not all(x.is_cuda and x.device == table.device
+               for x in (idx, w, gout)):
+        raise ValueError('mix_groups_bwd_cuda: all tensors must be on one '
+                         'CUDA device')
+    if w.dtype not in _BWD_ENTRY or gout.dtype != w.dtype \
+            or table.dtype != w.dtype:
+        raise TypeError('mix_groups_bwd_cuda takes float32 or float64 '
+                        'tables, weights and gradients of one type, got '
+                        '%s, %s, %s' % (table.dtype, w.dtype, gout.dtype))
+    if idx.dtype != torch.int32:
+        raise TypeError('mix_groups_bwd_cuda takes int32 indices, got %s'
+                        % idx.dtype)
+    cells = tuple(idx.shape[1:])
+    if (idx.shape != w.shape or idx.shape[0] != layout.nterms
+            or tuple(gout.shape) != cells + (layout.width,)):
+        raise ValueError('mix_groups_bwd_cuda: idx %s, w %s, gout %s for %d '
+                         'terms of width %d' % (
+                             tuple(idx.shape), tuple(w.shape),
+                             tuple(gout.shape), layout.nterms, layout.width))
+    if not (idx.is_contiguous() and w.is_contiguous()
+            and gout.is_contiguous()):
+        raise ValueError('mix_groups_bwd_cuda takes contiguous tensors')
+    grad = torch.zeros(table.shape, dtype=w.dtype, device=table.device)
+    ncell = math.prod(cells)
+    if ncell == 0 or layout.nterms == 0:
+        return grad
+    rc = getattr(_build.library(), _BWD_ENTRY[w.dtype])(
+        layout.band_desc.data_ptr(), len(layout.bands),
+        layout.term_desc.data_ptr(), idx.data_ptr(), w.data_ptr(), ncell,
+        layout.width, gout.data_ptr(), layout.max_tablen, grad.data_ptr(),
+        torch.cuda.current_stream(table.device).cuda_stream)
+    _build.check_launch(rc, 'mix_groups_bwd_cuda')
+    mix_groups_bwd_cuda.launches += 1
+    return grad
+
+
+mix_groups_bwd_cuda.launches = 0
+
+
+class MixGroups(torch.autograd.Function):
+    """Kernel B under autograd on the card: ``mix_groups_cuda`` forward,
+    ``mix_groups_bwd_cuda`` backward, differentiable in the packed table
+    (the first argument, ``layout.table``) only."""
+
+    @staticmethod
+    def forward(ctx, table, layout, idx, w):
+        ctx.layout = layout
+        ctx.save_for_backward(idx, w)
+        return mix_groups_cuda(layout, idx, w)
+
+    @staticmethod
+    def backward(ctx, gout):
+        idx, w = ctx.saved_tensors
+        return (mix_groups_bwd_cuda(ctx.layout, idx, w, gout.contiguous()),
+                None, None, None)
+
+
 def mix_groups(layout, idx, w):
-    """The plain version for CPU tensors, kernel B for CUDA tensors."""
+    """The plain version for CPU tensors (autograd follows it), kernel B
+    for CUDA tensors.  On the card, with grad mode on, a packed table that
+    requires grad runs through ``MixGroups`` (kernel B and its backward
+    kernel), and weights that require grad raise: kernel B has no
+    gradient for them."""
     if w.device.type == 'cpu':
         return mix_groups_plain(layout, idx, w)
+    if torch.is_grad_enabled():
+        if w.requires_grad:
+            raise NotImplementedError(
+                'kernel B (mix_groups_cuda) has no gradient for its '
+                'weights: w requires grad')
+        if layout.table.requires_grad:
+            return MixGroups.apply(layout.table, layout, idx, w)
     return mix_groups_cuda(layout, idx, w)
 
 
@@ -198,7 +333,9 @@ class Group:
     the same source write into one preallocated (terms, *cells) pair and
     must produce the same bands, parts and term counts.  The source is
     compared by identity and the layout keeps a reference to it, so a
-    dict installed later is never taken for an earlier one."""
+    dict installed later is never taken for an earlier one.  Tables that
+    require grad are packed on every call and never cached: a packed
+    table carries the graph of the call that packed it."""
 
     _LAYOUTS = {}
 
@@ -269,7 +406,8 @@ class Group:
         if self.layout is None:
             self.layout = Layout(self.ngs, self.parts, self.dtype,
                                  self.device, self.source)
-            self._LAYOUTS[self.key] = self.layout
+            if not _requires_grad(tab for _, tab, _ in self.parts):
+                self._LAYOUTS[self.key] = self.layout
             shape = (0,) + self.cells
             self.idx = (torch.stack([i for i, _ in self.fresh]) if self.fresh
                         else torch.empty(shape, dtype=torch.int32,

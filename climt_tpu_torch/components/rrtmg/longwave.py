@@ -174,7 +174,11 @@ class RRTMGLongwave(TendencyComponent):
                 'dims': ['interface_levels', '*'], 'units': 'degK'}
         super().__init__(**kwargs)
 
-    def array_call(self, raw_state):
+    def _gather_inputs(self, raw_state):
+        """rrtmg_lw_fluxes' inputs (a dict of tensors on the component's
+        device, and the three constants) from the matched raw state;
+        shared by array_call and the LW k-table calibration
+        (climt_tpu_torch/tools/calibrate_lw_ktables.py)."""
         def a(name):
             return as_tensor(raw_state[name], self.device)
 
@@ -189,30 +193,39 @@ class RRTMGLongwave(TendencyComponent):
             tlev = get_interface_values(tlay, tsfc, play, plev)
         else:
             tlev = a('air_temperature_on_interface_levels')
-        out = _lw_radiation(
-            play, plev, tlay, tlev, tsfc,
+        return dict(
+            play=play, plev=plev, tlay=tlay, tlev=tlev, tsfc=tsfc,
             # the reference converts with M=18.02 (longwave.py:198-201)
-            mass_to_volume_mixing_ratio(a('specific_humidity'), 18.02),
-            gas('ozone'), gas('carbon_dioxide'), gas('methane'),
-            gas('nitrous_oxide'), gas('oxygen'), gas('cfc11'),
-            gas('cfc12'), gas('cfc22'), gas('carbon_tetrachloride'),
-            a('surface_longwave_emissivity'),
-            a('cloud_area_fraction_in_atmosphere_layer'),
-            a('longwave_optical_thickness_due_to_cloud'),
-            a('mass_content_of_cloud_ice_in_atmosphere_layer'),
-            a('mass_content_of_cloud_liquid_water_in_atmosphere_layer'),
-            a('cloud_ice_particle_size'), a('cloud_water_droplet_radius'),
-            torch.movedim(a('longwave_optical_thickness_due_to_aerosol'),
-                          0, -1),
-            get_constant('gravitational_acceleration', 'm/s^2'),
-            get_constant('avogadro_constant', 'mole^-1'),
-            get_constant('heat_capacity_of_dry_air_at_constant_pressure',
-                         'J/kg/degK'),
+            h2ovmr=mass_to_volume_mixing_ratio(a('specific_humidity'),
+                                               18.02),
+            o3vmr=gas('ozone'), co2vmr=gas('carbon_dioxide'),
+            ch4vmr=gas('methane'), n2ovmr=gas('nitrous_oxide'),
+            o2vmr=gas('oxygen'), cfc11vmr=gas('cfc11'),
+            cfc12vmr=gas('cfc12'), cfc22vmr=gas('cfc22'),
+            ccl4vmr=gas('carbon_tetrachloride'),
+            emis=a('surface_longwave_emissivity'),
+            cldfrac=a('cloud_area_fraction_in_atmosphere_layer'),
+            taucld=a('longwave_optical_thickness_due_to_cloud'),
+            ciwp=a('mass_content_of_cloud_ice_in_atmosphere_layer'),
+            clwp=a('mass_content_of_cloud_liquid_water_in_atmosphere_layer'),
+            rei=a('cloud_ice_particle_size'),
+            rel=a('cloud_water_droplet_radius'),
+            tauaer=torch.movedim(
+                a('longwave_optical_thickness_due_to_aerosol'), 0, -1),
+            grav=get_constant('gravitational_acceleration', 'm/s^2'),
+            avogad=get_constant('avogadro_constant', 'mole^-1'),
+            cpdair=get_constant(
+                'heat_capacity_of_dry_air_at_constant_pressure',
+                'J/kg/degK'))
+
+    def array_call(self, raw_state):
+        out = _lw_radiation(
             inflag=self._cloud_optics, iceflag=self._ice_props,
             liqflag=self._liquid_props, icld=self._cloud_overlap,
             idrv=self._calc_dflxdt,
             generator=(per_call_generator(self._rng, self.device)
-                       if self._mcica else None))
+                       if self._mcica else None),
+            **self._gather_inputs(raw_state))
         if self._calc_dflxdt:
             (self.last_upward_flux_derivative,
              self.last_upward_flux_derivative_clear_sky) = out[6:]

@@ -22,7 +22,10 @@ module chooses them (``load_kdist``): tables installed with
 real AER tables dropped in as ``climt_tpu/data/rrtmg_lw_kdist_aer.npz``,
 then the calibrated surrogate (docs/RRTMG_LW_STATUS.md).  An install
 takes effect at the next call: kernel B's packed layout is keyed by the
-tables it packed (``fused_mix.Group``).
+tables it packed (``fused_mix.Group``).  Tables passed as tensors that
+require grad (``lw_surrogate.build_tables`` of a parameter vector) carry
+the gradient through taumol: the LW k-table calibration
+(``climt_tpu_torch.tools.calibrate_lw_ktables``) runs on it.
 """
 
 from __future__ import annotations
@@ -353,11 +356,22 @@ def _adjusted_column(gas, mode, cs):
     return torch.where(rat > thresh, adj, col)
 
 
+def _stack_rows(*tables):
+    """Tables joined row-wise: numpy with numpy, and with ``torch.cat``
+    (which autograd follows) when any of them is a tensor."""
+    if not any(torch.is_tensor(t) for t in tables):
+        return np.concatenate(tables, axis=0)
+    ref = next(t for t in tables if torch.is_tensor(t))
+    return torch.cat([torch.as_tensor(t, dtype=ref.dtype, device=ref.device)
+                      for t in tables])
+
+
 def taumol_lw_terms(cs, wx, dtype, tables=None):
     """The terms of taumol (:396) as two kernel-B groups, unlaunched:
     taug and the Planck fractions, each (nz, ncol, 140) once run, from
-    ``tables`` (a dict of numpy arrays in ``load_aer_tables``' layout;
-    None: ``load_kdist()``).
+    ``tables`` (a dict in ``load_aer_tables``' layout of numpy arrays or
+    of tensors, which may require grad: the groups' outputs then carry
+    the gradient back to them; None: ``load_kdist()``).
 
     Every band's key-species 2x2x2 interpolation (one part, the merged
     [absa; absb] table), continua, minor gases and cross-sections are
@@ -434,7 +448,7 @@ def taumol_lw_terms(cs, wx, dtype, tables=None):
                 ind1b = ((jp - 12) * 5 + jt10) * nspb + jsu1
 
             if have_lo and have_up:
-                taug_g.part(np.concatenate([absa, absb], axis=0))
+                taug_g.part(_stack_rows(absa, absb))
                 rows_a = absa.shape[0]
                 sc0 = torch.where(trop, speccomb_l, speccomb_u)
                 sc1 = torch.where(trop, speccomb_l1, speccomb_u1)
@@ -819,7 +833,10 @@ def rrtmg_lw_fluxes(play, plev, tlay, tlev, tsfc, h2ovmr, o3vmr, co2vmr,
                     cldfrac_g=None, taucld_g=None, tables=None,
                     use_tables=True):
     """Full LW pipeline inatm -> setcoef -> taumol -> cldprop -> rtrn
-    (:959), with the gas k-tables ``tables`` (None: ``load_kdist()``).  Profiles (nz, ncol) bottom-up, plev/tlev (nz+1, ncol), tsfc
+    (:959), with the gas k-tables ``tables`` (None: ``load_kdist()``; a
+    dict of tensors that require grad makes the outputs differentiable in
+    them: on the card through kernel B's backward in float64, while a
+    float32 call there stops at kernel A, which has none).  Profiles (nz, ncol) bottom-up, plev/tlev (nz+1, ncol), tsfc
     (ncol,), emis (16, ncol), taucld/tauaer (nz, ncol, 16).  With
     per_g_cloud, the McICA subcolumns cldfrac_g/taucld_g (nz, ncol, 140)
     replace cldfrac/taucld.

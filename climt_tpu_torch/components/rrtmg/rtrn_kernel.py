@@ -199,11 +199,20 @@ rtrn_lw_cuda.launches = 0
 
 def rtrn_lw_fused(taug, fracs, planklay, planklev, plankbnd, semiss,
                   secdiff, cldfrac, taucld_band, dwave_g, rec_6):
-    """Flux integration: the plain version for CPU tensors, kernel A for
-    CUDA tensors (float32).  Returns (totuflux, totdflux, totuclfl,
-    totdclfl), (nz+1, ncol) each, quadrature-weighted by dwave_g."""
+    """Flux integration: the plain version for CPU tensors (autograd
+    follows it), kernel A for CUDA tensors (float32).  Returns (totuflux,
+    totdflux, totuclfl, totdclfl), (nz+1, ncol) each, quadrature-weighted
+    by dwave_g.  Kernel A has no backward, as the JAX package's Pallas
+    kernel has none: on the card, with grad mode on, an input that
+    requires grad raises rather than give a result without a gradient."""
     args = (taug, fracs, planklay, planklev, plankbnd, semiss, secdiff,
             cldfrac, taucld_band, dwave_g)
     if taug.device.type == 'cpu':
         return rtrn_lw_plain(*args, rec_6)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        raise NotImplementedError(
+            'kernel A (rtrn_lw_cuda) has no backward: a float32 LW call on '
+            'the card with inputs that require grad cannot be '
+            'differentiated; run it in float64 (the general sweep) or on '
+            'the CPU')
     return rtrn_lw_cuda(*[a.contiguous() for a in args], rec_6)

@@ -26,6 +26,9 @@ of a model built without a mesh) holds DTensors: ``carry_to_layout``
 places a global numpy carry so, and ``carry_to_global`` gathers each
 DTensor's global tensor (its ``full_tensor()``).
 
+The LW k-table calibration's parameter vector and tables dict carry
+over with ``lw_params_to_torch``, as leaf tensors that may require grad.
+
 Nothing else carries over: a model built with ``fft_impl='matmul'``
 rebuilds its DFT matrices from nlon and the truncation, and CORK
 radiation has no parameters beyond its k-table, a numpy dict that
@@ -109,3 +112,18 @@ def carry_to_global(carry, sht=None):
     return tuple({name: glob(v) for name, v in part.items()}
                  if isinstance(part, dict) else np.int32(part)
                  for part in carry)
+
+
+def lw_params_to_torch(theta, tables=None, device='cpu', dtype=torch.float64,
+                       requires_grad=False):
+    """The LW k-table calibration's state of the JAX package -> tensors:
+    theta (805,) and, when given, its tables dict {name: array} (numpy,
+    or JAX arrays fetched with ``np.asarray``), each a leaf tensor of
+    ``dtype`` on ``device`` with ``requires_grad`` as asked.  Returns
+    (theta, tables or None)."""
+    def leaf(x):
+        return torch.as_tensor(np.array(x), dtype=dtype,
+                               device=device).requires_grad_(requires_grad)
+
+    return leaf(theta), (None if tables is None else
+                         {name: leaf(v) for name, v in tables.items()})

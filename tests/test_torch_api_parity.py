@@ -44,7 +44,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # ROADMAP.md queue 1, "Do not port": modules and names
 DO_NOT_PORT_MODULES = {'components/rrtmg/interp.py',
-                       'components/rrtmg/lw_surrogate.py',
                        'components/rrtmg/pallas_rtrn.py'}
 DO_NOT_PORT_NAMES = {('components/rrtmg/fused_mix.py', 'BandAccum'),
                      ('components/rrtmg/fused_mix.py', 'fused_mix_rows')}

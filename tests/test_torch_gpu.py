@@ -7,6 +7,7 @@ without jax it runs as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+import copy
 import datetime
 from datetime import timedelta
 
@@ -583,3 +584,96 @@ def test_entry_points_run_on_the_card(cuda):
     assert spec.is_cuda and spec.dtype == torch.complex64
     errors = entry_points.dryrun_multichip(1)
     assert max(e['of_limit'] for e in errors.values()) <= 1.0
+
+
+# -- the LW k-table calibration: kernel B's backward ------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 2e-5),
+                                       (torch.float64, 1e-13)])
+def test_kernel_b_backward_matches_plain(cuda, dtype, tol):
+    """mix_groups_bwd_cuda against mix_groups_bwd_plain on the ragged
+    bands (9300 cells: a partial last tile) and on the LW taug group of
+    512 columns at nz=28 (its largest band table 116 KB in float32, 232
+    KB in float64: split across blocks); and through MixGroups, autograd
+    on the card, against the plain backward.  Atomics add in a
+    run-dependent order: the limits are chip_smoke.py's BWD_TOL."""
+    rng = np.random.RandomState(3)
+    groups = [ragged_group(ragged_bands(cells=(31, 300)), dtype, cuda),
+              port_taumol_groups(radiation_columns(nz=28, ncol=512), dtype,
+                                 cuda)['lw_taug'].finish()]
+    for layout, idx, w in groups:
+        gout = to_torch(rng.randn(*idx.shape[1:], layout.width), dtype, cuda)
+        before = fused_mix.mix_groups_bwd_cuda.launches
+        got = fused_mix.mix_groups_bwd_cuda(layout, idx, w, gout)
+        assert fused_mix.mix_groups_bwd_cuda.launches == before + 1
+        ref = fused_mix.mix_groups_bwd_plain(layout, idx, w, gout)
+        assert got.dtype == dtype and rel_err(got, ref) <= tol
+        # a copy: the LW group's layout is the cached one of the installed
+        # tables, which later LW calls must go on reading without a graph
+        layout = copy.copy(layout)
+        table = layout.table.detach().clone().requires_grad_(True)
+        layout.table = table
+        out = fused_mix.mix_groups(layout, idx, w)
+        assert out.grad_fn is not None
+        graded, = torch.autograd.grad(out, table, gout)
+        assert fused_mix.mix_groups_bwd_cuda.launches == before + 2
+        assert rel_err(graded, ref) <= tol
+
+
+@pytest.mark.gpu
+def test_calibration_loss_and_gradient_on_the_card_match_the_cpu(cuda):
+    """The calibration loss on one training case (targets: the port's CPU
+    fluxes at the calibrated parameters), the two anchors and the prior,
+    at the prior, in float64: 3 kernel-B and 2 backward launches per LW
+    call, no kernel A; value and gradient within 1e-10 and 1e-9 of the
+    CPU's."""
+    from climt_tpu_torch.components.rrtmg import lw_surrogate
+    from climt_tpu_torch.tools import calibrate_lw_ktables as cal
+
+    tables = lw_surrogate.build_tables(lw_surrogate.load_calibrated_params())
+    family = cal.TRAIN[0]
+    inputs, flags = cal.case_inputs(*family, device='cpu')
+    tgt = cal.synthetic_targets(inputs, flags, tables)
+    theta = lw_surrogate.default_params()
+    out = {}
+    for dev in ('cpu', cuda):
+        args = ([(cal.case_inputs(*family, device=dev)[0], flags, tgt)],
+                cal.tropical_inputs(device=dev),
+                cal.tropical_inputs(co2_scale=2.0, device=dev),
+                torch.as_tensor(theta, device=dev))
+        counters = (fused_mix.mix_groups_cuda, fused_mix.mix_groups_bwd_cuda,
+                    rtrn_kernel.rtrn_lw_cuda)
+        before = [c.launches for c in counters]
+        out[str(dev)] = cal.value_and_grad(torch.as_tensor(theta, device=dev),
+                                           *args)
+        launched = [c.launches - b for c, b in zip(counters, before)]
+    assert launched == [9, 6, 0]
+    (val, grad), (val_c, grad_c) = out['cuda:0'], out['cpu']
+    assert abs(float(val) - float(val_c)) <= 1e-10 * abs(float(val_c))
+    assert rel_err(grad, grad_c) <= 1e-9
+
+
+@pytest.mark.gpu
+def test_kernel_a_refuses_a_gradient(cuda):
+    """A float32 LW call whose tables require grad reaches kernel A, which
+    has no backward: it raises instead of returning detached fluxes."""
+    from climt_tpu_torch.components.rrtmg import lw_surrogate
+    theta = torch.as_tensor(lw_surrogate.default_params(),
+                            dtype=torch.float32, device=cuda)
+    tables = lw_surrogate.build_tables(theta.requires_grad_(True))
+    with pytest.raises(NotImplementedError, match='kernel A'):
+        port_lw(radiation_columns(nz=9, ncol=4), torch.float32, cuda,
+                tables=tables)
+    with torch.no_grad():
+        port_lw(radiation_columns(nz=9, ncol=4), torch.float32, cuda,
+                tables=tables)
+
+
+@pytest.mark.gpu
+def test_kernel_b_refuses_weights_that_require_grad(cuda):
+    layout, idx, w = ragged_group(ragged_bands(), torch.float64, cuda)
+    with pytest.raises(NotImplementedError, match='weights'):
+        fused_mix.mix_groups(layout, idx, w.requires_grad_(True))
+    with torch.no_grad():
+        fused_mix.mix_groups(layout, idx, w)

@@ -34,8 +34,12 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result['forbidden'] == []
-    # the walk reached every subpackage, the CORK component among them
+    # the walk reached every subpackage, the CORK component and the LW
+    # k-table tools among them
     for name in ('climt_tpu_torch.components.cork.lw',
+                 'climt_tpu_torch.components.rrtmg.lw_surrogate',
+                 'climt_tpu_torch.tools.calibrate_lw_ktables',
+                 'climt_tpu_torch.tools.build_lw_surrogate_ktables',
                  'climt_tpu_torch.entry_points',
                  'climt_tpu_torch.parallel.rep_sht',
                  'climt_tpu_torch.io.native', 'climt_tpu_torch.ops.sht'):
