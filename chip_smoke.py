@@ -169,13 +169,15 @@ Phases, each of which fails loudly (no exception is turned into exit 0):
  27. the LW k-table calibration (climt_tpu_torch.tools.calibrate_lw_ktables)
      on the card: (a) the gradient in theta of taumol_lw on phase 3's T85
      chunk with float32 tables built from the calibrated theta (exactly 2
-     backward launches, finite and nonzero); kernel B's backward
-     (csrc/mix_rows_bwd.cu) on the lw_taug and lw_fracs groups of that
-     call (float32) and of
-     the full-radiation example's first call (float64) with a seeded
-     upstream gradient, against its plain version (2e-5 and 1e-13 of
-     max), timed beside its bound and torch.autograd.grad of
-     F.embedding_bag per band, and the difference between two runs; (b)
+     backward launches, finite and nonzero); the backward kernel's
+     registers and spills in each type from the build log (it fails on a
+     spill); kernel B's backward (csrc/mix_rows_bwd.cu) on the lw_taug
+     and lw_fracs groups of that call (float32), of the full-radiation
+     example's first call (float64) and of one calibration column (the
+     tropical anchor, float64) with a seeded upstream gradient, against
+     its plain version (2e-5 and 1e-13 of max), timed beside its bound and
+     torch.autograd.grad of F.embedding_bag per band, and the difference
+     between two runs; (b)
      the calibration loss on the tool's four training cases (targets made
      by the port on the CPU at the calibrated parameters), the two
      tropical anchors and the prior, at the prior parameters: value and
@@ -499,11 +501,9 @@ def chunk_lw_fluxes(chunk):
         AVOGADRO, 1004.64, use_tables=False)
 
 
-def example_f64_groups():
-    """{name: (layout, idx, w)} of the float64 kernel-B groups of the
-    full-radiation example's first call at its own 128x62x28, captured as
-    the components run them."""
-    import torch
+def captured_groups(run, dtype):
+    """{name: (layout, idx, w)} of the kernel-B groups in ``dtype`` that
+    ``run()`` launches, captured as the components run them."""
     from climt_tpu_torch.components.rrtmg import fused_mix
 
     captured = {}
@@ -511,7 +511,7 @@ def example_f64_groups():
 
     def capture(group):
         layout, idx, w = group.finish()
-        if w.dtype == torch.float64:
+        if w.dtype == dtype:
             key = group.key[0]
             captured[key if isinstance(key, str) else key[0]] = (
                 layout, idx.clone(), w.clone())
@@ -519,13 +519,51 @@ def example_f64_groups():
 
     fused_mix.Group.run = capture
     try:
-        run_example(FULL_RADIATION, 1, n_steps=1)
+        run()
     finally:
         fused_mix.Group.run = run_group
+    return captured
+
+
+def example_f64_groups():
+    """{name: (layout, idx, w)} of the float64 kernel-B groups of the
+    full-radiation example's first call at its own 128x62x28, captured as
+    the components run them."""
+    import torch
+
+    captured = captured_groups(
+        lambda: run_example(FULL_RADIATION, 1, n_steps=1), torch.float64)
     if len(captured) != 6:
         fail('the full-radiation example ran %d float64 kernel-B groups, '
              'not 6: %s' % (len(captured), sorted(captured)))
     return captured
+
+
+def ptxas_report(log, kernel):
+    """{type: (registers, spill store bytes, spill load bytes)} of each
+    instantiation (float32 'IfE', float64 'IdE') of ``kernel`` in an nvcc
+    -Xptxas -v log."""
+    import re
+
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m and name and kernel in name:
+            dtype = 'float32' if 'IfE' in name else 'float64'
+            report[dtype] = [None, int(m.group(1)), int(m.group(2))]
+            continue
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name and kernel in name and report.get(
+                'float32' if 'IfE' in name else 'float64'):
+            report['float32' if 'IfE' in name else 'float64'][0] = int(
+                m.group(1))
+            name = None
+    return report
 
 
 def embedding_bag_call(layout, idx, w, torch):
@@ -2722,15 +2760,17 @@ def embedding_bag_bwd_call(layout, idx, w, gout, torch):
     return fn, check
 
 
-def kernel_b_bwd_groups(groups, dtype_name, card, torch, seed):
+def kernel_b_bwd_groups(groups, dtype_name, card, torch, seed, label=None):
     """Phase 27 (a) on one set of kernel-B groups {name: (layout, idx,
     w)}: the backward kernel against its plain version within
     BWD_TOL[dtype_name] of max for a seeded upstream gradient, two runs
     against each other, timed beside its bound, the plain version and the
-    embedding_bag backward.  Returns the summed record."""
+    embedding_bag backward; its lines name the set ``label`` (default
+    dtype_name).  Returns the summed record."""
     from climt_tpu_torch.components.rrtmg import fused_mix
 
     tol = BWD_TOL[dtype_name]
+    label = label or dtype_name
     gen = torch.Generator(device='cpu').manual_seed(seed)
     total = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
                  bound_ms=0.0, rerun=0.0)
@@ -2772,7 +2812,7 @@ def kernel_b_bwd_groups(groups, dtype_name, card, torch, seed):
               'max abs err %.3g (max %.3g, limit %g of max), two runs apart '
               'by %.3g; %.4f ms, plain %.4f ms, embedding_bag backward %.4f '
               'ms (apart by %.3g), bound %.4f ms (%s, %.1f MB), %.0f%% of '
-              'bound' % (gname, dtype_name, ncell, len(layout.bands),
+              'bound' % (gname, label, ncell, len(layout.bands),
                          layout.nterms, err, scale, tol, rerun, ms, plain_ms,
                          library_ms, lib_err, bound_ms, bound_by,
                          nbytes / 1e6, 100.0 * bound_ms / ms))
@@ -2781,7 +2821,7 @@ def kernel_b_bwd_groups(groups, dtype_name, card, torch, seed):
     total['bound_by'] = 'bytes'
     phase(27, 'kernel B backward %s, %d groups: %.4f ms, plain %.4f ms, '
           'embedding_bag backward %.4f ms, bound %.4f ms, %.0f%% of bound; '
-          'on %s' % (dtype_name, len(groups), total['ms'], total['plain_ms'],
+          'on %s' % (label, len(groups), total['ms'], total['plain_ms'],
                      total['library_ms'], total['bound_ms'],
                      100.0 * total['share'], card))
     return total
@@ -2796,6 +2836,7 @@ def calibration_phase(dev, card, counters, init_fn, step_fn):
     import torch
     from climt_tpu_torch.components.rrtmg import fused_mix
     from climt_tpu_torch.components.rrtmg import lw_spectral as LW
+    from climt_tpu_torch import _build
     from climt_tpu_torch.components.rrtmg import lw_surrogate
     from climt_tpu_torch.tools import calibrate_lw_ktables as cal
 
@@ -2836,11 +2877,29 @@ def calibration_phase(dev, card, counters, init_fn, step_fn):
     del outs32, grad32
     f64_groups = {k: v for k, v in example_f64_groups().items()
                   if k in ('lw_taug', 'lw_fracs')}
+    # the calibration's own shape: the LW groups of one float64 column
+    # (the tropical anchor, nz=30), launched here outside the counted runs
+    with torch.no_grad():
+        column_groups = {k: v for k, v in captured_groups(
+            lambda: cal.flux_fn(cal.tropical_inputs(device=dev), None,
+                                cal.FLAGS0), torch.float64).items()
+            if k in ('lw_taug', 'lw_fracs')}
     del cs, wx
+    regs = ptxas_report(_build.BUILD_INFO['log'], 'mix_groups_bwd_kernel')
+    if sorted(regs) != ['float32', 'float64'] or any(
+            r[1] or r[2] for r in regs.values()):
+        fail('phase 27: the backward kernel spills or is missing from the '
+             'ptxas report: %s' % regs)
+    phase(27, 'kernel B backward build: %s' % '; '.join(
+        '%s %d registers, %d bytes spill stores, %d bytes spill loads'
+        % ((dtype,) + tuple(r)) for dtype, r in sorted(regs.items())))
     records = {'float32': kernel_b_bwd_groups(f32_groups, 'float32', card,
                                               torch, seed=27),
                'float64': kernel_b_bwd_groups(f64_groups, 'float64', card,
                                               torch, seed=28)}
+    kernel_b_bwd_groups(column_groups, 'float64', card, torch, seed=29,
+                        label='float64 one column')
+    del column_groups
     records['float32']['launches'] = launches_f32
     del f32_groups, tables32, theta32
     torch.cuda.empty_cache()

@@ -37,8 +37,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 SIGNATURES = {
     'climt_mix_groups_f32': [_P, _P, _I, _P, _P, _P, _L, _I, _P, _P],
     'climt_mix_groups_f64': [_P, _P, _I, _P, _P, _P, _L, _I, _P, _P],
-    'climt_mix_groups_bwd_f32': [_P, _I, _P, _P, _P, _L, _I, _P, _I, _P, _P],
-    'climt_mix_groups_bwd_f64': [_P, _I, _P, _P, _P, _L, _I, _P, _I, _P, _P],
+    'climt_mix_groups_bwd_f32': [_P, _I, _P, _P, _P, _L, _I, _P, _P, _P],
+    'climt_mix_groups_bwd_f64': [_P, _I, _P, _P, _P, _L, _I, _P, _P, _P],
     'climt_rtrn_lw_f32': [_P] * 10 + [_I, _I, _F] + [_P] * 5,
 }
 

@@ -55,15 +55,27 @@ packed from; on the card ``mix_groups`` then runs kernel B under an
 
     dtable[base_t + clip(idx[t, s]) * ngp + g] += w[t, s] * gout[s, goff + g],
 
-with ``mix_groups_bwd_plain`` beside it.  The weights never carry a graph
-(the taumol code writes them with ``out=``), and a weight that requires
-grad is refused on the card.  A layout packed from tables that require
-grad is never cached: each call packs afresh, so one step's graph is never
-handed to another.  On the CPU the plain version is differentiated by
-autograd itself.  JAX differentiates the gather of
-climt_tpu/components/rrtmg/interp.py with XLA in the same place (the path
-``fused_mix._pallas_mode() == 'off'`` selects; its Pallas kernel has no
-gradient).
+with ``mix_groups_bwd_plain`` beside it.  It replaces XLA's autodiff of
+the float64 gather of climt_tpu/components/rrtmg/interp.py:45, which is
+where JAX takes this gradient (the path ``fused_mix._pallas_mode() ==
+'off'`` selects; its Pallas kernel has no gradient).  Bound on the card:
+bytes, each weight and multi-row index read once, ``gout`` read once and
+the table gradient written once.  What limits a scatter of this kind is
+contention: the cells of one level pick the same few rows of each term's
+table.  The kernel's answers: a lane owns 16 bytes of consecutive cells
+and sums w * gout over those that share a row in registers; a warp
+meets once per row of its tile and reduces the ng sums with one
+transposing reduce-scatter, after which ng lanes add them with one
+atomic instruction; the band's padded width is a template parameter, so
+the sums stay in registers; each warp tile's slice of ``gout`` is read
+coalesced and transposed through shared memory.  The grid is (band,
+run of 512 cells), bands fastest, so the blocks of every band on one run
+go out together and read its ``gout`` from L2.  The weights never carry
+a graph (the taumol code writes them with ``out=``), and a weight that
+requires grad is refused on the card.  A layout packed from tables that
+require grad is never cached: each call packs afresh, so one step's graph
+is never handed to another.  On the CPU the plain version is
+differentiated by autograd itself.
 """
 
 from __future__ import annotations
@@ -128,7 +140,6 @@ class Layout:
         self.term_desc = torch.as_tensor(
             np.asarray(terms, np.int32).reshape(-1), **i32)
         self.term_i64 = self.term_desc.long().reshape(-1, 2)
-        self.max_tablen = max((b[6] for b in bands), default=0)
 
     @classmethod
     def single(cls, table, nterms):
@@ -266,6 +277,9 @@ def mix_groups_bwd_cuda(layout, idx, w, gout):
     if not (idx.is_contiguous() and w.is_contiguous()
             and gout.is_contiguous()):
         raise ValueError('mix_groups_bwd_cuda takes contiguous tensors')
+    if any(b[0] > 16 for b in layout.bands):
+        raise ValueError('mix_groups_bwd_cuda takes bands of at most 16 '
+                         'g-points')
     grad = torch.zeros(table.shape, dtype=w.dtype, device=table.device)
     ncell = math.prod(cells)
     if ncell == 0 or layout.nterms == 0:
@@ -273,7 +287,7 @@ def mix_groups_bwd_cuda(layout, idx, w, gout):
     rc = getattr(_build.library(), _BWD_ENTRY[w.dtype])(
         layout.band_desc.data_ptr(), len(layout.bands),
         layout.term_desc.data_ptr(), idx.data_ptr(), w.data_ptr(), ncell,
-        layout.width, gout.data_ptr(), layout.max_tablen, grad.data_ptr(),
+        layout.width, gout.data_ptr(), grad.data_ptr(),
         torch.cuda.current_stream(table.device).cuda_stream)
     _build.check_launch(rc, 'mix_groups_bwd_cuda')
     mix_groups_bwd_cuda.launches += 1

@@ -22,10 +22,11 @@ from climt_tpu_torch.components.rrtmg import lw_spectral as TL
 from climt_tpu_torch.convert import carry_to_numpy
 from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
 
-from torch_helpers import (port_example, port_lw, port_sw,
+from torch_helpers import (CONTENTION_CASES, contention_bands,
+                           port_example, port_lw, port_sw,
                            port_taumol_groups, radiation_columns,
-                           ragged_bands, ragged_group, rel_err, to_torch,
-                           ice_fields)
+                           ragged_bands, ragged_group, rel_err,
+                           smoke_constant, to_torch, ice_fields)
 
 
 @pytest.fixture
@@ -588,16 +589,20 @@ def test_entry_points_run_on_the_card(cuda):
 
 # -- the LW k-table calibration: kernel B's backward ------------------------
 
+# chip_smoke.py's limits, of max, by type name
+BWD_TOL = smoke_constant('BWD_TOL')
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize('dtype,tol', [(torch.float32, 2e-5),
-                                       (torch.float64, 1e-13)])
-def test_kernel_b_backward_matches_plain(cuda, dtype, tol):
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_kernel_b_backward_matches_plain(cuda, dtype):
     """mix_groups_bwd_cuda against mix_groups_bwd_plain on the ragged
     bands (9300 cells: a partial last tile) and on the LW taug group of
     512 columns at nz=28 (its largest band table 116 KB in float32, 232
-    KB in float64: split across blocks); and through MixGroups, autograd
+    KB in float64); and through MixGroups, autograd
     on the card, against the plain backward.  Atomics add in a
     run-dependent order: the limits are chip_smoke.py's BWD_TOL."""
+    tol = BWD_TOL[str(dtype).split('.')[1]]
     rng = np.random.RandomState(3)
     groups = [ragged_group(ragged_bands(cells=(31, 300)), dtype, cuda),
               port_taumol_groups(radiation_columns(nz=28, ncol=512), dtype,
@@ -619,6 +624,30 @@ def test_kernel_b_backward_matches_plain(cuda, dtype, tol):
         graded, = torch.autograd.grad(out, table, gout)
         assert fused_mix.mix_groups_bwd_cuda.launches == before + 2
         assert rel_err(graded, ref) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('case', CONTENTION_CASES)
+def test_kernel_b_backward_contention_patterns(cuda, case, dtype):
+    """mix_groups_bwd_cuda against mix_groups_bwd_plain within
+    chip_smoke.py's BWD_TOL on each contention pattern of
+    torch_helpers.contention_bands: every cell on one row, every cell on
+    its own row, rows changing every 1, 4, 8 and 64 cells, indices past
+    both ends of a table, one-row parts, bands of ng 1 to 16, float64
+    bands of 256 KB and 1.1 MB (more than a block's shared memory), and
+    ncell not a multiple of a tile (231), 1 and one column (28); one
+    launch per call."""
+    rng = np.random.RandomState(100 + CONTENTION_CASES.index(case))
+    layout, idx, w = ragged_group(contention_bands(case), dtype, cuda)
+    gout = to_torch(rng.randn(*idx.shape[1:], layout.width), dtype, cuda)
+    before = fused_mix.mix_groups_bwd_cuda.launches
+    got = fused_mix.mix_groups_bwd_cuda(layout, idx, w, gout)
+    assert fused_mix.mix_groups_bwd_cuda.launches == before + 1
+    ref = fused_mix.mix_groups_bwd_plain(layout, idx, w, gout)
+    assert got.dtype == dtype and got.shape == ref.shape
+    assert bool(ref.abs().max() > 0)
+    assert rel_err(got, ref) <= BWD_TOL[str(dtype).split('.')[1]]
 
 
 @pytest.mark.gpu

@@ -10,6 +10,7 @@ versions on a card by tests/test_torch_gpu.py.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -21,7 +22,8 @@ from climt_tpu.components.rrtmg.pallas_rtrn import rtrn_lw_fused
 from climt_tpu_torch.components.rrtmg import fused_mix, rtrn_kernel
 from climt_tpu_torch.components.rrtmg import lw_spectral as TL
 
-from torch_helpers import ragged_bands, ragged_group, rel_err, to_torch
+from torch_helpers import (CONTENTION_CASES, contention_bands,
+                           ragged_bands, ragged_group, rel_err, to_torch)
 
 HEATFAC = 9.80665 * 8.64e4 / (1004.64 * 1e2)
 
@@ -235,3 +237,46 @@ def test_group_refuses_a_changed_layout():
     assert torch.equal(write(1).run(), expect.expand(cells + (3,)))
     with pytest.raises(RuntimeError):
         write(2).run()
+
+
+@pytest.mark.parametrize('case', CONTENTION_CASES)
+def test_plain_backward_matches_jax_autodiff_of_mix_rows(case):
+    """Kernel B's plain backward (the CPU's, and the card's reference) on
+    each contention pattern of torch_helpers.contention_bands, float64,
+    against jax.grad of the same weighted sum of interp.mix_rows over each
+    band's parts: XLA's autodiff of the gather, where the JAX package
+    takes this gradient.  Each part's block of the packed gradient holds
+    its table's gradient; the padding columns get nothing."""
+    bands = contention_bands(case)
+    layout, idx, w = ragged_group(bands, torch.float64)
+    rng = np.random.RandomState(200 + CONTENTION_CASES.index(case))
+    gout = rng.randn(*idx.shape[1:], layout.width)
+    got = fused_mix.mix_groups_bwd_plain(layout, idx, w,
+                                         torch.as_tensor(gout)).numpy()
+    tables = [jnp.asarray(t) for _, ps in bands for t, _, _ in ps]
+
+    def loss(tables):
+        total, k, goff = 0.0, 0, 0
+        for ng, ps in bands:
+            for _, i, wt in ps:
+                out = mix_rows(tables[k], list(zip(
+                    jnp.asarray(i, jnp.int32), jnp.asarray(wt))))
+                total = total + jnp.sum(out * gout[..., goff:goff + ng])
+                k += 1
+            goff += ng
+        return total
+
+    ref = jax.grad(loss)(tables)
+    t, k = 0, 0
+    for b, (ng, ps) in enumerate(bands):
+        ngp = layout.bands[b][1]
+        for table, i, _ in ps:
+            base, rows = layout.terms[t]
+            block = got[base:base + rows * ngp].reshape(rows, ngp)
+            want = np.asarray(ref[k])
+            assert np.abs(want).max() > 0
+            assert np.abs(block[:, :ng] - want).max() <= (
+                1e-12 * np.abs(want).max())
+            assert not block[:, ng:].any()
+            t += i.shape[0]
+            k += 1

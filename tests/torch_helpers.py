@@ -522,6 +522,71 @@ def ragged_bands(cells=(7, 33), seed=3):
     return bands
 
 
+# the contention patterns of kernel B's backward (contention_bands)
+CONTENTION_CASES = ('one_row', 'own_row', 'every_1', 'every_4', 'every_8',
+                    'every_64', 'past_ends', 'one_row_parts', 'ragged_ng',
+                    'big_band', 'huge_band', 'ncell_ragged', 'ncell_1',
+                    'ncell_nz')
+
+
+def contention_bands(case):
+    """Kernel-B bands (``ragged_bands``' form) whose indices make one of
+    CONTENTION_CASES for the backward: every cell on one row, every cell
+    on its own row, rows changing every 1, 4, 8 and 64 cells, indices
+    past both ends of a table, one-row parts, bands of ng 1 to 16, bands
+    of 2000 and 9000 rows (256 KB and 1.1 MB of float64 at ng 16), and
+    1536 cells save for 'ncell_ragged' (231: not a multiple of a tile),
+    'ncell_1' and 'ncell_nz' (28: one column).  Cells (nz, ncol), level
+    major as the LW groups lay them out; seeded by the case."""
+    rng = np.random.RandomState(CONTENTION_CASES.index(case))
+    cells = {'ncell_ragged': (7, 33), 'ncell_1': (1,),
+             'ncell_nz': (28,)}.get(case, (6, 256))
+    ncell = int(np.prod(cells))
+    cell = np.arange(ncell).reshape(cells)
+    rows, nt, ngs = 40, 3, (16, 12, 7, 3)
+    if case == 'ragged_ng':
+        ngs = tuple(range(1, 17))
+    if case == 'own_row':
+        rows = ncell
+    if case in ('big_band', 'huge_band'):
+        rows, ngs = (2000 if case == 'big_band' else 9000), (16, 5)
+    bands = []
+    for ng in ngs:
+        parts = []
+        for part_rows in ((1,) if case == 'one_row_parts' else (rows, 9)):
+            shape = (nt,) + cells
+            if case == 'one_row':
+                idx = np.full(shape, 5)
+            elif case == 'own_row':
+                idx = np.broadcast_to(cell, shape)
+            elif case.startswith('every_'):
+                k = int(case.split('_')[1])
+                idx = np.broadcast_to(cell // k, shape) % part_rows
+                idx = (idx + np.arange(nt).reshape((nt,) + (1,) * len(cells))
+                       ) % part_rows
+            elif case == 'past_ends':
+                idx = rng.randint(-6, part_rows + 6, shape)
+            else:
+                # rows that drift slowly along the cells, some jumps
+                idx = (np.broadcast_to(cell // 37, shape)
+                       + rng.randint(0, 2, shape)) % part_rows
+            parts.append((rng.rand(part_rows, ng), np.ascontiguousarray(idx),
+                          rng.rand(*shape) + 0.5))
+        bands.append((ng, parts))
+    return bands
+
+
+def smoke_constant(name):
+    """A constant of chip_smoke.py (its tolerances), read from the script
+    itself so that the tests and the smoke share one value."""
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke_constants', os.path.join(os.path.dirname(EXAMPLES),
+                                             'chip_smoke.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return getattr(module, name)
+
+
 def ragged_group(bands, dtype, device='cpu'):
     """(layout, idx, w) of ``ragged_bands`` for fused_mix.mix_groups."""
     from climt_tpu_torch.components.rrtmg.fused_mix import Layout
