@@ -185,7 +185,27 @@ Phases, each of which fails loudly (no exception is turned into exit 0):
      exactly 3 kernel-B and 2 backward launches per LW call and no kernel
      A; (c) 20 Adam steps on the card from the prior: s/step, launches per
      step, the loss falls; (d) a float32 LW call whose tables require grad
-     raises at kernel A, and kernel B refuses weights that require grad.
+     raises at kernel A, and kernel B refuses weights that require grad;
+ 28. the mesh layouts across the machine's cards, one NCCL rank per card
+     (tests/torch_helpers.py:card_mesh_rank, the cases of
+     tests/test_torch_gpu_mesh.py), on 2 or more cards: the m-sharded
+     moist GCM with spectral, FV and SL moisture on (n, 1), and on (2, 2)
+     where n = 4, and the replicated-spectral layout of the moist GCM in
+     the three modes and of Held-Suarez (on 4 cards every layout of
+     torch_helpers.LAYOUTS), at 64x32x10 float64 for 7 steps against the
+     same model on the rank's own card (1e-9 of max) and at T85 float32
+     for one refresh step (compare_steps's float32 limits), FV's halo
+     exchanged point to point between the cards; each first step's
+     collectives equal the CPU's, each T85 refresh launches kernel B and
+     A as often as its column chunks say, FV's mass is conserved and the
+     water fixer closes; then T85 float32 s/step of the m-sharded model
+     and of the replicated layout with and without shard_lon, spectral
+     and FV moisture, in 12-step windows alternating with the one-card
+     model (medians), with each step's collectives, the bytes handed to
+     them and, from one traced refresh and one plain step, the NCCL
+     kernels' share of the device time and their overlap with other
+     kernels, beside each card's name and power limit.  On one card it
+     prints that it needs 2 or more cards and does not fail.
 The examples run through tests/torch_helpers.py:port_example, which the
 CPU tests use too.
 The line before the last is a JSON object with each kernel's launches
@@ -3024,6 +3044,152 @@ def calibration_phase(dev, card, counters, init_fn, step_fn):
     return records, launches
 
 
+def mesh_cards_phase():
+    """Phase 28: the mesh layouts across the machine's cards, one NCCL
+    rank per card (tests/torch_helpers.py:card_mesh_rank, the cases of
+    tests/test_torch_gpu_mesh.py).  On n >= 2 cards: the m-sharded moist
+    GCM with spectral, FV and SL moisture on (n, 1), and on (2, 2) where
+    n = 4, and the replicated-spectral layout of the moist GCM in the
+    three modes and of Held-Suarez on every layout of
+    torch_helpers.card_meshes(n), at 64x32x10 float64 for 7 steps (every
+    field within CARD_SMALL_TOL of max of the same model on the rank's
+    own card) and at T85 float32 for one refresh step (compare_steps's
+    float32 limits); each first step's collectives equal the CPU's,
+    each T85 refresh launches the kernels of its column chunks, FV's mass
+    is conserved and the water fixer closes (card_mesh_failures).  Then
+    T85 float32 s/step on n cards against one card (card_timing): the
+    m-sharded model, the replicated layout and the replicated layout with
+    shard_lon, with spectral and FV moisture, 12-step windows alternating
+    with the one-card model, medians; per step the collectives and the
+    bytes handed to them, and from one traced refresh step and one plain
+    step the NCCL kernels' share of the device time and the part of it
+    that overlaps other kernels.  On one card it prints that it needs 2
+    or more and returns None; else {'B', 'A', 'B_f64'}: the kernel
+    launches of the counted steps, summed over the ranks."""
+    import tempfile
+
+    import torch
+    from torch_helpers import CARD_TIMEOUT, spawn_ranks
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        phase(28, 'the mesh layouts across cards need 2 or more CUDA '
+              'cards; this machine has %d, so phase 28 does not run' % n)
+        return None
+    cards = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    on = ('%d x %s' % (n, cards[0]) if len(set(cards)) == 1
+          else ' / '.join(cards))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks('card_mesh_rank', n, tmp, timeout=CARD_TIMEOUT,
+                            device='cuda', timing=True)
+        spawn_s = time.perf_counter() - t0
+    return mesh_cards_report(ranks, on, spawn_s)
+
+
+def mesh_cards_report(ranks, on, spawn_s):
+    """Phase 28's checks and lines on the ranks' records of
+    card_mesh_rank(timing=True) (``on``: the cards, ``spawn_s``: the
+    spawn's seconds); returns phase 28's launches."""
+    from torch_helpers import (CARD_SMALL_TOL, CARD_WINDOW, card_lon_shape,
+                               card_mesh_failures)
+
+    n = len(ranks)
+    for what in ('complete', 'answers', 'collectives', 'launches',
+                 'conservation'):
+        failures = card_mesh_failures(ranks, n, what)
+        if failures:
+            fail('phase 28 %s, %d failures:\n  %s' % (
+                what, len(failures), '\n  '.join(failures[:30])))
+    cases = sorted(key for key in ranks[0] if isinstance(key, tuple))
+    launches = {'B': 0, 'A': 0, 'B_f64': 0}
+    for recs in ranks:
+        for key in cases:
+            b, a = recs[key]['counts']['launches']
+            if key[0] == 'small':
+                launches['B_f64'] += b
+            else:
+                launches['B'] += b
+                launches['A'] += a
+    for size, layout, mesh_name in sorted({key[:3] for key in cases}):
+        parts = []
+        for key in [k for k in cases if k[:3] == (size, layout, mesh_name)]:
+            worst = max(ranks, key=lambda recs: recs[key]['err'])[key]
+            rec = ranks[0][key]
+            parts.append('%s %.3g (%s), collectives %s, launches %s' % (
+                key[3], worst['err'], worst['field'],
+                rec['counts']['collectives'], rec['counts']['launches']))
+        measure = ('largest difference of max, limit %g' % CARD_SMALL_TOL
+                   if size == 'small' else
+                   "largest share of compare_steps's float32 limit")
+        phase(28, '%s %s %s on %d NCCL ranks against one card (%s): %s; '
+              'on %s' % (size, layout, mesh_name, n, measure,
+                         '; '.join(parts), on))
+    phase(28, 'phase 28 on %d cards in %.1f s (the spawn, the builds, the '
+          'cases and the timed windows); '
+          'collectives as (all_to_all transposes, halo calls, all_reduce, '
+          'all_gather) of the first step of rank 0, kernel launches as '
+          '(B, A) of that step, a radiation refresh' % (n, spawn_s))
+    for mode, (err, field) in ranks[0]['own_step'].items():
+        init = [recs[key]['init_err'] for recs in ranks for key in cases
+                if key[:2] == ('t85', 'm_sharded') and key[3] == mode]
+        phase(28, 'T85 f32 %r, why the m-sharded model starts from the '
+              "one-card carry: its own initial carry is within %.3g of "
+              "compare_steps's limits of the one-card one (every rank and "
+              'mesh, held to 1), but its step from there reaches %.3g of '
+              'them (%s; rank 0, not held: the float32 refresh is not '
+              'continuous at roundoff); on %s' % (mode, max(init), err,
+                                                  field, on))
+    for mode, recs in ranks[0]['timing'].items():
+        one = median(recs['one card']['s'])
+        parts = ['one card %.4f' % one]
+        for kind in ('m_sharded', 'replicated', 'replicated_lon'):
+            medians = [median(r['timing'][mode][kind]['s']) for r in ranks]
+            parts.append('%s %.4f (slowest rank %.4f, %.2fx one card)' % (
+                kind, medians[0], max(medians), max(medians) / one))
+        phase(28, 'T85 f32 %r, %d-step windows, median s/step of rank 0: '
+              '%s; the lon layout on mesh %s; on %s' % (
+                  mode, CARD_WINDOW, ', '.join(parts), card_lon_shape(n),
+                  on))
+        for kind in ('m_sharded', 'replicated', 'replicated_lon'):
+            rec = recs[kind]
+            steps = len(rec['s'])
+            calls = ' '.join('%g' % (c / steps)
+                             for c in rec['counts']['collectives'])
+            mbytes = ' '.join('%.3f' % (b / steps / 1e6)
+                              for b in rec['counts']['bytes'])
+            shares = []
+            for label in ('refresh', 'plain'):
+                tr = [r['timing'][mode][kind][label] for r in ranks]
+                share = [t['nccl_s'] / t['kernel_s'] if t['kernel_s']
+                         else 0.0 for t in tr]
+                overlap = [t['overlap_s'] / t['nccl_s'] if t['nccl_s']
+                           else 0.0 for t in tr]
+                shares.append(
+                    '%s step: NCCL %.4f of %.4f s of device time (share '
+                    '%.3f, ranks %.3f-%.3f), %d of %d launches, overlapping '
+                    'other kernels %.3f of it (ranks up to %.3f), traced '
+                    'wall %.4f s' % (
+                        label, tr[0]['nccl_s'], tr[0]['kernel_s'], share[0],
+                        min(share), max(share), tr[0]['nccl_launches'],
+                        tr[0]['launches'], overlap[0], max(overlap),
+                        tr[0]['wall']))
+            phase(28, 'T85 f32 %r %s, rank 0 per step: collectives %s '
+                  '(transposes, halo, all_reduce, all_gather), MB handed '
+                  'to them %s; %s; on %s' % (
+                      mode, kind, calls, mbytes, '; '.join(shares), on))
+        one = recs['one card']
+        phase(28, 'T85 f32 %r one card (rank 0): refresh step %.4f s of '
+              'device time in %d launches, plain step %.4f s in %d; on %s'
+              % (mode, one['refresh']['kernel_s'],
+                 one['refresh']['launches'], one['plain']['kernel_s'],
+                 one['plain']['launches'], on))
+    return launches
+
+
 def check_close(a, b, tol, label):
     """max of |a - b| / (atol + rtol |b|), failing above 1."""
     import numpy as np
@@ -3392,9 +3558,19 @@ def main():
                                                    init_fn, step_fn)
     launches_f64['B'] += calib_launches['B']
 
+    # ---- phase 28: the mesh layouts across cards (2 or more) -----------
+    torch.cuda.empty_cache()
+    mesh_launches = mesh_cards_phase()
+    if mesh_launches is not None:
+        launches['B'] += mesh_launches['B']
+        launches['A'] += mesh_launches['A']
+        launches_f64['B'] += mesh_launches['B_f64']
+
     # the float32 entries count the T85 runs of phases 6, 17, 20, 21 and
-    # 25 and the flagship step of phase 26 (phase 24 checks its own: 24 B
-    # and 4 A launches per refresh)
+    # 25, the flagship step of phase 26 and, on 2 or more cards, the
+    # counted T85 steps of phase 28's ranks (phase 24 checks its own: 24 B
+    # and 4 A launches per refresh); the float64 entry of kernel B counts
+    # phase 28's 64x32x10 steps there too
     kernels = [
         dict(name='mix_groups_cuda', route='cuda',
              source='climt_tpu_torch/csrc/mix_rows.cu',

@@ -33,20 +33,24 @@ from torch import nn
 from torch.distributed.tensor import Replicate, Shard
 
 from ..ops.sht import DFT_BUFFERS, SphericalHarmonicTransform
+from .rep_sht import all_gather_cat, all_reduce_sum
 
 
 def transpose(x, group):
     """all_to_all_single of a complex tensor over ``group``: chunk j of
     dim 0 goes to the group's rank j, and chunk j of the result came from
-    it.  Counts its calls in ``transpose.calls``."""
+    it.  Counts its calls in ``transpose.calls`` and the bytes it hands to
+    the collective (the rank's own chunk included) in
+    ``transpose.bytes``."""
     xr = torch.view_as_real(x.contiguous())
     out = torch.empty_like(xr)
     dist.all_to_all_single(out, xr, group=group)
     transpose.calls += 1
+    transpose.bytes += xr.numel() * xr.element_size()
     return torch.view_as_complex(out)
 
 
-transpose.calls = 0
+transpose.calls = transpose.bytes = 0
 
 
 class DistributedSHT(nn.Module):
@@ -149,34 +153,20 @@ class DistributedSHT(nn.Module):
     def global_sum(self, x):
         """Sum of a grid-block expression over the whole sphere: the local
         sum, all-reduced over the 'lat' group."""
-        s = torch.sum(x)
-        dist.all_reduce(s, group=self.group)
-        return s
+        return self.global_sums(x)[0]
 
     def global_sums(self, *xs):
         """``global_sum`` of each argument, through one all_reduce."""
-        s = torch.stack([torch.sum(x) for x in xs])
-        dist.all_reduce(s, group=self.group)
-        return tuple(s.unbind())
-
-    def _gather(self, x):
-        """Every 'lat' rank's block of x, in latitude-block order."""
-        x = x.contiguous()
-        real = torch.view_as_real(x) if x.is_complex() else x
-        parts = [torch.empty_like(real) for _ in range(self.L)]
-        dist.all_gather(parts, real, group=self.group)
-        if x.is_complex():
-            parts = [torch.view_as_complex(p) for p in parts]
-        return parts
+        return tuple(all_reduce_sum([torch.sum(x) for x in xs], self.group))
 
     def gather_rows(self, x):
         """The global grid field (..., nlat, nlon) of the rank's blocks."""
-        return torch.cat(self._gather(x), dim=-2)
+        return all_gather_cat(x, self.group, self.L, -2)
 
     def gather_m(self, spec):
         """The global spectral field (..., M, N+1) of the rank's m-blocks,
         the padded rows dropped."""
-        return self.unpad_spec(torch.cat(self._gather(spec), dim=-2))
+        return self.unpad_spec(all_gather_cat(spec, self.group, self.L, -2))
 
     # -- the transposes ------------------------------------------------------
     def _fourier_to_lat(self, fm):

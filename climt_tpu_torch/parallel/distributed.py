@@ -116,18 +116,28 @@ def process_info():
     return dist.get_rank(), world, 1, world
 
 
-def spawn_ranks(target, world, kwargs=None, device='cpu', timeout=600.0,
+def spawn_ranks(target, world, kwargs=None, device='cuda', timeout=600.0,
                 out_dir=None):
     """Run ``target(rank, world, **kwargs)`` in ``world`` spawned
     processes of one process group; returns each rank's result.
 
     ``target`` is a module-level callable (the spawned processes import
-    it by name).  ``device='cpu'`` gives gloo ranks of one thread each;
-    ``'cuda'`` gives NCCL ranks, rank r on card r.  The ranks meet
-    through a FileStore file in ``out_dir`` (a temporary directory when
-    None), and the inputs and results go through pickle files there.
-    Joins with ``timeout`` seconds and kills every rank still alive then;
-    a rank that fails or is killed raises here, with its traceback."""
+    it by name).  ``device='cuda'`` (the default) gives NCCL ranks, rank
+    r on card r, and raises before starting any rank when the machine
+    has fewer than ``world`` cards; ``'cpu'`` gives gloo ranks of one
+    thread each.  The ranks meet through a FileStore file in ``out_dir``
+    (a temporary directory when None), and the inputs and results go
+    through pickle files there.  Joins with ``timeout`` seconds and kills
+    every rank still alive then; a rank that fails or is killed raises
+    here, with its traceback."""
+    device = torch.device(device).type
+    if device not in ('cuda', 'cpu'):
+        raise ValueError('device %r: expected cuda or cpu' % (device,))
+    if device == 'cuda' and torch.cuda.device_count() < world:
+        raise RuntimeError(
+            "spawn_ranks(world=%d, device='cuda') needs %d CUDA cards, one "
+            "per rank; this machine has %d (pass device='cpu' for gloo "
+            'ranks on the CPU)' % (world, world, torch.cuda.device_count()))
     if out_dir is None:
         with tempfile.TemporaryDirectory() as tmp:
             return spawn_ranks(target, world, kwargs, device, timeout, tmp)

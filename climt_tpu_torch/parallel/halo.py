@@ -24,9 +24,10 @@ import torch.distributed as dist
 
 class LatHalo:
     """halo(x, shift) on one rank's latitude block; counts its calls in
-    ``LatHalo.calls``."""
+    ``LatHalo.calls`` and the bytes it sends in ``LatHalo.bytes``."""
 
     calls = 0
+    bytes = 0
 
     def __init__(self, mesh, axis='lat'):
         self.group = mesh.get_group(axis)
@@ -51,6 +52,7 @@ class LatHalo:
         ops = []
         if to is not None:
             ops.append(dist.P2POp(dist.isend, send, to, self.group))
+            LatHalo.bytes += send.numel() * send.element_size()
         if frm is not None:
             ops.append(dist.P2POp(dist.irecv, recv, frm, self.group))
         if ops:

@@ -43,12 +43,14 @@ from ..ops.sht import DFT_BUFFERS, SphericalHarmonicTransform
 def all_reduce_sum(xs, group):
     """The sums over ``group`` of a list of tensors (real or complex, any
     shapes) through one ``all_reduce``.  Counts its calls in
-    ``all_reduce_sum.calls``."""
+    ``all_reduce_sum.calls`` and the bytes it hands to the collective in
+    ``all_reduce_sum.bytes``."""
     flat = [torch.view_as_real(x).reshape(-1) if x.is_complex()
             else x.reshape(-1) for x in xs]
     buf = torch.cat(flat)
     dist.all_reduce(buf, group=group)
     all_reduce_sum.calls += 1
+    all_reduce_sum.bytes += buf.numel() * buf.element_size()
     out = []
     for x, part in zip(xs, torch.split(buf, [f.numel() for f in flat])):
         if x.is_complex():
@@ -57,24 +59,26 @@ def all_reduce_sum(xs, group):
     return out
 
 
-all_reduce_sum.calls = 0
+all_reduce_sum.calls = all_reduce_sum.bytes = 0
 
 
 def all_gather_cat(x, group, size, dim):
     """Every rank's x of ``group`` (of ``size`` ranks), concatenated along
     ``dim`` in group-rank order.  Counts its calls in
-    ``all_gather_cat.calls``."""
+    ``all_gather_cat.calls`` and the bytes of this rank's x in
+    ``all_gather_cat.bytes``."""
     x = x.contiguous()
     real = torch.view_as_real(x) if x.is_complex() else x
     parts = [torch.empty_like(real) for _ in range(size)]
     dist.all_gather(parts, real, group=group)
     all_gather_cat.calls += 1
+    all_gather_cat.bytes += real.numel() * real.element_size()
     if x.is_complex():
         parts = [torch.view_as_complex(p) for p in parts]
     return torch.cat(parts, dim=dim)
 
 
-all_gather_cat.calls = 0
+all_gather_cat.calls = all_gather_cat.bytes = 0
 
 
 def _axis(mesh, name):

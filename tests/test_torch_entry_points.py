@@ -11,6 +11,7 @@ caller of ``entry()`` jits ``fn``.
 """
 
 import importlib.util
+import multiprocessing
 import os
 
 import jax
@@ -21,6 +22,8 @@ import torch
 from climt_tpu_torch import entry_points
 from climt_tpu_torch.convert import carry_from_numpy, carry_to_numpy
 from climt_tpu_torch.ops.sht import SphericalHarmonicTransform
+
+import torch_helpers  # noqa: F401  (one torch thread per xdist worker)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANKS = 4
@@ -155,7 +158,7 @@ def test_cuda_without_cards_raises_and_starts_nothing(monkeypatch):
     def no_run(*args, **kwargs):
         raise AssertionError('a rank was started')
 
-    monkeypatch.setattr(entry_points, 'spawn_ranks', no_run)
+    monkeypatch.setattr(multiprocessing, 'get_context', no_run)
     monkeypatch.setattr(entry_points, '_dryrun_rank', no_run)
     with pytest.raises(RuntimeError, match='needs 2 CUDA cards'):
         entry_points.dryrun_multichip(2)

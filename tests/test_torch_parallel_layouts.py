@@ -41,8 +41,8 @@ from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
 from climt_tpu_torch.ops.sht import SphericalHarmonicTransform
 from climt_tpu_torch.parallel import make_mesh, shard_model_state
 
-from torch_helpers import (LAYOUTS, layout_name, rel_err, spawn_ranks,
-                           world_of_one)
+from torch_helpers import (LAYOUTS, STEP_COLLECTIVES, layout_name, rel_err,
+                           spawn_ranks, world_of_one)
 from torch_layout_cases import (JAX_MESHES, JAX_TOL, PORT_TOL, RANKS,
                                 assert_close, jax_mesh, np_tree)
 
@@ -200,10 +200,13 @@ def test_held_suarez_spectral_state_is_bitwise_equal_on_every_rank(
 @pytest.mark.parametrize('layout', NAMES)
 def test_held_suarez_step_makes_one_reduction(ranks, layout):
     """The dycore's analyses go through one all_reduce, and under
-    shard_lon one all_gather of the whole rows."""
+    shard_lon one all_gather of the whole rows; no transpose and no halo
+    (torch_helpers.STEP_COLLECTIVES)."""
     gathers = 1 if layout.endswith('_lon') else 0
+    kind = 'replicated_lon' if layout.endswith('_lon') else 'replicated'
+    assert STEP_COLLECTIVES[(kind, 'held_suarez')] == (0, 0, 1, gathers)
     for out in ranks:
-        assert out[layout]['collectives'] == (1, gathers)
+        assert out[layout]['counts']['collectives'] == (0, 0, 1, gathers)
 
 
 # -- the placement API in a world of one ------------------------------------

@@ -6,6 +6,7 @@ imports neither jax nor climt_tpu at its top, so ``chip_smoke.py`` runs the
 examples through ``port_example`` too.
 """
 
+import bisect
 import contextlib
 import functools
 import importlib.util
@@ -17,6 +18,15 @@ import types
 
 import numpy as np
 import torch
+
+# One torch thread in each pytest-xdist worker: the suite runs six
+# workers on the host's cores, and torch's default of one OpenMP thread
+# per core in every worker oversubscribes them; its spinning threads then
+# starve everything else, the spawned gloo ranks and JAX's compiles among
+# them (the files of tests/test_torch_parallel_gcm.py and five others
+# took 385 s on 6 workers, 139 s with one thread each).
+if os.environ.get('PYTEST_XDIST_WORKER'):
+    torch.set_num_threads(1)
 
 G, AVOG, CPD = 9.80665, 6.022140857e23, 1004.64
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(
@@ -601,12 +611,14 @@ def ragged_group(bands, dtype, device='cpu'):
 
 # -- ranks of a torch.distributed world, spawned ---------------------------
 
-def spawn_ranks(target, world, out_dir, timeout=240.0, **kwargs):
+def spawn_ranks(target, world, out_dir, timeout=240.0, device='cpu',
+                **kwargs):
     """Run ``torch_helpers.<target>(rank, world, **kwargs)`` on ``world``
-    gloo ranks through the package's ``parallel.spawn_ranks`` (a
-    FileStore in ``out_dir``); returns each rank's result."""
+    ranks through the package's ``parallel.spawn_ranks`` (a FileStore in
+    ``out_dir``): gloo ranks on the CPU, or with ``device='cuda'`` NCCL
+    ranks, rank r on card r; returns each rank's result."""
     from climt_tpu_torch.parallel import spawn_ranks as spawn
-    return spawn(globals()[target], world, kwargs, device='cpu',
+    return spawn(globals()[target], world, kwargs, device=device,
                  timeout=timeout, out_dir=out_dir)
 
 
@@ -749,19 +761,120 @@ def fv_mass_pass(fv, q, dp, u, v, mdot, dt):
     return m0, float(fv.total_mass(qdp, dps))
 
 
+def conservation_failures(fv_mass=(), water=()):
+    """The failures, as messages, of the conservation checks that the CPU
+    files and the cards share, given by rank: each FV mass pass (before,
+    after) of ``fv_mass_pass`` keeps its total to 1e-12 and every rank
+    starts from one total (each sums the whole sphere); each closure
+    (target, fixed, unfixed) of ``water_fixer_closure`` reaches its
+    target to 1e-12 with more than 1e-8 to close."""
+    fails = ['rank %d: FV mass %r -> %r' % (rank, m0, m1)
+             for rank, (m0, m1) in enumerate(fv_mass)
+             if not abs(m1 - m0) / m0 < 1e-12]
+    starts = sorted({m0 for m0, _ in fv_mass})
+    if len(starts) > 1:
+        fails.append('the ranks start from FV masses %s' % starts)
+    for rank, (target, fixed, unfixed) in enumerate(water):
+        if not abs(fixed - target) / target < 1e-12:
+            fails.append('rank %d: the water fixer reaches %r, not its '
+                         'target %r' % (rank, fixed, target))
+        if not abs(unfixed - target) / target > 1e-8:
+            fails.append('rank %d: the water fixer had nothing to close '
+                         '(%r against the target %r)' % (rank, unfixed,
+                                                         target))
+    return fails
+
+
+# -- the counters of one step ----------------------------------------------
+
+def reset_counters():
+    """Set the parallel layer's collective counters (calls and bytes) and
+    both kernels' launch counters to 0."""
+    from climt_tpu_torch.components.rrtmg import fused_mix, rtrn_kernel
+    from climt_tpu_torch.parallel import dist_sht, halo, rep_sht
+    for counter in (dist_sht.transpose, halo.LatHalo, rep_sht.all_reduce_sum,
+                    rep_sht.all_gather_cat):
+        counter.calls = counter.bytes = 0
+    fused_mix.mix_groups_cuda.launches = 0
+    rtrn_kernel.rtrn_lw_cuda.launches = 0
+
+
+def read_counters():
+    """{'collectives': (all_to_all transposes, halo calls, all_reduce
+    calls, all_gather calls), 'bytes': the bytes each handed to the
+    collectives, 'launches': (kernel B, kernel A)} since
+    ``reset_counters``."""
+    from climt_tpu_torch.components.rrtmg import fused_mix, rtrn_kernel
+    from climt_tpu_torch.parallel import dist_sht, halo, rep_sht
+    counters = (dist_sht.transpose, halo.LatHalo, rep_sht.all_reduce_sum,
+                rep_sht.all_gather_cat)
+    return {'collectives': tuple(c.calls for c in counters),
+            'bytes': tuple(c.bytes for c in counters),
+            'launches': (fused_mix.mix_groups_cuda.launches,
+                         rtrn_kernel.rtrn_lw_cuda.launches)}
+
+
+def synchronize():
+    """Wait for the card, where there is one."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def counted_step(step_fn, carry):
+    """(carry, diagnostics, ``read_counters()``) of one step, the counters
+    set to 0 before it and the card synchronized after it."""
+    reset_counters()
+    carry, diag = step_fn(carry)
+    synchronize()
+    return carry, diag, read_counters()
+
+
+# (all_to_all transposes, halo calls, all_reduce calls, all_gather calls)
+# of a model's first step on every rank, by (layout, model), as the gloo
+# ranks of tests/test_torch_parallel_gcm.py and
+# tests/test_torch_parallel_layouts*.py count them: the m-sharded
+# transforms' transposes (a 'lon' extent repeats them), the FV halo on a
+# latitude-sharded grid, the water fixer's one reduction (spectral and
+# SL; the replicated layout also reduces each dycore stage's analyses,
+# and the fixer's sums over 'lon' under shard_lon), and the gathers of
+# the grid transports (SL always, FV under shard_lon) and of the whole
+# rows before an analysis under shard_lon
+STEP_COLLECTIVES = {
+    ('m_sharded', 'spectral'): (19, 0, 1, 0),
+    ('m_sharded', 'fv'): (12, 7, 0, 0),
+    ('m_sharded', 'sl'): (14, 0, 1, 1),
+    ('replicated', 'spectral'): (0, 0, 3, 0),
+    ('replicated_lon', 'spectral'): (0, 0, 4, 2),
+    ('replicated', 'fv'): (0, 7, 1, 0),
+    ('replicated_lon', 'fv'): (0, 0, 1, 3),
+    ('replicated', 'sl'): (0, 0, 2, 1),
+    ('replicated_lon', 'sl'): (0, 0, 3, 3),
+    ('replicated', 'held_suarez'): (0, 0, 1, 0),
+    ('replicated_lon', 'held_suarez'): (0, 0, 1, 1),
+}
+
+
 def mesh_gcm_run(mesh, mode, kw, steps, early=None, dtype=torch.float64,
-                 device='cpu', checks=False):
-    """build_moist_gcm(mesh=mesh) run for ``steps`` steps from seed 0:
-    {'final': the gathered (carry, diagnostics)} and, with ``early``, the
-    gathered carry after that many steps; with ``checks``, FV's mass pass
-    ('fv') or the water fixer's closure ('sl') from the initial carry."""
-    from climt_tpu_torch.convert import carry_to_global
+                 device='cpu', checks=False, start=None):
+    """build_moist_gcm(mesh=mesh) run for ``steps`` steps from seed 0, or
+    from the global numpy carry ``start`` cut to the rank by
+    ``carry_to_rank``: {'final': the gathered (carry, diagnostics),
+    'counts': the counters of the first step (``counted_step``)} and,
+    with ``early``, the gathered carry after that many steps; with
+    ``start``, 'own_init', the model's own initial carry gathered; with
+    ``checks``, FV's mass pass ('fv') or the water fixer's closure ('sl')
+    from the initial carry."""
+    from climt_tpu_torch.convert import carry_to_global, carry_to_rank
     from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
     dycore, init_fn, step_fn, run_fn = build_moist_gcm(
         mesh=mesh, dtype=dtype, device=device, moisture_advection=mode,
         **kw)
-    carry = init_fn(0)
     out = {}
+    if start is None:
+        carry = init_fn(0)
+    else:
+        out['own_init'] = carry_to_global(init_fn(0), dycore.sht)
+        carry = carry_to_rank(start, dycore.sht, device, dtype)
     if checks and mode == 'fv':
         # the centre state's moisture on its own winds and mass fluxes
         u, v, dp, mdot = dycore.diagnose_mass_fluxes(carry[1])
@@ -769,12 +882,14 @@ def mesh_gcm_run(mesh, mode, kw, steps, early=None, dtype=torch.float64,
                                       mdot, 2.0 * dycore.dt)
     if checks and mode == 'sl':
         out['water'] = water_fixer_closure(step_fn, carry)
-    done = 0
+    carry, diag, out['counts'] = counted_step(step_fn, carry)
+    done = 1
     if early:
-        carry, _ = run_fn(carry, early)
+        carry, _ = run_fn(carry, early - done)
         out['early'] = carry_to_global(carry, dycore.sht)
         done = early
-    carry, diag = run_fn(carry, steps - done)
+    if steps > done:
+        carry, diag = run_fn(carry, steps - done)
     out['final'] = carry_to_global(carry + (diag,), dycore.sht)
     return out
 
@@ -833,21 +948,21 @@ def layout_name(layout):
 def _local_spectral(carry):
     """Every complex (spectral) field of a placed carry's states, as the
     rank holds it, in numpy."""
-    return {(i, k): v.to_local().numpy() for i in (0, 1)
+    return {(i, k): v.to_local().cpu().numpy() for i in (0, 1)
             for k, v in carry[i].items() if v.is_complex()}
 
 
-def layout_gcm_run(model, mesh, shard_lon, steps):
+def layout_gcm_run(model, mesh, shard_lon, steps, checks=True):
     """The (dycore, init_fn, step_fn, run_fn) of build_moist_gcm without
     a mesh, its carry placed by shard_model_state and stepped by run_fn:
     {'final': the gathered carry and diagnostics, 'spectral': the rank's
-    own spectral fields, 'collectives': (all_reduce, all_gather) calls of
-    one step from the placed carry, 'fv_mass' (FV) or 'water' (SL): FV's
-    mass pass or the water fixer's closure on the twin's blocks from the
-    initial carry}."""
+    own spectral fields, 'counts': the counters of the first step from
+    the placed carry (``counted_step``)} and, with ``checks``, 'fv_mass'
+    (FV) or 'water' (SL): FV's mass pass or the water fixer's closure on
+    the twin's blocks from the initial carry."""
     from climt_tpu_torch.convert import carry_to_global
     from climt_tpu_torch.dycore.spectral_dynamics import GatheredTransport
-    from climt_tpu_torch.parallel import rep_sht, shard_model_state
+    from climt_tpu_torch.parallel import shard_model_state
     from climt_tpu_torch.parallel.mesh import unwrap_carry
     _, init_fn, step_fn, run_fn = model
     mode = step_fn.__self__.dycore.moisture_advection
@@ -855,20 +970,18 @@ def layout_gcm_run(model, mesh, shard_lon, steps):
     twin = step_fn.__self__._layout_twin(carry)[0]
     local = unwrap_carry(carry)
     out = {}
-    if mode == 'fv':
+    if checks and mode == 'fv':
         u, v, dp, mdot = twin.dycore.diagnose_mass_fluxes(local[1])
         fields, fv = (local[1]['q'], dp, u, v, mdot), twin.dycore.fv
         if isinstance(fv, GatheredTransport):
             fields = tuple(twin.dycore.sht.gather_rows(x) for x in fields)
             fv = fv.op
         out['fv_mass'] = fv_mass_pass(fv, *fields, 2.0 * twin.dt)
-    if mode == 'sl':
+    if checks and mode == 'sl':
         out['water'] = water_fixer_closure(twin.step, local)
-    rep_sht.all_reduce_sum.calls = rep_sht.all_gather_cat.calls = 0
-    carry, diag = step_fn(carry)
-    out['collectives'] = (rep_sht.all_reduce_sum.calls,
-                          rep_sht.all_gather_cat.calls)
-    carry, diag = run_fn(carry, steps - 1)
+    carry, diag, out['counts'] = counted_step(step_fn, carry)
+    if steps > 1:
+        carry, diag = run_fn(carry, steps - 1)
     out['spectral'] = _local_spectral(carry)
     out['final'] = carry_to_global(carry + (diag,))
     return out
@@ -922,35 +1035,39 @@ def layout_sht_results(sht, grids):
             else v.numpy() for k, v in out.items()}
 
 
+def layout_hs_run(model, mesh, shard_lon, steps):
+    """build_held_suarez_model's (dycore, init_fn, step_fn, run_fn), its
+    carry placed by shard_model_state and run ``steps`` steps: {'final':
+    the gathered carry, 'spectral': the rank's own spectral fields,
+    'counts': the counters of the first step}."""
+    from climt_tpu_torch.convert import carry_to_global
+    from climt_tpu_torch.parallel import shard_model_state
+    _, init_fn, step_fn, run_fn = model
+    carry = shard_model_state(mesh, *init_fn(0), shard_lon=shard_lon)
+    carry, _, counts = counted_step(step_fn, carry)
+    if steps > 1:
+        carry = run_fn(carry, steps - 1)
+    return {'final': carry_to_global(carry),
+            'spectral': _local_spectral(carry), 'counts': counts}
+
+
 def layout_hs_rank(rank, world, kw, steps, grids, layouts=LAYOUTS):
     """On one rank of a CPU world, for each mesh layout of ``layouts``:
     the ReplicatedSHT's transforms of ``grids`` (``layout_sht_results``)
-    and build_held_suarez_model's carry placed by shard_model_state and
-    run ``steps`` steps: gathered, the rank's own spectral fields, and the
-    collectives of one step."""
-    from climt_tpu_torch.convert import carry_to_global
+    and ``layout_hs_run`` of build_held_suarez_model at float64."""
     from climt_tpu_torch.dycore.compiled import build_held_suarez_model
     from climt_tpu_torch.ops.sht import SphericalHarmonicTransform
-    from climt_tpu_torch.parallel import (ReplicatedSHT, make_mesh,
-                                          shard_model_state)
-    from climt_tpu_torch.parallel import rep_sht
-    _, init_fn, step_fn, run_fn = build_held_suarez_model(
-        dtype=torch.float64, device='cpu', **kw)
+    from climt_tpu_torch.parallel import ReplicatedSHT, make_mesh
+    model = build_held_suarez_model(dtype=torch.float64, device='cpu',
+                                    **kw)
     nz, nlat, nlon = np.shape(grids[0])
     out = {}
     for shape, shard_lon in layouts:
         mesh = make_mesh(world, mesh_shape=shape, device='cpu')
         sht = ReplicatedSHT(SphericalHarmonicTransform(
             nlon, nlat, dtype=torch.float64, device='cpu'), mesh, shard_lon)
-        res = {'sht': layout_sht_results(sht, grids)}
-        carry = shard_model_state(mesh, *init_fn(0), shard_lon=shard_lon)
-        rep_sht.all_reduce_sum.calls = rep_sht.all_gather_cat.calls = 0
-        carry, _ = step_fn(carry)
-        res['collectives'] = (rep_sht.all_reduce_sum.calls,
-                              rep_sht.all_gather_cat.calls)
-        carry = run_fn(carry, steps - 1)
-        res['spectral'] = _local_spectral(carry)
-        res['final'] = carry_to_global(carry)
+        res = layout_hs_run(model, mesh, shard_lon, steps)
+        res['sht'] = layout_sht_results(sht, grids)
         out[layout_name((shape, shard_lon))] = res
     return out
 
@@ -977,4 +1094,379 @@ def layout_shared_card_rank(rank, world, kw, steps, modes, meshes):
             carry, diag = run_fn(carry, steps)
             final = carry_to_global(carry + (diag,))
             out[(shape, shard_lon, mode)] = (final, time.perf_counter() - t0)
+    return out
+
+
+# -- the mesh layouts across cards (tests/test_torch_gpu_mesh.py and
+# chip_smoke.py phase 28) ---------------------------------------------------
+
+# the two sizes of the card cases, as (moist GCM keywords, dtype, steps):
+# 7 float64 steps at 64x32x10 (radiation refreshed at steps 0 and 6), and
+# one float32 refresh step of phase 6's T85 model
+CARD_SIZES = {
+    'small': (dict(nlon=64, nlat=32, nz=10, rad_every=6,
+                   rad_col_chunk=2048), torch.float64, 7),
+    't85': (dict(nlon=256, nlat=128, nz=28, timestep=600.0, rad_every=6,
+                 rad_col_chunk=8192), torch.float32, 1),
+}
+# the small size's limit against one card: the layouts change only the
+# order of the transforms' and the fixer's sums (chip_smoke.py phases
+# 20 (b) and 21 (b)); T85 is held to entry_points.compare_steps's float32
+# limits
+CARD_SMALL_TOL = 1e-9
+CARD_MODELS = ('spectral', 'fv', 'sl', 'held_suarez')
+# the join timeout of the card cases' ranks, in seconds
+CARD_TIMEOUT = 900.0
+# phase 28's timed models: T85 float32 with these moisture modes, in
+# windows of CARD_WINDOW steps
+CARD_TIMING_MODES = ('spectral', 'fv')
+CARD_WINDOW = 12
+
+
+def card_meshes(world):
+    """(m-sharded mesh shapes, replicated layouts) of the card cases on
+    ``world`` ranks: (4, 1) and (2, 2), and every layout of LAYOUTS, on
+    4; otherwise (n, 1), and (n, 1) and (1, n) with shard_lon."""
+    if world == 4:
+        return ((4, 1), (2, 2)), LAYOUTS
+    return ((world, 1),), (((world, 1), False), ((1, world), True))
+
+
+def refresh_launches(kw, shape, shard_lon, dtype):
+    """(kernel B, kernel A) launches of one radiation refresh on one rank
+    of a (lat, lon) mesh, worked out from the code: the rank radiates its
+    own columns (nlat/lat rows of nlon columns, of nlon/lon with
+    shard_lon; the m-sharded layout repeats whole rows on each 'lon'
+    rank) in chunks of rad_col_chunk where that divides them, else in one
+    (MoistGCM.rad_chunks); each chunk launches kernel B once for each of
+    its six taumol outputs (LW planck, taug, fracs; SW taug, taur, sflux)
+    and kernel A once in float32 (float64 takes the plain table sweep)."""
+    lat, lon = shape
+    ncol = (kw['nlat'] // lat) * (kw['nlon'] // lon if shard_lon
+                                  else kw['nlon'])
+    chunk = kw['rad_col_chunk']
+    chunks = max(1, ncol // chunk) if ncol % chunk == 0 else 1
+    return 6 * chunks, chunks if dtype == torch.float32 else 0
+
+
+def limit_share(ref, got, sht):
+    """(largest share, field) of ``entry_points.step_errors``'s float32
+    limits of the carry ``got`` against ``ref``, spectral fields
+    synthesized by ``sht``; a step index that differs counts as inf."""
+    from climt_tpu_torch.entry_points import step_errors
+
+    def synthesize(spec):
+        return sht.synthesize(torch.as_tensor(
+            spec, device=sht.P.device)).cpu().numpy()
+
+    if len(ref) > 4 and int(got[4]) != int(ref[4]):
+        return float('inf'), 'step index'
+    errors = step_errors(ref, got, synthesize)
+    worst = max(errors, key=lambda name: errors[name]['of_limit'])
+    return errors[worst]['of_limit'], worst
+
+
+def _card_record(run, ref, sht, small, mesh, start=None):
+    """A card case's record: the gathered carry of ``run`` held against
+    the one-card carry ``ref`` (every field's max |a - b| / max |b| at the
+    small size, ``limit_share`` at T85), 'err', the worst 'field' and the
+    'limit'; the run's counters and checks; where the run holds the
+    model's own initial carry, its ``limit_share`` against the one-card
+    initial carry ``start``, 'init_err' and 'init_field'."""
+    rec = {k: run[k] for k in ('counts', 'fv_mass', 'water') if k in run}
+    rec['mesh'] = mesh
+    got = run['final']
+    if 'own_init' in run:
+        rec['init_err'], rec['init_field'] = limit_share(
+            start, run['own_init'], sht)
+    if not small:
+        err, field = limit_share(ref, got, sht)
+        rec.update(err=err, field=field, limit=1.0)
+        return rec
+    errs = {}
+    for i, part in enumerate(ref):
+        if isinstance(part, dict):
+            for key, b in part.items():
+                errs['%d %s' % (i, key)] = float(rel_err(got[i][key], b))
+        elif int(got[i]) != int(part):
+            errs['step index'] = float('inf')
+    worst = max(errs, key=errs.get)
+    rec.update(err=errs[worst], field=worst, limit=CARD_SMALL_TOL)
+    return rec
+
+
+def card_mesh_rank(rank, world, device='cuda', timing=False):
+    """The card cases on one rank of a world, NCCL ranks one a card (gloo
+    ranks with ``device='cpu'``, to rehearse): for each size of
+    CARD_SIZES and each model of CARD_MODELS (the moist GCM with each
+    moisture mode, and Held-Suarez), the model built without a mesh on
+    the rank's own device and run from seed 0 (the one-card run), then
+    the same model in each layout of ``card_meshes(world)``: the
+    m-sharded one (``build_moist_gcm(mesh=...)``; moist models) and the
+    replicated one (``shard_model_state``), each held to the one-card run
+    (``_card_record``).  Both layouts start from the one-card model's
+    initial carry at T85 (``carry_to_rank``, ``shard_model_state``), and
+    the m-sharded model's own initial carry is held to that one: a
+    float32 radiation refresh is not continuous at roundoff (RRTMG's
+    table lookups), so a step from the m-sharded model's own initial
+    state, the same to roundoff, can move a few columns' surface
+    radiation past the step's limits.  With ``timing``, 'own_step':
+    {mode: ``limit_share`` of that step on the (n, 1) mesh}, which phase
+    28 prints.  At the small size the m-sharded model starts from its
+    own ``init_fn``.  One mesh per shape serves every case.  Returns
+    {(size, 'm_sharded' or 'replicated', layout name, model): record}
+    and, with ``timing``, 'own_step' and 'timing': ``card_timing``."""
+    from climt_tpu_torch.convert import carry_to_numpy
+    from climt_tpu_torch.dycore.compiled import build_held_suarez_model
+    from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
+    from climt_tpu_torch.parallel import make_mesh
+    m_shapes, layouts = card_meshes(world)
+    # every rank makes the meshes, and so their process groups, in one
+    # order
+    meshes = {shape: make_mesh(world, mesh_shape=shape, device=device)
+              for shape in sorted(set(m_shapes) | {s for s, _ in layouts})}
+    out = {'own_step': {}} if timing else {}
+    for size, (kw, dtype, steps) in CARD_SIZES.items():
+        small = size == 'small'
+        for name in CARD_MODELS:
+            if name == 'held_suarez':
+                model = build_held_suarez_model(
+                    dtype=dtype, device=device, **{
+                        k: kw[k] for k in ('nlon', 'nlat', 'nz', 'timestep')
+                        if k in kw})
+                ref = carry_to_numpy(model[3](model[1](0), steps))
+            else:
+                model = build_moist_gcm(dtype=dtype, device=device,
+                                        moisture_advection=name, **kw)
+                start = carry_to_numpy(model[1](0))
+                carry, diag = model[3](model[1](0), steps)
+                ref = carry_to_numpy(carry + (diag,))
+                if timing and not small:
+                    own = mesh_gcm_run(meshes[m_shapes[0]], name, kw, steps,
+                                       dtype=dtype, device=device)['final']
+                    out['own_step'][name] = limit_share(ref, own,
+                                                        model[0].sht)
+                for shape in m_shapes:
+                    run = mesh_gcm_run(meshes[shape], name, kw, steps,
+                                       dtype=dtype, device=device,
+                                       checks=small,
+                                       start=None if small else start)
+                    layout = (shape, False)
+                    out[(size, 'm_sharded', layout_name(layout), name)] = \
+                        _card_record(run, ref, model[0].sht, small, layout,
+                                     start)
+            for layout in layouts:
+                shape, shard_lon = layout
+                run = (layout_hs_run(model, meshes[shape], shard_lon, steps)
+                       if name == 'held_suarez' else layout_gcm_run(
+                           model, meshes[shape], shard_lon, steps,
+                           checks=small))
+                out[(size, 'replicated', layout_name(layout), name)] = \
+                    _card_record(run, ref, model[0].sht, small, layout)
+            del model
+    if timing:
+        out['timing'] = card_timing(rank, world, device, meshes)
+    return out
+
+
+def card_mesh_failures(ranks, world, what, kind=None, model=None):
+    """The failures, as messages, of every rank's ``card_mesh_rank``
+    records under one check: 'answers' (the small size within
+    CARD_SMALL_TOL of max of the one-card run, T85 within compare_steps's
+    float32 limits, and there the m-sharded model's own initial carry
+    within them of the one-card one), 'collectives' (each first step
+    makes STEP_COLLECTIVES), 'launches' (each first step, a radiation
+    refresh, launches the kernels ``refresh_launches`` works out;
+    Held-Suarez none), 'conservation' (at the small size,
+    ``conservation_failures`` over the ranks of each case) or 'complete'
+    (every case on every rank, and every T85 m-sharded case's own
+    initial carry); only the cases of layout ``kind`` and ``model`` where
+    given."""
+    m_shapes, layouts = card_meshes(world)
+    cases = set()
+    for size in CARD_SIZES:
+        for name in CARD_MODELS:
+            if name != 'held_suarez':
+                cases |= {(size, 'm_sharded', layout_name((s, False)), name)
+                          for s in m_shapes}
+            cases |= {(size, 'replicated', layout_name(l), name)
+                      for l in layouts}
+    chosen = sorted(key for key in cases if kind in (None, key[1])
+                    and model in (None, key[3]))
+    fails = []
+    if what == 'conservation':
+        for key in chosen:
+            rows = [recs[key] for recs in ranks if key in recs]
+            if key[0] == 'small':
+                fails += ['%s %s %s %s: %s' % (key + (msg,))
+                          for msg in conservation_failures(
+                              [r['fv_mass'] for r in rows if 'fv_mass' in r],
+                              [r['water'] for r in rows if 'water' in r])]
+        return fails
+    for rank, recs in enumerate(ranks):
+        if what == 'complete':
+            fails += ['rank %d lacks %s' % (rank, key)
+                      for key in sorted(cases - set(recs))]
+            fails += ['rank %d lacks the own initial carry of %s' % (
+                rank, key) for key in sorted(cases & set(recs))
+                if key[:2] == ('t85', 'm_sharded')
+                and 'init_err' not in recs[key]]
+            continue
+        for key in [key for key in chosen if key in recs]:
+            rec = recs[key]
+            size, layout, mesh_name, name = key
+            tag = 'rank %d: %s %s %s %s' % ((rank,) + key)
+            if what == 'answers' and not rec['err'] <= rec['limit']:
+                fails.append('%s: %s at %.3g, over its limit %g' % (
+                    tag, rec['field'], rec['err'], rec['limit']))
+            if what == 'answers' and not rec.get('init_err', 0.0) <= 1.0:
+                fails.append('%s: its own initial carry, %s at %.3g of '
+                             'the limit' % (tag, rec['init_field'],
+                                            rec['init_err']))
+            elif what == 'collectives':
+                lon = mesh_name.endswith('_lon')
+                want = STEP_COLLECTIVES[(
+                    layout if layout == 'm_sharded' else
+                    'replicated_lon' if lon else 'replicated', name)]
+                got = rec['counts']['collectives']
+                if got != want:
+                    fails.append('%s: collectives %s, the CPU makes %s' % (
+                        tag, got, want))
+            elif what == 'launches':
+                kw, dtype, _ = CARD_SIZES[size]
+                want = ((0, 0) if name == 'held_suarez' else
+                        refresh_launches(kw, *rec['mesh'], dtype))
+                got = rec['counts']['launches']
+                if tuple(got) != want:
+                    fails.append('%s: kernel (B, A) launches %s, the code '
+                                 'gives %s' % (tag, tuple(got), want))
+    return fails
+
+
+def _intervals_overlap(spans, others):
+    """The time of ``spans`` ((start, end) pairs) during which any span
+    of ``others`` runs."""
+    merged = []
+    for start, end in sorted(others):
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([start, end])
+    starts = [m[0] for m in merged]
+    total = 0.0
+    for start, end in spans:
+        i = max(0, bisect.bisect_right(starts, start) - 1)
+        while i < len(merged) and merged[i][0] < end:
+            total += max(0.0, min(end, merged[i][1])
+                         - max(start, merged[i][0]))
+            i += 1
+    return total
+
+
+def nccl_trace(step_fn, carry):
+    """(carry, record) of one step traced by torch.profiler on the card:
+    'wall' (s, the profiler's overhead included), 'kernel_s' (every device
+    activity summed; the profiler's annotations of the collectives on the
+    device timeline are left out), 'nccl_s' (that of the NCCL kernels,
+    their waits for the other ranks included), 'overlap_s' (the time in
+    which an NCCL kernel ran beside another kernel), 'launches' and
+    'nccl_launches'."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        carry, _ = step_fn(carry)
+        synchronize()
+        wall = time.perf_counter() - t0
+    spans = [(e.time_range.start, e.time_range.end, 'nccl' in e.name.lower())
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.is_user_annotation]
+    nccl = [(a, b) for a, b, is_nccl in spans if is_nccl]
+    other = [(a, b) for a, b, is_nccl in spans if not is_nccl]
+    return carry, {
+        'wall': wall, 'kernel_s': sum(b - a for a, b, _ in spans) / 1e6,
+        'nccl_s': sum(b - a for a, b in nccl) / 1e6,
+        'overlap_s': _intervals_overlap(nccl, other) / 1e6,
+        'launches': len(spans), 'nccl_launches': len(nccl)}
+
+
+def card_lon_shape(world):
+    """The mesh of phase 28's timed shard_lon layout: the default (lat,
+    lon) mesh where its 'lon' extent is above 1, else (1, world)."""
+    from climt_tpu_torch.parallel.mesh import default_mesh_shape
+    shape = default_mesh_shape(world)
+    return shape if shape[1] > 1 else (1, world)
+
+
+def card_timing(rank, world, device, meshes):
+    """Phase 28's times on one rank: the T85 float32 moist GCM with each
+    moisture mode of CARD_TIMING_MODES on one card (rank 0 alone) and on
+    every rank in three layouts: m-sharded on (world, 1), replicated on
+    (world, 1), replicated with shard_lon on ``card_lon_shape(world)``.
+    Windows of CARD_WINDOW steps in the order one card, m-sharded,
+    replicated, replicated_lon and back, each model going on from its own
+    carry, every window after a barrier, each step synchronized and timed
+    on the host; the counters summed over each model's windows; then one
+    traced refresh step and one traced plain step of each model
+    (``nccl_trace``).  Returns {mode: {model: {'s': step seconds,
+    'counts': summed counters, 'refresh', 'plain': traces}}}; ranks other
+    than 0 have no 'one card'."""
+    import torch.distributed as dist
+    from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
+    from climt_tpu_torch.parallel import make_mesh, shard_model_state
+    kw, dtype, _ = CARD_SIZES['t85']
+    lon_shape = card_lon_shape(world)
+    if lon_shape not in meshes:
+        meshes[lon_shape] = make_mesh(world, mesh_shape=lon_shape,
+                                      device=device)
+    lat_mesh = meshes[(world, 1)]
+    order = ('one card', 'm_sharded', 'replicated', 'replicated_lon')
+    out = {}
+    for mode in CARD_TIMING_MODES:
+        _, init_fn, step_fn, _ = build_moist_gcm(
+            dtype=dtype, device=device, moisture_advection=mode, **kw)
+        _, m_init, m_step, _ = build_moist_gcm(
+            mesh=lat_mesh, dtype=dtype, device=device,
+            moisture_advection=mode, **kw)
+        steps = {'one card': step_fn, 'm_sharded': m_step,
+                 'replicated': step_fn, 'replicated_lon': step_fn}
+        carries = {'m_sharded': m_init(0),
+                   'replicated': shard_model_state(lat_mesh, *init_fn(0)),
+                   'replicated_lon': shard_model_state(
+                       meshes[lon_shape], *init_fn(0), shard_lon=True)}
+        kinds = order[1:]
+        if rank == 0:
+            carries['one card'] = init_fn(0)
+            kinds = order
+        rec = {kind: {'s': [], 'counts': None} for kind in kinds}
+        for kind in order + order[::-1]:
+            dist.barrier()
+            if kind not in kinds:
+                continue
+            reset_counters()
+            for _ in range(CARD_WINDOW):
+                t0 = time.perf_counter()
+                carries[kind], _ = steps[kind](carries[kind])
+                synchronize()
+                rec[kind]['s'].append(time.perf_counter() - t0)
+            counts = read_counters()
+            if rec[kind]['counts'] is not None:
+                counts = {k: tuple(a + b for a, b in zip(
+                    v, rec[kind]['counts'][k])) for k, v in counts.items()}
+            rec[kind]['counts'] = counts
+        # 2 CARD_WINDOW steps done: a refresh step, then a plain one, each
+        # after a barrier (a rank's trace ends with its own processing)
+        for kind in order:
+            for label in ('refresh', 'plain'):
+                dist.barrier()
+                if kind in kinds:
+                    carries[kind], rec[kind][label] = nccl_trace(
+                        steps[kind], carries[kind])
+        dist.barrier()
+        out[mode] = rec
+        del carries
     return out
