@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ... import data
+from ...utils.profiling import phase
 from . import fused_mix
 from .rtrn_kernel import (NBANDS, NG, NGB, NGPT, NGS, lw_sweeps,
                           rtrn_lw_fused)
@@ -843,11 +844,12 @@ def rrtmg_lw_fluxes(play, plev, tlay, tlev, tsfc, h2ovmr, o3vmr, co2vmr,
 
     Returns (uflx, dflx, hr, uflxc, dflxc, hrc[, duflx_dt, duflxc_dt]):
     fluxes (nz+1, ncol) W/m^2, heating rates (nz, ncol) K/day."""
-    cs, wx, pwvcm = gas_coefs_lw(
-        play, plev, tlay, tlev, tsfc, emis, h2ovmr, o3vmr, co2vmr, ch4vmr,
-        n2ovmr, o2vmr, cfc11vmr, cfc12vmr, cfc22vmr, ccl4vmr, grav, avogad,
-        idrv=idrv)
-    taug, fracs = taumol_lw(cs, wx, play.dtype, tables)
+    with phase('climt.gas_optics'):
+        cs, wx, pwvcm = gas_coefs_lw(
+            play, plev, tlay, tlev, tsfc, emis, h2ovmr, o3vmr, co2vmr,
+            ch4vmr, n2ovmr, o2vmr, cfc11vmr, cfc12vmr, cfc22vmr, ccl4vmr,
+            grav, avogad, idrv=idrv)
+        taug, fracs = taumol_lw(cs, wx, play.dtype, tables)
     ngb = torch.as_tensor(NGB, dtype=torch.int64, device=play.device)
     taug = taug + tauaer[..., ngb]
     heatfac = grav * 8.64e4 / (cpdair * 1.0e2)
@@ -856,8 +858,9 @@ def rrtmg_lw_fluxes(play, plev, tlay, tlev, tsfc, h2ovmr, o3vmr, co2vmr,
     else:
         taucld_band = cldprop_lw(inflag, iceflag, liqflag, cldfrac, taucld,
                                  ciwp, clwp, rei, rel)
-    return rtrn_lw(taug, fracs, cs['planklay'], cs['planklev'],
-                   cs['plankbnd'], emis, pwvcm, cldfrac, taucld_band,
-                   plev, heatfac, idrv=idrv,
-                   dplankbnd_dt=cs.get('dplankbnd_dt'),
-                   per_g_cloud=per_g_cloud, use_tables=use_tables)
+    with phase('climt.lw_sweep'):
+        return rtrn_lw(taug, fracs, cs['planklay'], cs['planklev'],
+                       cs['plankbnd'], emis, pwvcm, cldfrac, taucld_band,
+                       plev, heatfac, idrv=idrv,
+                       dplankbnd_dt=cs.get('dplankbnd_dt'),
+                       per_g_cloud=per_g_cloud, use_tables=use_tables)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ... import data
+from ...utils.profiling import phase
 from . import fused_mix
 
 NBANDS = 14
@@ -911,25 +912,27 @@ def rrtmg_sw_fluxes(play, plev, tlay, h2ovmr, o3vmr, co2vmr, ch4vmr,
     cossza = torch.clamp(coszen, min=1.0e-10)
 
     pdp = plev[:-1] - plev[1:]
-    cs = gas_coefs_sw(play, plev, tlay, h2ovmr, o3vmr, co2vmr, ch4vmr,
-                      n2ovmr, o2vmr, grav, avogadro)
-    taug, taur, sflux = taumol_sw(
-        cs, isolvar, svar_f, svar_s, svar_i, svf_b, svs_b, svi_b, dtype)
+    with phase('climt.gas_optics'):
+        cs = gas_coefs_sw(play, plev, tlay, h2ovmr, o3vmr, co2vmr, ch4vmr,
+                          n2ovmr, o2vmr, grav, avogadro)
+        taug, taur, sflux = taumol_sw(
+            cs, isolvar, svar_f, svar_s, svar_i, svf_b, svs_b, svi_b, dtype)
 
     # band albedos: NIR bands 16-24 & 29, UV/vis 25-28 (rad.f90:648-659)
     alb_dir = torch.stack([aldir] * 9 + [asdir] * 4 + [aldir], dim=-1)
     alb_dif = torch.stack([aldif] * 9 + [asdif] * 4 + [aldif], dim=-1)
     tauc_b, ssac_b, asmc_b, _ = cloud_optics
     taua_b, ssaa_b, asma_b = aerosol_optics
-    if per_g_cloud:
-        fd, fu, fdc, fuc = spcvmc_sw(
-            taug, taur, sflux, adjflux_band, cossza, alb_dir, alb_dif,
-            *cloud_g, taua_b, ssaa_b, asma_b, use_tables=use_tables)
-    else:
-        fd, fu, fdc, fuc = spcvrt_sw(
-            taug, taur, sflux, adjflux_band, cossza, alb_dir, alb_dif,
-            cldfrac, tauc_b, ssac_b, asmc_b, taua_b, ssaa_b, asma_b, icld,
-            use_tables=use_tables)
+    with phase('climt.sw_solver'):
+        if per_g_cloud:
+            fd, fu, fdc, fuc = spcvmc_sw(
+                taug, taur, sflux, adjflux_band, cossza, alb_dir, alb_dif,
+                *cloud_g, taua_b, ssaa_b, asma_b, use_tables=use_tables)
+        else:
+            fd, fu, fdc, fuc = spcvrt_sw(
+                taug, taur, sflux, adjflux_band, cossza, alb_dir, alb_dif,
+                cldfrac, tauc_b, ssac_b, asmc_b, taua_b, ssaa_b, asma_b,
+                icld, use_tables=use_tables)
 
     heatfac = grav * 86400.0 * 1.0e-5 / (cpdair * 1.0e-3)
     net = fd - fu

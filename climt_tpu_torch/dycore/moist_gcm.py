@@ -45,6 +45,7 @@ from ..core.grid import hybrid_sigma_pressure_coefficients
 from ..core.util import (bolton_q_sat, get_interface_values,
                          resolve_device)
 from ..parallel.mesh import carry_layout, unwrap_carry, wrap_carry
+from ..utils.profiling import phase
 from .spectral_dynamics import SpectralDycore
 
 _G = 9.80665
@@ -169,15 +170,16 @@ class MoistGCM(nn.Module):
     def radiation(self, T, q, p_mid, p_half, Ts, t_seconds):
         """Heating rate (K/s) and surface/TOA fluxes of (nz, ncol)
         bottom-up columns, pressures in Pa (moist_gcm.py:83)."""
-        inputs = self.radiation_inputs(T, q, p_mid, p_half, Ts, t_seconds)
-        outs = []
-        for cols in torch.chunk(torch.arange(T.shape[1]), self.rad_chunks):
-            c = slice(int(cols[0]), int(cols[-1]) + 1)
-            outs.append(self._radiation_chunk(*(
-                x[c] if x.dim() == 1 else x[:, c] for x in inputs)))
-        hr, sfc, olr, asr = (torch.cat([o[i] for o in outs], dim=-1)
-                             for i in range(4))
-        return {'hr_rad': hr, 'sfc_rad': sfc, 'olr': olr, 'asr': asr}
+        with phase('climt.radiation'):
+            inputs = self.radiation_inputs(T, q, p_mid, p_half, Ts, t_seconds)
+            outs = []
+            for cols in torch.chunk(torch.arange(T.shape[1]), self.rad_chunks):
+                c = slice(int(cols[0]), int(cols[-1]) + 1)
+                outs.append(self._radiation_chunk(*(
+                    x[c] if x.dim() == 1 else x[:, c] for x in inputs)))
+            hr, sfc, olr, asr = (torch.cat([o[i] for o in outs], dim=-1)
+                                 for i in range(4))
+            return {'hr_rad': hr, 'sfc_rad': sfc, 'olr': olr, 'asr': asr}
 
     def _radiation_chunk(self, play, plev, T, tlev, Ts, h2o, o3, co2, o2,
                          mu0, day, emis):
@@ -217,78 +219,80 @@ class MoistGCM(nn.Module):
 
     def physics(self, grids, aux, step_idx):
         """(tendencies, aux, diagnostics) of one step (moist_gcm.py:192)."""
-        nz, nlat, nlon, dt = self.nz, self.nlat, self.nlon, self.dt
-        u = self._to_cols(grids['u'])
-        v = self._to_cols(grids['v'])
-        T = self._to_cols(grids['T'])
-        q = torch.clamp(self._to_cols(grids['q']), min=0.0)
-        ps = grids['ps'].reshape(-1)
-        p_half = self._to_cols(grids['p_half'])
-        p_mid = 0.5 * (p_half[1:] + p_half[:-1])
-        Ts = aux['Ts'].reshape(-1)
-        cbmf = aux['cbmf'].reshape(-1)
+        with phase('climt.physics'):
+            nz, nlat, nlon, dt = self.nz, self.nlat, self.nlon, self.dt
+            u = self._to_cols(grids['u'])
+            v = self._to_cols(grids['v'])
+            T = self._to_cols(grids['T'])
+            q = torch.clamp(self._to_cols(grids['q']), min=0.0)
+            ps = grids['ps'].reshape(-1)
+            p_half = self._to_cols(grids['p_half'])
+            p_mid = 0.5 * (p_half[1:] + p_half[:-1])
+            Ts = aux['Ts'].reshape(-1)
+            cbmf = aux['cbmf'].reshape(-1)
 
-        # radiation on a lagged cadence
-        if step_idx % self.rad_every == 0:
-            t_model = torch.tensor(step_idx, dtype=T.dtype,
-                                   device=T.device) * dt
-            rad = self.radiation(T, q, p_mid, p_half, Ts, t_model)
-        else:
-            rad = {'hr_rad': self._to_cols(aux['hr_rad']),
-                   'sfc_rad': aux['sfc_rad'].reshape(-1),
-                   'olr': aux['olr'].reshape(-1),
-                   'asr': aux['asr'].reshape(-1)}
-        hr_rad = rad['hr_rad']
-        net_sfc_rad = rad['sfc_rad']
+            # radiation on a lagged cadence
+            if step_idx % self.rad_every == 0:
+                t_model = torch.tensor(step_idx, dtype=T.dtype,
+                                       device=T.device) * dt
+                rad = self.radiation(T, q, p_mid, p_half, Ts, t_model)
+            else:
+                rad = {'hr_rad': self._to_cols(aux['hr_rad']),
+                       'sfc_rad': aux['sfc_rad'].reshape(-1),
+                       'olr': aux['olr'].reshape(-1),
+                       'asr': aux['asr'].reshape(-1)}
+            hr_rad = rad['hr_rad']
+            net_sfc_rad = rad['sfc_rad']
 
-        # surface fluxes + boundary layer
-        qsurf = torch.zeros_like(ps)
-        T2, q2, u2, v2, precip_ls, shf, lhf = simple_physics_step(
-            T, q, u, v, p_mid, p_half, ps, Ts, qsurf, dt,
-            _G, _CPD, _RD, _RV, _LV, 1000.0,
-            85000.0, 20000.0, 0.0011, 0.0007, 0.000065, 0.002,
-            True, True, True, False)
-        lhf = torch.clamp(lhf, min=0.0)
-        du_sp = (u2 - u) / dt
-        dv_sp = (v2 - v) / dt
-        dT_sp = (T2 - T) / dt
-        dq_sp = (q2 - q) / dt
+            # surface fluxes + boundary layer
+            qsurf = torch.zeros_like(ps)
+            T2, q2, u2, v2, precip_ls, shf, lhf = simple_physics_step(
+                T, q, u, v, p_mid, p_half, ps, Ts, qsurf, dt,
+                _G, _CPD, _RD, _RV, _LV, 1000.0,
+                85000.0, 20000.0, 0.0011, 0.0007, 0.000065, 0.002,
+                True, True, True, False)
+            lhf = torch.clamp(lhf, min=0.0)
+            du_sp = (u2 - u) / dt
+            dv_sp = (v2 - v) / dt
+            dT_sp = (T2 - T) / dt
+            dq_sp = (q2 - q) / dt
 
-        # Emanuel convection
-        qs = bolton_q_sat(T, p_mid, _RD, _RV)
-        conv = emanuel_convect(
-            T.T, q.T, qs.T, u.T, v.T, (p_mid / 100.0).T,
-            (p_half / 100.0).T, cbmf, dt, nz - 3, self.em_params)
+            # Emanuel convection
+            qs = bolton_q_sat(T, p_mid, _RD, _RV)
+            with phase('climt.convection'):
+                conv = emanuel_convect(
+                    T.T, q.T, qs.T, u.T, v.T, (p_mid / 100.0).T,
+                    (p_half / 100.0).T, cbmf, dt, nz - 3, self.em_params)
 
-        du = du_sp + conv['fu'].T
-        dv = dv_sp + conv['fv'].T
-        dT = dT_sp + hr_rad + conv['ft'].T
-        dq = dq_sp + conv['fq'].T
+            du = du_sp + conv['fu'].T
+            dv = dv_sp + conv['fv'].T
+            dT = dT_sp + hr_rad + conv['ft'].T
+            dq = dq_sp + conv['fq'].T
 
-        # slab ocean
-        net_sfc = net_sfc_rad - shf - lhf
-        heat_capacity = 1.029e3 * 4.1813e3 * self.ocean_depth
-        Ts_new = Ts + dt * net_sfc / heat_capacity
+            # slab ocean
+            net_sfc = net_sfc_rad - shf - lhf
+            heat_capacity = 1.029e3 * 4.1813e3 * self.ocean_depth
+            Ts_new = Ts + dt * net_sfc / heat_capacity
 
-        aux_new = {
-            'Ts': Ts_new.reshape(nlat, nlon),
-            'cbmf': conv['cbmf'].reshape(nlat, nlon),
-            'hr_rad': self._to_grid3(hr_rad),
-            'sfc_rad': net_sfc_rad.reshape(nlat, nlon),
-            'olr': rad['olr'].reshape(nlat, nlon),
-            'asr': rad['asr'].reshape(nlat, nlon),
-        }
-        diag = {
-            'olr': rad['olr'].reshape(nlat, nlon),
-            'asr': rad['asr'].reshape(nlat, nlon),
-            'conv_precip': conv['precip'].reshape(nlat, nlon),
-            'ls_precip': precip_ls.reshape(nlat, nlon),
-            'shf': shf.reshape(nlat, nlon),
-            'lhf': lhf.reshape(nlat, nlon),
-        }
-        phys = {'du': self._to_grid3(du), 'dv': self._to_grid3(dv),
-                'dT': self._to_grid3(dT), 'dq': self._to_grid3(dq)}
-        return phys, aux_new, diag
+            aux_new = {
+                'Ts': Ts_new.reshape(nlat, nlon),
+                'cbmf': conv['cbmf'].reshape(nlat, nlon),
+                'hr_rad': self._to_grid3(hr_rad),
+                'sfc_rad': net_sfc_rad.reshape(nlat, nlon),
+                'olr': rad['olr'].reshape(nlat, nlon),
+                'asr': rad['asr'].reshape(nlat, nlon),
+            }
+            diag = {
+                'olr': rad['olr'].reshape(nlat, nlon),
+                'asr': rad['asr'].reshape(nlat, nlon),
+                'conv_precip': conv['precip'].reshape(nlat, nlon),
+                'ls_precip': precip_ls.reshape(nlat, nlon),
+                'shf': shf.reshape(nlat, nlon),
+                'lhf': lhf.reshape(nlat, nlon),
+            }
+            phys = {'du': self._to_grid3(du), 'dv': self._to_grid3(dv),
+                    'dT': self._to_grid3(dT), 'dq': self._to_grid3(dq)}
+            return phys, aux_new, diag
 
     # ------------------------------------------------------------------
     def init(self, seed=0):
@@ -337,25 +341,26 @@ class MoistGCM(nn.Module):
         """Global multiplicative moisture mass fixer (moist_gcm.py:378),
         on spectral q or, in the 'sl' mode, on grid q (the 'fv' mode is
         conservative and never calls it)."""
-        sht = self.dycore.sht
-        q_prev = self.dycore._q_grid(prev)
-        ps_prev = torch.exp(sht.synthesize(prev['lnps']))
-        ph_prev, _, _, _ = self.dycore._vertical_structures(ps_prev)
-        dp_prev = ph_prev[1:] - ph_prev[:-1]
-        q_new = self.dycore._q_grid(new)
-        ps_new = torch.exp(sht.synthesize(new['lnps']))
-        ph_new, _, _, _ = self.dycore._vertical_structures(ps_new)
-        q_pos = torch.clamp(q_new, min=0.0)
-        # the three sums of _total_water's form, one reduction under a mesh
-        src, tw_prev, tw_new = sht.global_sums(
-            self.wlat * phys['dq'] * dp_prev, self.wlat * q_prev * dp_prev,
-            self.wlat * q_pos * (ph_new[1:] - ph_new[:-1]))
-        target = tw_prev + 2.0 * self.dt * src
-        scale = torch.where(tw_new > 0.0,
-                            torch.clamp(target, min=0.0) / tw_new, 1.0)
-        q_fixed = q_pos * scale
-        return dict(new, q=q_fixed if self.dycore.fv is not None
-                    else sht.analyze(q_fixed))
+        with phase('climt.fixer'):
+            sht = self.dycore.sht
+            q_prev = self.dycore._q_grid(prev)
+            ps_prev = torch.exp(sht.synthesize(prev['lnps']))
+            ph_prev, _, _, _ = self.dycore._vertical_structures(ps_prev)
+            dp_prev = ph_prev[1:] - ph_prev[:-1]
+            q_new = self.dycore._q_grid(new)
+            ps_new = torch.exp(sht.synthesize(new['lnps']))
+            ph_new, _, _, _ = self.dycore._vertical_structures(ps_new)
+            q_pos = torch.clamp(q_new, min=0.0)
+            # the three sums of _total_water's form, one reduction under a mesh
+            src, tw_prev, tw_new = sht.global_sums(
+                self.wlat * phys['dq'] * dp_prev, self.wlat * q_prev * dp_prev,
+                self.wlat * q_pos * (ph_new[1:] - ph_new[:-1]))
+            target = tw_prev + 2.0 * self.dt * src
+            scale = torch.where(tw_new > 0.0,
+                                torch.clamp(target, min=0.0) / tw_new, 1.0)
+            q_fixed = q_pos * scale
+            return dict(new, q=q_fixed if self.dycore.fv is not None
+                        else sht.analyze(q_fixed))
 
     def _layout_twin(self, carry):
         """The rank-local twin of this model for a DTensor carry's mesh and
@@ -378,14 +383,17 @@ class MoistGCM(nn.Module):
         """One model step: carry -> (carry, diagnostics) (:404).  A carry
         of ``shard_model_state`` is stepped by the rank-local twin and
         comes back in its layout, the diagnostics as grid fields."""
-        if carry_layout(carry) is not None:
-            return self._run_placed(carry, 1)
-        prev, now, prev_grids, aux, k = carry
-        phys, aux_new, diag = self.physics(prev_grids, aux, k)
-        filtered, new, now_grids = self.dycore.step(prev, now, phys=phys)
-        if self.conserve_water:
-            new = self._fix_water(new, prev, phys)
-        return (filtered, new, now_grids, aux_new, k + 1), diag
+        with phase('climt.step'):
+            if carry_layout(carry) is not None:
+                return self._run_placed(carry, 1)
+            prev, now, prev_grids, aux, k = carry
+            phys, aux_new, diag = self.physics(prev_grids, aux, k)
+            with phase('climt.dynamics'):
+                filtered, new, now_grids = self.dycore.step(prev, now,
+                                                            phys=phys)
+            if self.conserve_water:
+                new = self._fix_water(new, prev, phys)
+            return (filtered, new, now_grids, aux_new, k + 1), diag
 
     def run(self, carry, n_steps):
         """n_steps model steps; returns (carry, last diagnostics) (:412)."""

@@ -34,6 +34,7 @@ import torch.distributed as dist
 from torch import nn
 
 from ..core.util import resolve_device
+from ..utils.profiling import phase
 
 
 def _mc_slope(qm, q0, qp):
@@ -243,9 +244,10 @@ class FVAdvection(nn.Module):
 
         q (..., nz, nlat, nlon); dp, u, v (nz, nlat, nlon); mdot (nz-1,
         nlat, nlon).  Returns the transported mixing ratio, q's shape."""
-        q, dp = self._zonal(q, dp, u, dt)
-        q, dp = self._meridional(q, dp, v, dt)
-        q, _ = self._vertical(q, dp, mdot, dt)
+        with phase('climt.transport'):
+            q, dp = self._zonal(q, dp, u, dt)
+            q, dp = self._meridional(q, dp, v, dt)
+            q, _ = self._vertical(q, dp, mdot, dt)
         return q
 
     def total_mass(self, q, dp):

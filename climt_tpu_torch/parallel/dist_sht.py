@@ -33,6 +33,7 @@ from torch import nn
 from torch.distributed.tensor import Replicate, Shard
 
 from ..ops.sht import DFT_BUFFERS, SphericalHarmonicTransform
+from ..utils.profiling import phase
 from .rep_sht import all_gather_cat, all_reduce_sum
 
 
@@ -42,12 +43,13 @@ def transpose(x, group):
     it.  Counts its calls in ``transpose.calls`` and the bytes it hands to
     the collective (the rank's own chunk included) in
     ``transpose.bytes``."""
-    xr = torch.view_as_real(x.contiguous())
-    out = torch.empty_like(xr)
-    dist.all_to_all_single(out, xr, group=group)
-    transpose.calls += 1
-    transpose.bytes += xr.numel() * xr.element_size()
-    return torch.view_as_complex(out)
+    with phase('climt.collective'):
+        xr = torch.view_as_real(x.contiguous())
+        out = torch.empty_like(xr)
+        dist.all_to_all_single(out, xr, group=group)
+        transpose.calls += 1
+        transpose.bytes += xr.numel() * xr.element_size()
+        return torch.view_as_complex(out)
 
 
 transpose.calls = transpose.bytes = 0

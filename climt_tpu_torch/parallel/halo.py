@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import phase
+
 
 class LatHalo:
     """halo(x, shift) on one rank's latitude block; counts its calls in
@@ -40,27 +42,28 @@ class LatHalo:
                       else None)
 
     def __call__(self, x, shift):
-        LatHalo.calls += 1
-        if shift == +1:       # row j <- row j-1: last rows travel south
-            send, to, frm = x[..., -1:, :], self.south, self.north
-        elif shift == -1:     # row j <- row j+1: first rows travel north
-            send, to, frm = x[..., :1, :], self.north, self.south
-        else:
-            raise ValueError('shift %r: expected +1 or -1' % (shift,))
-        send = send.contiguous()
-        recv = torch.zeros_like(send)
-        ops = []
-        if to is not None:
-            ops.append(dist.P2POp(dist.isend, send, to, self.group))
-            LatHalo.bytes += send.numel() * send.element_size()
-        if frm is not None:
-            ops.append(dist.P2POp(dist.irecv, recv, frm, self.group))
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
-        if shift == +1:
-            return torch.cat([recv, x[..., :-1, :]], dim=-2)
-        return torch.cat([x[..., 1:, :], recv], dim=-2)
+        with phase('climt.collective'):
+            LatHalo.calls += 1
+            if shift == +1:       # row j <- row j-1: last rows travel south
+                send, to, frm = x[..., -1:, :], self.south, self.north
+            elif shift == -1:     # row j <- row j+1: first rows travel north
+                send, to, frm = x[..., :1, :], self.north, self.south
+            else:
+                raise ValueError('shift %r: expected +1 or -1' % (shift,))
+            send = send.contiguous()
+            recv = torch.zeros_like(send)
+            ops = []
+            if to is not None:
+                ops.append(dist.P2POp(dist.isend, send, to, self.group))
+                LatHalo.bytes += send.numel() * send.element_size()
+            if frm is not None:
+                ops.append(dist.P2POp(dist.irecv, recv, frm, self.group))
+            if ops:
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
+            if shift == +1:
+                return torch.cat([recv, x[..., :-1, :]], dim=-2)
+            return torch.cat([x[..., 1:, :], recv], dim=-2)
 
 
 def make_lat_halo(mesh, axis='lat'):

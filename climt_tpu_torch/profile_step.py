@@ -18,9 +18,16 @@ builds it with ``mesh=`` (moist models only), ``replicated`` and
 with ``shard_model_state`` (``shard_lon`` False and True).
 For each traced step it prints the wall time, the summed kernel time, the
 device busy share (kernel time over wall time: one stream, so kernels do
-not overlap), the number of kernel launches, the collectives (all_to_all
-transposes, all_reduce and all_gather calls) and the kernels that take
-the most device time.  Wall times include the profiler's own overhead.
+not overlap), the number of kernel launches, the collectives (calls and
+bytes of the all_to_all transposes, the latitude halo, the all_reduce
+and all_gather calls) and the kernels that take the most device time;
+then one row per layer: the innermost program span (``climt.*``, see
+``utils.profiling.phase``) over each instant of the host's work, its
+host self ms, and the kernel launches and device ms of the operations
+launched inside it (each kernel is tied to the operation that launched
+it, so these device times are exact; launches the profile ties to no
+operation get a row of their own).  Wall times include the profiler's
+own overhead.
 """
 
 from __future__ import annotations
@@ -37,24 +44,30 @@ from torch.profiler import ProfilerActivity, profile
 
 from .dycore.compiled import build_held_suarez_model
 from .dycore.moist_gcm import build_moist_gcm
-from .parallel import (dist_sht, initialize_distributed, make_mesh, rep_sht,
-                       shard_model_state)
+from .parallel import (dist_sht, halo, initialize_distributed, make_mesh,
+                       rep_sht, shard_model_state)
 
 # the moist GCM's moisture transport of each --model
 MOISTURE = {'moist': 'spectral', 'moist_fv': 'fv', 'moist_sl': 'sl'}
 LAYOUTS = ('single', 'm_sharded', 'replicated', 'replicated_lon')
 
 
+# the program's collectives, each counting its calls and bytes
+COLLECTIVES = {'all_to_all': dist_sht.transpose, 'halo': halo.LatHalo,
+               'all_reduce': rep_sht.all_reduce_sum,
+               'all_gather': rep_sht.all_gather_cat}
+SPAN = 'climt.'
+NO_SPAN = '(no program span)'
+
+
 def reset_collectives():
-    dist_sht.transpose.calls = 0
-    rep_sht.all_reduce_sum.calls = rep_sht.all_gather_cat.calls = 0
+    for counter in COLLECTIVES.values():
+        counter.calls = counter.bytes = 0
 
 
 def collectives():
-    """(all_to_all transposes, all_reduce calls, all_gather calls) since
-    ``reset_collectives``."""
-    return (dist_sht.transpose.calls, rep_sht.all_reduce_sum.calls,
-            rep_sht.all_gather_cat.calls)
+    """{collective: (calls, bytes)} since ``reset_collectives``."""
+    return {name: (c.calls, c.bytes) for name, c in COLLECTIVES.items()}
 
 
 @contextlib.contextmanager
@@ -71,9 +84,49 @@ def world_of_one(device='cuda'):
             dist.destroy_process_group()
 
 
+def _annotation(e):
+    """A span's mark on the device's timeline: no operation."""
+    return (getattr(e, 'is_user_annotation', False)
+            or 'annotation' in str(getattr(e, 'activity_type', '')).lower())
+
+
 def _kernel_events(prof):
     return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not _annotation(e)]
+
+
+def _span_of(e):
+    """The innermost program span around host event e (e itself if it is
+    one), or None."""
+    while e is not None and not e.name.startswith(SPAN):
+        e = e.cpu_parent
+    return e
+
+
+def layers(prof):
+    """{innermost program span: [spans, host self ms, kernel launches,
+    device ms]} of a profile; the host's self ms is a span's length less
+    that of the program spans nested in it."""
+    out = {}
+    host = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    for e in host:
+        if e.name.startswith(SPAN):
+            row = out.setdefault(e.name, [0, 0.0, 0, 0.0])
+            row[0] += 1
+            row[1] += e.time_range.elapsed_us() / 1e3
+            outer = _span_of(e.cpu_parent)
+            if outer is not None:
+                out.setdefault(outer.name, [0, 0.0, 0, 0.0])[1] -= (
+                    e.time_range.elapsed_us() / 1e3)
+        if getattr(e, 'kernels', None):
+            span = _span_of(e)
+            row = out.setdefault(span.name if span else NO_SPAN,
+                                 [0, 0.0, 0, 0.0])
+            row[2] += len(e.kernels)
+            row[3] += sum(k.duration for k in e.kernels) / 1e3
+    return out
 
 
 def _build(model, dev, layout='single', mesh=None):
@@ -100,9 +153,8 @@ def _build(model, dev, layout='single', mesh=None):
     return step_fn, carry, warm, labels
 
 
-def profile_one(step_fn, carry):
-    """One traced step: (carry, wall s, kernel s, kernel launches, {kernel
-    name: (ms, launches)})."""
+def traced_step(step_fn, carry):
+    """One traced step: (carry, wall s, the profile)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -110,13 +162,25 @@ def profile_one(step_fn, carry):
         carry, _ = step_fn(carry, None)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return carry, wall, prof
+
+
+def kernel_summary(prof):
+    """(kernel s, kernel launches, {kernel name: (ms, launches)})."""
     kernels = _kernel_events(prof)
     busy = sum(e.device_time_total for e in kernels) / 1e6   # us -> s
     by_name = {}
     for e in kernels:
         tot, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + e.device_time_total / 1e3, n + 1)
-    return carry, wall, busy, len(kernels), by_name
+    return busy, len(kernels), by_name
+
+
+def profile_one(step_fn, carry):
+    """One traced step: (carry, wall s, kernel s, kernel launches, {kernel
+    name: (ms, launches)})."""
+    carry, wall, prof = traced_step(step_fn, carry)
+    return (carry, wall) + kernel_summary(prof)
 
 
 def main(argv=None):
@@ -142,16 +206,29 @@ def main(argv=None):
         torch.cuda.synchronize()
         for label in labels:
             reset_collectives()
-            carry, wall, busy, launches, by_name = profile_one(step_fn,
-                                                               carry)
+            carry, wall, prof = traced_step(step_fn, carry)
+            busy, launches, by_name = kernel_summary(prof)
             print('%s, layout %s, on %s: wall %.4f s, kernel time %.4f s, '
                   'device busy %.1f%%, %d kernel launches, collectives '
-                  '(all_to_all, all_reduce, all_gather) %s' % (
+                  '(calls, bytes) %s' % (
                       label, args.layout, card, wall, busy,
                       100.0 * busy / wall, launches, collectives()))
             for name, (ms, n) in sorted(by_name.items(),
                                         key=lambda kv: -kv[1][0])[:15]:
                 print('    %9.3f ms %6d x  %s' % (ms, n, name[:100]))
+            print('    %-20s %6s %12s %9s %10s' % (
+                'innermost span', 'spans', 'host self ms', 'launches',
+                'device ms'))
+            rows = layers(prof)
+            for name, (n, host_ms, k, dev_ms) in sorted(
+                    rows.items(), key=lambda kv: -kv[1][1]):
+                print('    %-20s %6d %12.3f %9d %10.3f' % (
+                    name, n, host_ms, k, dev_ms))
+            # launches that the profile ties to no host operation
+            print('    %-20s %6s %12s %9d %10.3f' % (
+                '(tied to no op)', '', '',
+                launches - sum(r[2] for r in rows.values()),
+                1e3 * busy - sum(r[3] for r in rows.values())))
 
 
 if __name__ == '__main__':

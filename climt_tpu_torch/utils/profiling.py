@@ -11,11 +11,41 @@ import time
 import torch
 
 
+# what ``phase`` returns while no profiler runs: one shared no-op
+_NO_SPAN = contextlib.nullcontext()
+
+
 def phase(name):
-    """A named span (``torch.profiler.record_function``): it shows up in
-    ``trace``'s Chrome trace and in any active ``torch.profiler``
-    profile."""
-    return torch.profiler.record_function(name)
+    """A named span (``torch.profiler.record_function``) while a
+    ``torch.profiler`` profile is active: it shows up in ``trace``'s
+    Chrome trace and in the profile's host events, on the device trace's
+    clock.  Otherwise a shared no-op context, so an untraced step pays one
+    flag check a span.  A span launches no kernel, makes no tensor and
+    never synchronizes.
+
+    The program's spans (span: where; layer):
+
+    - ``climt.step``: ``MoistGCM.step``, its whole body; model step
+    - ``climt.physics``: ``MoistGCM.physics``; column physics
+    - ``climt.convection``: its ``emanuel_convect`` call; column physics
+    - ``climt.radiation``: ``MoistGCM.radiation``, refresh steps only,
+      inside ``climt.physics``; radiation
+    - ``climt.gas_optics``: ``gas_coefs_lw`` + ``taumol_lw`` in
+      ``rrtmg_lw_fluxes``, ``gas_coefs_sw`` + ``taumol_sw`` in
+      ``rrtmg_sw_fluxes`` (kernel B's launches); gas optics
+    - ``climt.lw_sweep``: ``rtrn_lw`` in ``rrtmg_lw_fluxes`` (kernel A);
+      LW flux sweep
+    - ``climt.sw_solver``: ``spcvrt_sw``/``spcvmc_sw`` in
+      ``rrtmg_sw_fluxes``; SW solver
+    - ``climt.dynamics``: ``dycore.step`` in ``MoistGCM.step``; dynamics
+    - ``climt.transport``: ``FVAdvection.advect``; transport
+    - ``climt.fixer``: ``MoistGCM._fix_water``; dynamics
+    - ``climt.collective``: ``dist_sht.transpose``, ``halo.LatHalo``,
+      ``rep_sht.all_reduce_sum``, ``rep_sht.all_gather_cat``; collectives
+    """
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
