@@ -21,8 +21,9 @@ Phases, each of which fails loudly (no exception is turned into exit 0):
      same model on the CPU (plain versions);
   6. the moist GCM at T85 (256x128x28, dt 600 s, rad_every=6,
      rad_col_chunk=8192), 12 steps through build_moist_gcm's step_fn,
-     with both kernels' launch counts read around that run: it fails if a
-     radiation refresh launches kernel B more than 40 times;
+     with the kernels' launch counts read around that run: it fails if a
+     radiation refresh launches kernel B more than 40 times, or if a step
+     does not launch the convection kernel exactly once;
   7. standalone LW+SW radiation at nz=60, ncol=8192, in columns/s;
   8. the fused Held-Suarez model at bench.py's T42 (128x64x28, f32, dt
      600 s), 1000 steps after one warm-up step, in s/step and
@@ -205,11 +206,19 @@ Phases, each of which fails loudly (no exception is turned into exit 0):
      them and, from one traced refresh and one plain step, the NCCL
      kernels' share of the device time and their overlap with other
      kernels, beside each card's name and power limit.  On one card it
-     prints that it needs 2 or more cards and does not fail.
+     prints that it needs 2 or more cards and does not fail;
+ 29. (run after phase 6) the convection kernel (csrc/emanuel.cu) on the
+     emanuel_convect calls of the moist GCM: at T85 float32 after 6 and
+     36 steps, and at 32x16x10 float64 at the start and after 6 steps;
+     one launch a call by its counter and by the profiler, iflag equal on
+     99.9% of the columns, every output within CONVECTION_TOL of max of
+     the plain version's, and the kernel's time beside its bound
+     (EMANUEL_OPS) and the plain version's.
 The examples run through tests/torch_helpers.py:port_example, which the
 CPU tests use too.
 The line before the last is a JSON object with each kernel's launches
-(the backward's float32 entry counts (a)'s taumol gradient),
+(the backward's float32 entry counts (a)'s taumol gradient, the
+convection kernel's phase 6's steps),
 error, time, bound, plain and library times; the last line is
 {"ok": true, "device": {...}}.
 It imports neither jax nor climt_tpu.
@@ -242,6 +251,30 @@ FP64_OPS_PER_S = 34e12
 # (about 6), twice, plus the exp
 RTRN_OPS_PER_POINT = 80
 B_LAUNCHES_PER_REFRESH_MAX = 40
+# phase 29: the kernel keeps the plain version's arithmetic operation by
+# operation; only its sums over levels (the cloud-base buoyancy, the
+# mixing-rate and weight normalisations, the entrained fluxes, amp1 and
+# ad, the conservation fix) run in another order, a few ulps of each sum
+# that the fluxes' cancellations can raise to some hundred ulps of the
+# largest value
+CONVECTION_TOL = {'float32': 2e-5, 'float64': 1e-12}
+# operations of the convection kernel (csrc/emanuel.cu), counted from its
+# body: each floating-point add, subtract, multiply, division, comparison,
+# min, max, abs, sqrt, exp, log and pow is one operation; a level
+# recurrence, run by every lane on shuffled values, counts once per level,
+# and a warp sum as the adds of one lane; a branch taken only on some
+# cells (pass 1's second try of sij, the downdraft's surface ramp) is left
+# out, so this is a floor.  Every column: 151 per level (profiles 31,
+# lifted parcel and its two Newton steps 91, efficiencies, CAPE and the
+# closure 23, the three level searches 6) and 70 per column (LCL, the
+# parcel's origin values, the closure).  A convecting column besides: 250
+# per level (mixing rates, scrit and bf2 43, the downdraft 81, tendencies,
+# the spread at inb and the conservation fix 126), 86 per (i, j) cell of
+# the mixing matrix (pass 1 23, pass 2 21, pass 3 9, pass 4 30 with its
+# five sums over i, amp1 and ad 3), 7 more per cell above the diagonal
+# (the unsaturated-descent water) and 91 per column
+EMANUEL_OPS = dict(level=151, column=70, active_level=250, cell=86,
+                   upper_cell=7, active_column=91)
 T42 = dict(nlon=128, nlat=64, nz=28, timestep=600.0)
 T42_STEPS = 1000
 # phase 10: 8 calls of the component API at 32x16x10, GPU float64 against
@@ -3200,6 +3233,121 @@ def check_close(a, b, tol, label):
     return ratio
 
 
+def convection_inputs(size, dtype, calls, dev):
+    """The emanuel_convect arguments of the moist GCM's convection calls
+    whose 0-based indices are ``calls`` (call n steps from the state after
+    n steps), from its seed-0 start."""
+    import torch
+    from climt_tpu_torch.dycore import moist_gcm
+
+    real = moist_gcm.emanuel_convect
+    captured, count = {}, [0]
+
+    def spy(*args):
+        if count[0] in calls:
+            captured[count[0]] = tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args)
+        count[0] += 1
+        return real(*args)
+
+    moist_gcm.emanuel_convect = spy
+    try:
+        _, init_fn, _, run_fn = moist_gcm.build_moist_gcm(
+            dtype=dtype, device=dev, **size)
+        run_fn(init_fn(0), max(calls) + 1)
+    finally:
+        moist_gcm.emanuel_convect = real
+    return [captured[n] for n in calls]
+
+
+def convection_case(label, args, card, torch):
+    """Phase 29 for one call: the kernel against the plain version."""
+    from climt_tpu_torch.components import emanuel_convection as E
+
+    T = args[0]
+    ncol, nz = T.shape
+    dtype = str(T.dtype).replace('torch.', '')
+    before = E.emanuel_convect_cuda.launches
+    out = E.emanuel_convect(*args)
+    torch.cuda.synchronize()
+    if E.emanuel_convect_cuda.launches != before + 1:
+        fail('%s: emanuel_convect made %d kernel launches, not 1' % (
+            label, E.emanuel_convect_cuda.launches - before))
+    n_dev = device_launches(lambda: E.emanuel_convect(*args), torch)
+    if n_dev != 1:
+        fail('%s: emanuel_convect made %d device operations, not 1' % (
+            label, n_dev))
+    ref = E.emanuel_convect_plain(*args)
+    active = int((ref['iflag'] > 0).sum())
+    with_flux = int((ref['cbmf'] != 0).sum())
+    if active == 0 or with_flux == 0:
+        fail('%s: %d columns convect and %d have a cloud-base mass flux: '
+             'the check has no teeth' % (label, active, with_flux))
+    flips = int((out['iflag'] != ref['iflag']).sum())
+    if flips > 0.001 * ncol:
+        fail('%s: iflag differs on %d of %d columns' % (label, flips, ncol))
+    same = torch.ones(ncol, dtype=torch.bool, device=T.device)
+    errs, worst = {}, 0.0
+    for key in ('ft', 'fq', 'fu', 'fv', 'precip', 'wd', 'tprime', 'qprime',
+                'cbmf', 'cape'):
+        a, b = out[key], ref[key]
+        if not bool(torch.isfinite(a).all()):
+            fail('%s: non-finite %s' % (label, key))
+        err, scale = max_rel_err(a, b)
+        rel = err / scale if scale > 0 else err
+        errs[key] = rel
+        worst = max(worst, rel)
+        eq = a == b
+        same &= eq.all(dim=1) if eq.dim() == 2 else eq
+        if not rel <= CONVECTION_TOL[dtype]:
+            fail('%s: %s differs by %.3g of its largest value %.3g > %g'
+                 % (label, key, rel, scale, CONVECTION_TOL[dtype]))
+    ms = cuda_median_ms(lambda: E.emanuel_convect(*args), 20, torch)
+    plain_ms = cuda_median_ms(lambda: E.emanuel_convect_plain(*args), 5,
+                              torch)
+    size = T.element_size()
+    # in: T, q, qs, u, v, p, ph and cbmf; out: the four tendencies, six
+    # column values and the int64 iflag
+    nbytes = ncol * ((7 * nz + 2) * size + (4 * nz + 6) * size + 8)
+    cost = EMANUEL_OPS
+    ops = (ncol * (cost['level'] * nz + cost['column'])
+           + active * (cost['active_level'] * nz + cost['cell'] * nz * nz
+                       + cost['upper_cell'] * nz * (nz - 1) // 2
+                       + cost['active_column']))
+    bound_ms, bound_by = bound(nbytes, ops, FP32_OPS_PER_S if dtype ==
+                               'float32' else FP64_OPS_PER_S)
+    phase(29, '%s (%d x %d %s): %d convecting, iflag differs on %d '
+          'columns, %d of %d columns bit for bit; largest error of max: %s;'
+          ' kernel %.4f ms (bound %.4f ms by %s, %.0f%%), plain %.2f ms; '
+          'on %s' % (label, ncol, nz, dtype, active, flips,
+                     int(same.sum()), ncol, ', '.join(
+                         '%s %.2g' % kv for kv in errs.items()),
+                     ms, bound_ms, bound_by, 100.0 * bound_ms / ms,
+                     plain_ms, card))
+    return dict(max_rel_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def convection_phase(dev, card):
+    """Phase 29: the convection kernel on the T85 GCM's columns (float32)
+    and on the 32x16x10 float64 GCM's; returns the kernel lines' records
+    (the T85 call last, the main path's shape)."""
+    import torch
+
+    small = dict(nlon=32, nlat=16, nz=10, rad_col_chunk=128)
+    recs = {}
+    for n, args in zip((0, 6), convection_inputs(small, torch.float64,
+                                                  (0, 6), dev)):
+        recs['float64'] = convection_case(
+            '32x16x10 after %d steps' % n, args, card, torch)
+    for n, args in zip((6, 36), convection_inputs(T85, torch.float32,
+                                                  (6, 36), dev)):
+        recs['float32'] = convection_case(
+            'T85 after %d steps' % n, args, card, torch)
+    torch.cuda.empty_cache()
+    return recs
+
+
 def max_rel_err(a, b):
     """max |a - b| and the scale max |b| of two tensors."""
     return float((a - b).abs().max()), float(b.abs().max())
@@ -3231,6 +3379,7 @@ def main():
     f32 = torch.float32
 
     from climt_tpu_torch import _build
+    from climt_tpu_torch.components import emanuel_convection as E
     from climt_tpu_torch.components.rrtmg import fused_mix, rtrn_kernel
     from climt_tpu_torch.components.rrtmg import lw_spectral as LW
     from climt_tpu_torch.components.rrtmg import sw_spectral as SW
@@ -3349,6 +3498,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     fused_mix.mix_groups_cuda.launches = 0
     rtrn_kernel.rtrn_lw_cuda.launches = 0
+    E.emanuel_convect_cuda.launches = 0
     step_s = []
     diag = None
     for _ in range(T85_STEPS):
@@ -3357,7 +3507,8 @@ def main():
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     launches = {'B': fused_mix.mix_groups_cuda.launches,
-                'A': rtrn_kernel.rtrn_lw_cuda.launches}
+                'A': rtrn_kernel.rtrn_lw_cuda.launches,
+                'convection': E.emanuel_convect_cuda.launches}
     refreshes = sum(1 for k in range(T85_STEPS) if k % T85['rad_every'] == 0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     T_grid = dycore.sht.synthesize(carry[1]['T'])
@@ -3370,6 +3521,9 @@ def main():
             float(T_grid.min()), float(T_grid.max())))
     if not (launches['A'] > 0 and launches['B'] > 0):
         fail('T85 run did not go through both kernels: %s' % launches)
+    if launches['convection'] != T85_STEPS:
+        fail('T85: the convection kernel launched %d times in %d steps, '
+             'not once a step' % (launches['convection'], T85_STEPS))
     if launches['B'] > B_LAUNCHES_PER_REFRESH_MAX * refreshes:
         fail('T85: kernel B launched %d times in %d radiation refreshes, '
              'more than %d each' % (launches['B'], refreshes,
@@ -3384,11 +3538,12 @@ def main():
     phase(6, 'T85 %d steps on %s: step s %s' % (
         T85_STEPS, card, ' '.join('%.4f' % s for s in step_s)))
     phase(6, 'T85: %.4f s/step, %.4g gridpoint-steps/s; radiation steps '
-          '%s s, others %.4f s; peak memory %.2f GB; launches A=%d B=%d; '
-          'T in [%.1f, %.1f] K; on %s' % (
+          '%s s, others %.4f s; peak memory %.2f GB; launches A=%d B=%d '
+          'convection=%d; T in [%.1f, %.1f] K; on %s' % (
               mean_s, gps, ' '.join('%.4f' % s for s in rad_steps),
               sum(other) / len(other), peak_gb, launches['A'],
-              launches['B'], float(T_grid.min()), float(T_grid.max()), card))
+              launches['B'], launches['convection'], float(T_grid.min()),
+              float(T_grid.max()), card))
 
     # breakdown of one radiation step (outside the counted run)
     prev, now, grids, aux, k = carry
@@ -3421,6 +3576,9 @@ def main():
               launches['A'] / refreshes, rad_s, card))
     del carry, model, grids, aux, prev, now, phys
     torch.cuda.empty_cache()
+
+    # ---- phase 29: the convection kernel on phase 6's model's columns --
+    convection_recs = convection_phase(dev, card)
 
     # ---- phase 7: standalone radiation ---------------------------------
     nz, ncol = 60, 8192
@@ -3604,6 +3762,12 @@ def main():
              **{k: bwd_report['float32'][k] for k in (
                  'launches', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
                  'bound_by', 'library_ms')}),
+        # the convection kernel: phase 6's counted T85 steps (float32), with
+        # phase 29's float64 record beside its float32 one
+        dict(name='emanuel_convect_cuda', route='cuda',
+             source='climt_tpu_torch/csrc/emanuel.cu', replaces=None,
+             launches=launches['convection'], **convection_recs['float32'],
+             float64=convection_recs['float64']),
     ]
     print('chip_smoke: all phases in %.1f s, the nvcc build included'
           % (time.perf_counter() - t_start), flush=True)

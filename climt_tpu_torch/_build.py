@@ -26,6 +26,9 @@ ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
 NVCC_FLAGS = ARCH + ['-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                      '-Xptxas', '-v']
 LIB_NAME = 'libclimt_tpu_torch_kernels.so'
+# flags of one source beside NVCC_FLAGS: emanuel.cu keeps the plain
+# version's roundings, one per operation, so no product and sum may fuse
+SOURCE_FLAGS = {'emanuel.cu': ['-fmad=false']}
 
 # filled by library(): build seconds (0.0 when the cached build was used),
 # the library path and the compiler's log (ptxas register/spill report)
@@ -40,6 +43,8 @@ SIGNATURES = {
     'climt_mix_groups_bwd_f32': [_P, _I, _P, _P, _P, _L, _I, _P, _P, _P],
     'climt_mix_groups_bwd_f64': [_P, _I, _P, _P, _P, _L, _I, _P, _P, _P],
     'climt_rtrn_lw_f32': [_P] * 10 + [_I, _I, _F] + [_P] * 5,
+    'climt_emanuel_f32': [_P, _P, _I, _I, _I, _I, _P],
+    'climt_emanuel_f64': [_P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -58,6 +63,7 @@ def _nvcc():
 
 def _digest(paths):
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for path in paths:
         h.update(os.path.basename(path).encode())
         with open(path, 'rb') as f:
@@ -83,7 +89,8 @@ def library():
         for src in (p for p in srcs if p.endswith('.cu')):
             obj = os.path.join(out_dir, '%s.%s.o' % (
                 os.path.basename(src), tag))
-            cmd = [nvcc] + NVCC_FLAGS + ['-c', '-o', obj, src]
+            cmd = [nvcc] + NVCC_FLAGS + SOURCE_FLAGS.get(
+                os.path.basename(src), []) + ['-c', '-o', obj, src]
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))

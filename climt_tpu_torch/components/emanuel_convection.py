@@ -1,21 +1,29 @@
 """Emanuel-Zivkovic-Rothman buoyancy-sorting convection (v4.3c) on
 tensors (climt_tpu/components/emanuel_convection.py).
 
-The same whole-grid formulation as the JAX module: per-column integer
-levels (nk, icb, inb) are index tensors, level-dependent regions are
-masks, the (level x level) mixing matrix is dense, and the few
-sequential vertical recurrences (minimum-MSE search, running CAPE,
-running SMIN, the precipitating downdraft) are Python loops over levels
-with all columns batched.  Arrays are (ncol, nz), bottom-up.
+``emanuel_convect`` runs the plain version below on CPU tensors and the
+hand-written kernel ``csrc/emanuel.cu`` on CUDA tensors (float32 or
+float64, at most ``MAX_NZ`` levels), one launch a call.
+
+The plain version has the same whole-grid formulation as the JAX module:
+per-column integer levels (nk, icb, inb) are index tensors,
+level-dependent regions are masks, the (level x level) mixing matrix is
+dense, and the few sequential vertical recurrences (minimum-MSE search,
+running CAPE, running SMIN, the precipitating downdraft) are Python loops
+over levels with all columns batched.  Arrays are (ncol, nz), bottom-up.
+The kernel computes the same in one warp a column (see its source note).
 ``EmanuelConvection`` is the climt component over it, computing on its
 ``device``.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from .. import _build
 from ..core.base_components import (ImplicitTendencyComponent,
                                     timestep_seconds)
 from ..core.constants import get_constant
@@ -23,6 +31,13 @@ from ..core.dataarray import as_tensor
 from ..core.util import bolton_q_sat, resolve_device
 
 _EPMAX = 0.999
+# the kernel gives a column's levels one lane each of a warp
+MAX_NZ = 32
+# the kernel's scalar parameters, in the order of csrc/emanuel.cu's Params
+KERNEL_PARAMS = ('cpd', 'cpv', 'cl', 'rv', 'rd', 'lv0', 'g', 'rowl', 'sigd',
+                 'sigs', 'entp', 'elcrit', 'tlcrit', 'omtrain', 'omtsnow',
+                 'coeffr', 'coeffs', 'cu', 'beta', 'dtmax', 'alpha', 'damp',
+                 'delt0')
 
 
 def _take_level(arr, idx):
@@ -88,12 +103,94 @@ def lifted_parcel(T, q, qs, p, gz, nk, icb, nl0, params):
 
 
 def emanuel_convect(T, q, qs, u, v, p, ph, cbmf_in, dt, nl, params):
-    """One call of the scheme over all columns (:125).
+    """One call of the scheme over all columns (:125): the plain version
+    for CPU tensors, the kernel (``emanuel_convect_cuda``) for CUDA
+    tensors, which takes 4 to ``MAX_NZ`` levels, has no backward and
+    refuses inputs that require grad.
 
     T, q, qs, u, v, p: (ncol, nz) bottom-up, p and ph (ncol, nz+1) in mb;
     cbmf_in (ncol,); nl the highest convecting level (Fortran count).
     Returns dict with ft, fq, fu, fv, precip, wd, tprime, qprime, cbmf,
     cape, iflag."""
+    if T.device.type == 'cpu':
+        return emanuel_convect_plain(T, q, qs, u, v, p, ph, cbmf_in, dt, nl,
+                                     params)
+    return emanuel_convect_cuda(T, q, qs, u, v, p, ph, cbmf_in, dt, nl,
+                                params)
+
+
+def emanuel_convect_cuda(T, q, qs, u, v, p, ph, cbmf_in, dt, nl, params):
+    """Launch csrc/emanuel.cu once for all columns.  Arguments and outputs
+    as ``emanuel_convect``; any strides (the moist GCM passes transposed
+    (nz, ncol) fields); float32 or float64, all on one CUDA device.  The
+    level outputs take T's layout."""
+    args = (T, q, qs, u, v, p, ph, cbmf_in)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        raise NotImplementedError(
+            'emanuel_convect_cuda has no backward: convection on the card '
+            'cannot be differentiated; run it on the CPU')
+    dtype = T.dtype
+    if dtype not in (torch.float32, torch.float64) or any(
+            a.dtype != dtype for a in args):
+        raise TypeError('emanuel_convect_cuda takes float32 or float64 '
+                        'tensors of one dtype, got %s' % sorted(
+                            {str(a.dtype) for a in args}))
+    if T.dim() != 2:
+        raise ValueError('emanuel_convect_cuda: T must be (ncol, nz), got '
+                         'shape %s' % (tuple(T.shape),))
+    ncol, nz = T.shape
+    if not 4 <= nz <= MAX_NZ:
+        raise ValueError('emanuel_convect_cuda takes 4 to %d levels, got %d'
+                         % (MAX_NZ, nz))
+    if not 1 <= nl <= nz - 1:
+        raise ValueError('emanuel_convect_cuda: nl=%s outside [1, %d]'
+                         % (nl, nz - 1))
+    for name, a, shape in (('q', q, (ncol, nz)), ('qs', qs, (ncol, nz)),
+                           ('u', u, (ncol, nz)), ('v', v, (ncol, nz)),
+                           ('p', p, (ncol, nz)), ('ph', ph, (ncol, nz + 1)),
+                           ('cbmf_in', cbmf_in, (ncol,))):
+        if tuple(a.shape) != shape:
+            raise ValueError('emanuel_convect_cuda: %s has shape %s, '
+                             'expected %s' % (name, tuple(a.shape), shape))
+    dev = T.device
+    if not all(a.is_cuda and a.device == dev for a in args):
+        raise ValueError('emanuel_convect_cuda: all tensors must be on one '
+                         'CUDA device')
+
+    levels = [torch.empty_like(T) for _ in range(4)]      # ft, fq, fu, fv
+    osc, osk = levels[0].stride()
+    scalars = [torch.empty(ncol, dtype=dtype, device=dev) for _ in range(6)]
+    iflag = torch.empty(ncol, dtype=torch.int64, device=dev)
+    t = []
+    for a in args[:7]:
+        t += [a.data_ptr(), a.stride(0), a.stride(1)]
+    t += [cbmf_in.data_ptr(), cbmf_in.stride(0)]
+    t += [x.data_ptr() for x in levels] + [osc, osk]
+    t += [x.data_ptr() for x in scalars] + [iflag.data_ptr()]
+    t_arr = (ctypes.c_longlong * len(t))(*t)
+    prm = (ctypes.c_double * (len(KERNEL_PARAMS) + 1))(
+        *[float(params[key]) for key in KERNEL_PARAMS], float(dt))
+    fn = getattr(_build.library(), 'climt_emanuel_f32' if dtype ==
+                 torch.float32 else 'climt_emanuel_f64')
+    rc = fn(ctypes.addressof(t_arr), ctypes.addressof(prm), ncol, nz,
+            int(nl), int(params['minorig']),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(rc, 'emanuel_convect_cuda')
+    emanuel_convect_cuda.launches += 1
+    out = dict(zip(('ft', 'fq', 'fu', 'fv'), levels))
+    out.update(zip(('precip', 'wd', 'tprime', 'qprime', 'cbmf', 'cape'),
+                   scalars))
+    out['iflag'] = iflag
+    return out
+
+
+emanuel_convect_cuda.launches = 0
+
+
+def emanuel_convect_plain(T, q, qs, u, v, p, ph, cbmf_in, dt, nl, params):
+    """The plain PyTorch version of ``emanuel_convect``, the same
+    arguments and outputs: the CPU path, and what the kernel is held to on
+    the card."""
     T, q, qs, u, v, p, ph = [x.contiguous() for x in (T, q, qs, u, v, p,
                                                         ph)]
     ncol, nz = T.shape
@@ -676,7 +773,11 @@ def emanuel_convect(T, q, qs, u, v, p, ph, cbmf_in, dt, nl, params):
 
 class EmanuelConvection(ImplicitTendencyComponent):
     """Emanuel & Zivkovic-Rothman (1999) convection scheme (:796), on
-    ``device`` (the CUDA card unless the caller asks for another)."""
+    ``device`` (the CUDA card unless the caller asks for another).
+
+    On a card the scheme runs as one CUDA kernel (``emanuel_convect``),
+    which takes 4 to 32 levels (``MAX_NZ``) and raises ``ValueError`` for
+    more; on the CPU any level count runs."""
 
     input_properties = {
         'air_temperature': {'dims': ['*', 'mid_levels'], 'units': 'degK'},

@@ -259,10 +259,11 @@ class MoistGCM(nn.Module):
 
             # Emanuel convection
             qs = bolton_q_sat(T, p_mid, _RD, _RV)
+            p_mb, ph_mb = p_mid / 100.0, p_half / 100.0
             with phase('climt.convection'):
                 conv = emanuel_convect(
-                    T.T, q.T, qs.T, u.T, v.T, (p_mid / 100.0).T,
-                    (p_half / 100.0).T, cbmf, dt, nz - 3, self.em_params)
+                    T.T, q.T, qs.T, u.T, v.T, p_mb.T, ph_mb.T, cbmf, dt,
+                    nz - 3, self.em_params)
 
             du = du_sp + conv['fu'].T
             dv = dv_sp + conv['fv'].T

@@ -24,10 +24,10 @@ and all_gather calls) and the kernels that take the most device time;
 then one row per layer: the innermost program span (``climt.*``, see
 ``utils.profiling.phase``) over each instant of the host's work, its
 host self ms, and the kernel launches and device ms of the operations
-launched inside it (each kernel is tied to the operation that launched
-it, so these device times are exact; launches the profile ties to no
-operation get a row of their own).  Wall times include the profiler's
-own overhead.
+launched inside it (each device operation is tied to the runtime call
+that launched it, so these device times are exact, for the ``csrc/``
+kernels launched through ``ctypes`` too; launches outside every span get
+a row of their own).  Wall times include the profiler's own overhead.
 """
 
 from __future__ import annotations
@@ -107,25 +107,38 @@ def _span_of(e):
 def layers(prof):
     """{innermost program span: [spans, host self ms, kernel launches,
     device ms]} of a profile; the host's self ms is a span's length less
-    that of the program spans nested in it."""
+    that of the program spans nested in it.  Each device operation counts
+    where it was launched: the innermost span around its launch call (the
+    runtime call that shares its correlation id), so a kernel launched
+    outside any aten op (a ``ctypes`` launch of ``csrc/``) counts under
+    its span too; one whose launch the profile does not show, or that was
+    launched outside every span, counts under ``NO_SPAN``."""
     out = {}
     host = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CPU]
-    for e in host:
-        if e.name.startswith(SPAN):
-            row = out.setdefault(e.name, [0, 0.0, 0, 0.0])
-            row[0] += 1
-            row[1] += e.time_range.elapsed_us() / 1e3
-            outer = _span_of(e.cpu_parent)
-            if outer is not None:
-                out.setdefault(outer.name, [0, 0.0, 0, 0.0])[1] -= (
-                    e.time_range.elapsed_us() / 1e3)
-        if getattr(e, 'kernels', None):
-            span = _span_of(e)
-            row = out.setdefault(span.name if span else NO_SPAN,
-                                 [0, 0.0, 0, 0.0])
-            row[2] += len(e.kernels)
-            row[3] += sum(k.duration for k in e.kernels) / 1e3
+    spans = [e for e in host if e.name.startswith(SPAN)]
+    for e in spans:
+        row = out.setdefault(e.name, [0, 0.0, 0, 0.0])
+        row[0] += 1
+        row[1] += e.time_range.elapsed_us() / 1e3
+        outer = _span_of(e.cpu_parent)
+        if outer is not None:
+            out.setdefault(outer.name, [0, 0.0, 0, 0.0])[1] -= (
+                e.time_range.elapsed_us() / 1e3)
+    # the CUDA runtime and driver calls (cudaLaunchKernel, cuLaunchKernel,
+    # cudaMemcpyAsync, ...) by correlation id
+    launched_at = {e.id: e.time_range.start for e in host
+                   if e.name.startswith('cu')}
+    for k in _kernel_events(prof):
+        t = launched_at.get(k.id)
+        around = [] if t is None else [
+            e for e in spans
+            if e.time_range.start <= t <= e.time_range.end]
+        span = max(around, key=lambda e: e.time_range.start, default=None)
+        row = out.setdefault(span.name if span else NO_SPAN,
+                             [0, 0.0, 0, 0.0])
+        row[2] += 1
+        row[3] += k.device_time_total / 1e3
     return out
 
 
@@ -224,11 +237,6 @@ def main(argv=None):
                     rows.items(), key=lambda kv: -kv[1][1]):
                 print('    %-20s %6d %12.3f %9d %10.3f' % (
                     name, n, host_ms, k, dev_ms))
-            # launches that the profile ties to no host operation
-            print('    %-20s %6s %12s %9d %10.3f' % (
-                '(tied to no op)', '', '',
-                launches - sum(r[2] for r in rows.values()),
-                1e3 * busy - sum(r[3] for r in rows.values())))
 
 
 if __name__ == '__main__':

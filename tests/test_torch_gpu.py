@@ -17,6 +17,7 @@ import torch
 
 import climt_tpu_torch as ct
 
+from climt_tpu_torch.components import emanuel_convection as E
 from climt_tpu_torch.components.rrtmg import fused_mix, rtrn_kernel
 from climt_tpu_torch.components.rrtmg import lw_spectral as TL
 from climt_tpu_torch.convert import carry_to_numpy
@@ -706,3 +707,94 @@ def test_kernel_b_refuses_weights_that_require_grad(cuda):
         fused_mix.mix_groups(layout, idx, w.requires_grad_(True))
     with torch.no_grad():
         fused_mix.mix_groups(layout, idx, w)
+
+
+# chip_smoke.py's limits, of max, by type name: the convection kernel
+# keeps the plain version's arithmetic but for its sums over levels
+CONVECTION_TOL = smoke_constant('CONVECTION_TOL')
+
+
+# chip_smoke.py's capture of the moist GCM's emanuel_convect arguments
+convection_inputs = smoke_constant('convection_inputs')
+
+
+def _convection_calls(device, dtype, nz, calls):
+    """The emanuel_convect arguments of the 32x16xnz moist GCM's calls
+    ``calls`` (call n steps from the state after n steps)."""
+    return convection_inputs(dict(nlon=32, nlat=16, nz=nz, rad_col_chunk=128),
+                             dtype, calls, device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype,nz', [(torch.float64, 10),
+                                      (torch.float32, 10),
+                                      (torch.float32, 28),
+                                      (torch.float64, 28),
+                                      (torch.float32, 32)])
+def test_emanuel_kernel_matches_plain(cuda, dtype, nz):
+    """At the GCM's start and after 6 steps: one launch a call, iflag
+    equal, every output within CONVECTION_TOL of its largest value, and
+    the same outputs from contiguous (ncol, nz) inputs as from the GCM's
+    transposed ones."""
+    for args in _convection_calls(cuda, dtype, nz, (0, 6)):
+        before = E.emanuel_convect_cuda.launches
+        out = E.emanuel_convect(*args)
+        assert E.emanuel_convect_cuda.launches == before + 1
+        ref = E.emanuel_convect_plain(*args)
+        assert int((ref['iflag'] > 0).sum()) > 0
+        assert torch.equal(out['iflag'], ref['iflag'])
+        for key in ('ft', 'fq', 'fu', 'fv', 'precip', 'wd', 'tprime',
+                    'qprime', 'cbmf', 'cape'):
+            assert out[key].dtype == dtype
+            if float(ref[key].abs().max()) > 0:
+                assert rel_err(out[key], ref[key]) <= CONVECTION_TOL[
+                    str(dtype).replace('torch.', '')]
+            else:
+                assert float(out[key].abs().max()) == 0.0, key
+        flat = E.emanuel_convect(*[
+            a.contiguous() if torch.is_tensor(a) else a for a in args])
+        for key in out:
+            assert torch.equal(flat[key], out[key]), key
+
+
+@pytest.mark.gpu
+def test_moist_gcm_step_launches_the_convection_kernel_once(cuda):
+    _, init_fn, _, run_fn = build_moist_gcm(
+        nlon=32, nlat=16, nz=10, dtype=torch.float32, device=cuda,
+        rad_col_chunk=128)
+    carry = init_fn(0)
+    before = E.emanuel_convect_cuda.launches
+    run_fn(carry, 3)
+    assert E.emanuel_convect_cuda.launches == before + 3
+
+
+@pytest.mark.gpu
+def test_emanuel_kernel_refuses_a_gradient_on_the_card(cuda):
+    args = _convection_calls(cuda, torch.float64, 10, (0,))[0]
+    T = args[0].clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match='backward'):
+        E.emanuel_convect(T, *args[1:])
+    with torch.no_grad():
+        E.emanuel_convect(T, *args[1:])
+
+
+@pytest.mark.gpu
+def test_profile_step_ties_ctypes_launches_to_their_spans(cuda):
+    """In a traced refresh step of the moist GCM every device operation
+    counts under the span around its launch: the convection kernel's one
+    launch under climt.convection, and none outside the program's spans,
+    kernels A and B (launched through ctypes) included."""
+    from climt_tpu_torch import profile_step
+    _, init_fn, step_fn, run_fn = build_moist_gcm(
+        nlon=32, nlat=16, nz=10, dtype=torch.float32, device=cuda,
+        rad_col_chunk=128)
+    carry, _ = run_fn(init_fn(0), 6)
+    torch.cuda.synchronize()
+    _, _, prof = profile_step.traced_step(step_fn, carry)
+    rows = profile_step.layers(prof)
+    _, launches, by_name = profile_step.kernel_summary(prof)
+    assert rows['climt.convection'][2] == 1
+    assert any('emanuel_kernel' in name for name in by_name)
+    assert any('rtrn_lw_kernel' in name for name in by_name)
+    assert profile_step.NO_SPAN not in rows
+    assert sum(r[2] for r in rows.values()) == launches

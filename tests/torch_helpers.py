@@ -587,8 +587,9 @@ def contention_bands(case):
 
 
 def smoke_constant(name):
-    """A constant of chip_smoke.py (its tolerances), read from the script
-    itself so that the tests and the smoke share one value."""
+    """A name of chip_smoke.py (its tolerances, its capture of the moist
+    GCM's convection inputs), read from the script itself so that the
+    tests and the smoke share one definition."""
     spec = importlib.util.spec_from_file_location(
         'chip_smoke_constants', os.path.join(os.path.dirname(EXAMPLES),
                                              'chip_smoke.py'))
