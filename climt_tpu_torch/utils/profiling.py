@@ -38,7 +38,8 @@ def phase(name):
     - ``climt.sw_solver``: ``spcvrt_sw``/``spcvmc_sw`` in
       ``rrtmg_sw_fluxes``; SW solver
     - ``climt.dynamics``: ``dycore.step`` in ``MoistGCM.step``; dynamics
-    - ``climt.transport``: ``FVAdvection.advect``; transport
+    - ``climt.transport``: ``FVAdvection.advect``, ``SLAdvection.advect``;
+      transport
     - ``climt.fixer``: ``MoistGCM._fix_water``; dynamics
     - ``climt.collective``: ``dist_sht.transpose``, ``halo.LatHalo``,
       ``rep_sht.all_reduce_sum``, ``rep_sht.all_gather_cat``; collectives

@@ -110,8 +110,9 @@ CASES = {
         ('fv', 1, lambda s: check_transport(s, True, 0)),
     'fv_refresh_transport_no_fixer':
         ('fv', 0, lambda s: check_transport(s, True, 0)),
+    # SL moisture: the transport inside the dynamics, then the fixer
     'sl_fixer_no_transport':
-        ('sl', 1, lambda s: check_transport(s, False, 1)),
+        ('sl', 1, lambda s: check_transport(s, True, 1)),
     'fixer_off_no_fixer_span':
         ('no_fixer', 1, lambda s: check_transport(s, False, 0)),
 }
