@@ -207,6 +207,12 @@ Phases, each of which fails loudly (no exception is turned into exit 0):
      kernels' share of the device time and their overlap with other
      kernels, beside each card's name and power limit.  On one card it
      prints that it needs 2 or more cards and does not fail;
+ 30. (run after phase 4) the term-writer kernel (csrc/taumol_terms.cu) at
+     rrtmg_l60's 60 x 32768 and at a T85 chunk, float32: each LW and SW
+     call against the PyTorch writer on the CPU (TERM_POWER_EPS), one
+     launch a call, device ms beside its byte bound, host ms a call and
+     the PyTorch writer's ms; phase 6 fails unless the T85 steps launch it
+     twice a radiation chunk and the PyTorch writers write no group;
  29. (run after phase 6) the convection kernel (csrc/emanuel.cu) on the
      emanuel_convect calls of the moist GCM: at T85 float32 after 6 and
      36 steps, and at 32x16x10 float64 at the start and after 6 steps;
@@ -356,6 +362,15 @@ KTABLE_SMALL = (16, 8, 8)
 # calibration's loss and gradient on the card against the CPU; the Adam
 # steps taken on the card
 BWD_TOL = {'float32': 2e-5, 'float64': 1e-13}
+# the term-writer kernel against the PyTorch writer on the CPU: indices and
+# weights equal but those of the adjusted minor-gas columns' power terms,
+# whose relative difference stays within this many epsilons of the type:
+# the two powers differ by up to three ulps (CUDA's pow is within two of
+# the exact power, SLEEF's on the CPU within one; the float32 kernel
+# rounds the float64 pow, within half an ulp), and each of the five
+# roundings after it (a sum, three products, the lin weight) can move the
+# two results one more epsilon apart
+TERM_POWER_EPS = 8
 CALIBRATION_TOL = dict(value=1e-10, grad=1e-9)
 ADAM_STEPS = 20
 FLOAT32_EPS = 2.0 ** -23
@@ -405,12 +420,20 @@ def fail(msg):
     sys.exit(1)
 
 
-def cuda_ms(fn, reps, torch):
-    """Mean device milliseconds of fn() over reps launches (warmed up)."""
+def cuda_ms(fn, reps, torch, queued=False):
+    """Mean device milliseconds of fn() over reps launches (warmed up).
+    queued: the card first sleeps while the host enqueues the reps calls,
+    so the events time the kernels back to back and not the host's
+    dispatch between them.  Only phase 30 queues: the term writer's call
+    (0.16-0.27 ms on the card at a T85 chunk) is as short as its
+    launcher's host time, while the other phases keep the timing their
+    records have had since they were written."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -3348,6 +3371,113 @@ def convection_phase(dev, card):
     return recs
 
 
+def term_writer_bytes(plan, nz, ncol, itemsize):
+    """Bytes the term-writer kernel needs for one call on (nz, ncol): each
+    of the plan's fields read once (floats in the working type, ints 4
+    bytes, the troposphere mask 1), each term's weight written and its
+    index where its part has more than one row; the solar source's terms
+    once a column."""
+    ncell = nz * ncol
+    nbytes = ncell * (itemsize * len(plan.fields) + 4 * len(plan.int_fields)
+                      + 1)
+    for g, parts in enumerate(plan.parts):
+        cells = ncol if g in plan.columns else ncell
+        for _, table, n in parts:
+            many = len(table.shape) == 2 and table.shape[0] > 1
+            nbytes += cells * n * (itemsize + (4 if many else 0))
+    return nbytes
+
+
+def host_ms(fn, reps, torch):
+    """Host milliseconds a call of fn() (its launches enqueued, the card
+    not waited for), over reps calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e3
+
+
+def term_writer_phase(dev, card):
+    """Phase 30: the term-writer kernel (csrc/taumol_terms.cu) alone, float32,
+    at rrtmg_l60's call (60 x 32768) and at a T85 chunk (28 x 8192) of
+    torch_helpers.taumol_columns: each LW and SW call against the PyTorch
+    writer on the CPU (indices and weights equal, the power terms within
+    TERM_POWER_EPS), one launch a call, its device ms (back-to-back calls
+    under CUDA events) beside its byte bound, its host ms a call, and the
+    PyTorch writer's ms on the card.  Returns the kernel line's record at
+    the T85 chunk, LW and SW summed."""
+    import torch
+    from climt_tpu_torch.components.rrtmg import lw_spectral as LW
+    from climt_tpu_torch.components.rrtmg import sw_spectral as SW
+    from climt_tpu_torch.components.rrtmg import term_writer as TW
+    from torch_helpers import taumol_coefs, taumol_columns, term_writer_check
+
+    f32 = torch.float32
+    solar = SW.solar_variability(-1, 0.0)[:6]
+    rec = None
+    for nz, ncol in ((60, 32768), (28, 8192)):     # 28 last: the main path
+        total = dict(max_abs_err=0.0, ms=0.0, host_ms=0.0, plain_ms=0.0,
+                     bound_ms=0.0, library_ms=None)
+        for call in ('lw', 'sw'):
+            before = (TW.taumol_terms_cuda.launches,
+                      TW.taumol_terms_cuda.fallbacks)
+            report = term_writer_check(call, f32, nz, ncol, dev)
+            launched = (TW.taumol_terms_cuda.launches - before[0],
+                        TW.taumol_terms_cuda.fallbacks - before[1])
+            if launched != (1, 0):
+                fail('term writer %s %dx%d: %d launches and %d groups of '
+                     'the PyTorch writer, not one launch' % (
+                         call, nz, ncol, launched[0], launched[1]))
+            for name, r in report.items():
+                if (r['idx_mismatch'] or r['max_ulp']
+                        or r['power_eps'] > TERM_POWER_EPS):
+                    fail('term writer %s %dx%d: %s differs from the '
+                         'PyTorch writer: %s' % (call, nz, ncol, name, r))
+                total['max_abs_err'] = max(total['max_abs_err'],
+                                           r['max_abs_err'])
+                phase(30, 'term writer %s %dx%d f32 %s: %d terms equal to the '
+                      'PyTorch writer on the CPU but the power terms, within '
+                      '%d ulps (%.2f eps, limit %d; %s), largest weight '
+                      'difference %.3g' % (
+                          call, nz, ncol, name, r['terms'],
+                          r['power_max_ulp'], r['power_eps'], TERM_POWER_EPS,
+                          ', '.join(r['power_terms']) or 'none differ',
+                          r['max_abs_err']))
+            torch.cuda.empty_cache()
+        cs, wx, css = taumol_coefs(taumol_columns(nz, ncol), f32, dev)
+        plans = dict(lw=LW.lw_term_plan(LW.load_kdist(), tuple(sorted(wx))),
+                     sw=SW.sw_term_plan('ref'))
+        runs = dict(
+            lw=(lambda: LW.taumol_lw_terms_cuda(cs, wx, f32),
+                lambda: LW.taumol_lw_terms_plain(cs, wx, f32)),
+            sw=(lambda: SW.taumol_sw_terms_cuda(css, -1, *solar, f32),
+                lambda: SW.taumol_sw_terms_plain(css, -1, *solar, f32)))
+        for call, (kernel, plain) in runs.items():
+            ms = cuda_ms(kernel, 20, torch, queued=True)
+            h_ms = host_ms(kernel, 20, torch)
+            p_ms = cuda_ms(plain, 3, torch)
+            nbytes = term_writer_bytes(plans[call], nz, ncol, 4)
+            b_ms, _ = bound(nbytes, 0)
+            phase(30, 'term writer %s %dx%d f32: %.4f ms device, %.4f ms '
+                  'host a call; bound %.4f ms (bytes, %.1f MB), %.0f%% of '
+                  'bound; PyTorch writer %.3f ms a call; on %s' % (
+                      call, nz, ncol, ms, h_ms, b_ms, nbytes / 1e6,
+                      100.0 * b_ms / ms, p_ms, card))
+            for key, val in (('ms', ms), ('host_ms', h_ms),
+                             ('plain_ms', p_ms), ('bound_ms', b_ms)):
+                total[key] += val
+        total.update(bound_by='bytes', share=total['bound_ms'] / total['ms'],
+                     shape=[nz, ncol])
+        del cs, wx, css, runs
+        torch.cuda.empty_cache()
+        rec = total
+    return rec
+
+
 def max_rel_err(a, b):
     """max |a - b| and the scale max |b| of two tensors."""
     return float((a - b).abs().max()), float(b.abs().max())
@@ -3383,6 +3513,7 @@ def main():
     from climt_tpu_torch.components.rrtmg import fused_mix, rtrn_kernel
     from climt_tpu_torch.components.rrtmg import lw_spectral as LW
     from climt_tpu_torch.components.rrtmg import sw_spectral as SW
+    from climt_tpu_torch.components.rrtmg import term_writer as TW
     from climt_tpu_torch.convert import carry_to_numpy
     from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
 
@@ -3472,6 +3603,9 @@ def main():
         report['A'].update(rec)
     torch.cuda.empty_cache()
 
+    # ---- phase 30: the term writer alone -------------------------------
+    report['terms'] = term_writer_phase(dev, card)
+
     # ---- phase 5: small model, GPU vs CPU ------------------------------
     small = dict(nlon=32, nlat=16, nz=10, rad_every=6, rad_col_chunk=128,
                  dtype=f32)
@@ -3499,6 +3633,7 @@ def main():
     fused_mix.mix_groups_cuda.launches = 0
     rtrn_kernel.rtrn_lw_cuda.launches = 0
     E.emanuel_convect_cuda.launches = 0
+    TW.taumol_terms_cuda.launches = TW.taumol_terms_cuda.fallbacks = 0
     step_s = []
     diag = None
     for _ in range(T85_STEPS):
@@ -3508,8 +3643,16 @@ def main():
         step_s.append(time.perf_counter() - t0)
     launches = {'B': fused_mix.mix_groups_cuda.launches,
                 'A': rtrn_kernel.rtrn_lw_cuda.launches,
-                'convection': E.emanuel_convect_cuda.launches}
+                'convection': E.emanuel_convect_cuda.launches,
+                'terms': TW.taumol_terms_cuda.launches}
     refreshes = sum(1 for k in range(T85_STEPS) if k % T85['rad_every'] == 0)
+    chunks = 256 * 128 // T85['rad_col_chunk']
+    if (launches['terms'] != 2 * chunks * refreshes
+            or TW.taumol_terms_cuda.fallbacks):
+        fail('T85: the term writer launched %d times in %d radiation '
+             'refreshes of %d chunks (not 2 a chunk), the PyTorch writers '
+             'wrote %d groups' % (launches['terms'], refreshes, chunks,
+                                  TW.taumol_terms_cuda.fallbacks))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     T_grid = dycore.sht.synthesize(carry[1]['T'])
     for key, val in [('T', T_grid)] + list(diag.items()):
@@ -3539,10 +3682,12 @@ def main():
         T85_STEPS, card, ' '.join('%.4f' % s for s in step_s)))
     phase(6, 'T85: %.4f s/step, %.4g gridpoint-steps/s; radiation steps '
           '%s s, others %.4f s; peak memory %.2f GB; launches A=%d B=%d '
-          'convection=%d; T in [%.1f, %.1f] K; on %s' % (
+          'convection=%d term writer=%d (PyTorch writer groups %d); T '
+          'in [%.1f, %.1f] K; on %s' % (
               mean_s, gps, ' '.join('%.4f' % s for s in rad_steps),
               sum(other) / len(other), peak_gb, launches['A'],
-              launches['B'], launches['convection'], float(T_grid.min()),
+              launches['B'], launches['convection'], launches['terms'],
+              TW.taumol_terms_cuda.fallbacks, float(T_grid.min()),
               float(T_grid.max()), card))
 
     # breakdown of one radiation step (outside the counted run)
@@ -3762,6 +3907,12 @@ def main():
              **{k: bwd_report['float32'][k] for k in (
                  'launches', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
                  'bound_by', 'library_ms')}),
+        # the term writer: phase 6's counted T85 steps, timed and checked at
+        # a T85 chunk (LW and SW summed, the largest weight difference of
+        # either) in phase 30
+        dict(name='taumol_terms_cuda', route='cuda',
+             source='climt_tpu_torch/csrc/taumol_terms.cu', replaces=None,
+             **dict(report['terms'], launches=launches['terms'])),
         # the convection kernel: phase 6's counted T85 steps (float32), with
         # phase 29's float64 record beside its float32 one
         dict(name='emanuel_convect_cuda', route='cuda',

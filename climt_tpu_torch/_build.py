@@ -26,9 +26,11 @@ ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
 NVCC_FLAGS = ARCH + ['-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                      '-Xptxas', '-v']
 LIB_NAME = 'libclimt_tpu_torch_kernels.so'
-# flags of one source beside NVCC_FLAGS: emanuel.cu keeps the plain
-# version's roundings, one per operation, so no product and sum may fuse
-SOURCE_FLAGS = {'emanuel.cu': ['-fmad=false']}
+# flags of one source beside NVCC_FLAGS: emanuel.cu and taumol_terms.cu
+# keep the plain versions' roundings, one per operation, so no product and
+# sum may fuse
+SOURCE_FLAGS = {'emanuel.cu': ['-fmad=false'],
+                'taumol_terms.cu': ['-fmad=false']}
 
 # filled by library(): build seconds (0.0 when the cached build was used),
 # the library path and the compiler's log (ptxas register/spill report)
@@ -45,6 +47,8 @@ SIGNATURES = {
     'climt_rtrn_lw_f32': [_P] * 10 + [_I, _I, _F] + [_P] * 5,
     'climt_emanuel_f32': [_P, _P, _I, _I, _I, _I, _P],
     'climt_emanuel_f64': [_P, _P, _I, _I, _I, _I, _P],
+    'climt_taumol_terms_f32': [_P, _P, _P],
+    'climt_taumol_terms_f64': [_P, _P, _P],
 }
 
 

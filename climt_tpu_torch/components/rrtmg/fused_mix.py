@@ -338,11 +338,13 @@ class Group:
 
     A caller opens each band with ``band(ng)``, each part of it with
     ``part(table)``, and writes the part's terms through ``slot()`` (an
-    index and a weight view to fill with ``out=``), ``lin`` or ``row``.
-    ``run()`` launches.  The packed layout is cached under ``key``, with
-    ``source``, the object the caller takes its tables from (the LW
-    k-table dict; None for fixed tables): on the first call, or when the
-    cached layout was packed from another source, the terms are collected
+    index and a weight view to fill with ``out=``), ``lin`` or ``row``;
+    or it declares every band and part at once with ``declare`` and a
+    kernel writes the terms (``term_writer``).  ``run()`` launches.  The
+    packed layout is cached under ``key``, with ``source``, the object the
+    caller takes its tables from (the LW k-table dict; None for fixed
+    tables): on the first call, or when the cached layout was packed from
+    another source, the terms are collected
     and the tables packed, replacing the cached layout; later calls from
     the same source write into one preallocated (terms, *cells) pair and
     must produce the same bands, parts and term counts.  The source is
@@ -370,6 +372,16 @@ class Group:
 
     def band(self, ng):
         self.ngs.append(ng)
+
+    def declare(self, ngs, parts):
+        """Every band and part at once, the parts' terms written elsewhere
+        (by the term-writer kernel, ``term_writer.taumol_terms_cuda``):
+        ``ngs`` the bands' widths, ``parts`` (band, table, nterms) in term
+        order.  ``finish()`` then allocates the (terms, *cells) pair
+        unwritten."""
+        self.ngs = list(ngs)
+        self.parts = [list(p) for p in parts]
+        self.nterms = sum(p[2] for p in parts)
 
     def part(self, table):
         self.parts.append([len(self.ngs) - 1, table, 0])
@@ -422,7 +434,7 @@ class Group:
                                  self.device, self.source)
             if not _requires_grad(tab for _, tab, _ in self.parts):
                 self._LAYOUTS[self.key] = self.layout
-            shape = (0,) + self.cells
+            shape = (self.layout.nterms,) + self.cells
             self.idx = (torch.stack([i for i, _ in self.fresh]) if self.fresh
                         else torch.empty(shape, dtype=torch.int32,
                                          device=self.device))

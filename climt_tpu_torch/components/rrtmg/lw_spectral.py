@@ -9,11 +9,14 @@ inflag/iceflag/liqflag of ``cldprop_lw``, McICA per-g-point clouds
 interpolation of taumol (and setcoef's Planck functions) is a term of a
 kernel-B group (``fused_mix.Group``): a direct gather over the merged
 [absa; absb] table, the JAX package's f64 path, with one launch for all
-bands of taug and one for the Planck fractions.  The flux integration
-goes through kernel A (``rtrn_kernel.rtrn_lw_fused``) exactly where the
-JAX package takes its Pallas kernel (lw_spectral.py:772-773): float32,
-analytic transmittance, no idrv, band clouds; every other configuration
-runs the general sweep here in plain PyTorch, as JAX runs it in XLA.
+bands of taug and one for the Planck fractions.  On the card one launch
+of the term-writer kernel (``term_writer``) writes both groups' terms,
+which the PyTorch writer writes term by term on the CPU.  The flux
+integration goes through kernel A (``rtrn_kernel.rtrn_lw_fused``) exactly
+where the JAX package takes its Pallas kernel (lw_spectral.py:772-773):
+float32, analytic transmittance, no idrv, band clouds; every other
+configuration runs the general sweep here in plain PyTorch, as JAX runs it
+in XLA.
 
 Layout as in the JAX module: layers bottom-up, columns trailing, g-points
 innermost, taug (nz, ncol, 140).  The gas k-tables are chosen as the JAX
@@ -38,7 +41,7 @@ import torch
 
 from ... import data
 from ...utils.profiling import phase
-from . import fused_mix
+from . import fused_mix, term_writer
 from .rtrn_kernel import (NBANDS, NG, NGB, NGPT, NGS, lw_sweeps,
                           rtrn_lw_fused)
 
@@ -372,16 +375,158 @@ def taumol_lw_terms(cs, wx, dtype, tables=None):
     taug and the Planck fractions, each (nz, ncol, 140) once run, from
     ``tables`` (a dict in ``load_aer_tables``' layout of numpy arrays or
     of tensors, which may require grad: the groups' outputs then carry
-    the gradient back to them; None: ``load_kdist()``).
+    the gradient back to them; None: ``load_kdist()``).  The PyTorch
+    writer (``taumol_lw_terms_plain``) for CPU tensors, the term-writer
+    kernel (``taumol_lw_terms_cuda``) for CUDA tensors."""
+    if cs['trop'].device.type == 'cpu':
+        return taumol_lw_terms_plain(cs, wx, dtype, tables)
+    return taumol_lw_terms_cuda(cs, wx, dtype, tables)
 
-    Every band's key-species 2x2x2 interpolation (one part, the merged
-    [absa; absb] table), continua, minor gases and cross-sections are
-    terms of one band of the taug group; the band-1/2 pressure corrections
-    are folded into their weights, as are the trop/upper masks of the
+
+def taumol_lw_terms_cuda(cs, wx, dtype, tables=None):
+    """``taumol_lw_terms`` on the card: one launch of the term-writer
+    kernel (``term_writer.taumol_terms_cuda``) writes both groups' terms
+    from ``lw_term_plan``'s entries."""
+    trop = cs['trop']
+    nz, ncol = trop.shape
+    t = load_kdist() if tables is None else tables
+    names = tuple(sorted(wx))
+    plan = term_writer.cached_plan(('lw', names), t, dtype, trop.device,
+                                   lambda: lw_term_plan(t, names))
+    groups = (fused_mix.Group(('lw_taug', names), (nz, ncol), dtype,
+                              trop.device, source=t),
+              fused_mix.Group('lw_fracs', (nz, ncol), dtype, trop.device,
+                              source=t))
+    fields = dict(cs)
+    fields.update(('wx_' + gas, x) for gas, x in wx.items())
+    return term_writer.taumol_terms_cuda(plan, groups, fields, cs['chi'])
+
+
+def lw_term_plan(t, wx_names):
+    """The entries of ``taumol_lw_terms_plain`` for the tables ``t`` and
+    the cross-section gases ``wx_names``, recorded by the same walk over
+    ``BANDS_LW`` (``term_writer.TermPlan``): group 0 taug, group 1 the
     Planck fractions."""
+    taug, fracs = 0, 1
+    sup = data.load_numpy(data.LW_SUPPORT)
+    plan = term_writer.TermPlan(2)
+    f, i = plan.field, plan.int_field
+
+    def spec(s):
+        """Field ids of a key-species tuple: column 1, column 2, and the
+        ratios at jp and jp+1 (-1 where absent)."""
+        if s is None:
+            return [-1] * 4
+        if len(s) == 1:
+            return [f('col' + s[0])] + [-1] * 3
+        return [f('col' + s[0]), f('col' + s[1]), f('rat_' + s[2]),
+                f('rat_' + s[2] + '_1')]
+
+    for bi, bd in enumerate(BANDS_LW):
+        num, ng = bd['num'], NG[bi]
+
+        def tab(name, b=num):
+            return t.get('b%d_%s' % (b, name))
+
+        plan.band(taug, ng)
+        plan.entry('lw_band', taug, [{'b1': 1, 'b2': 2}.get(
+            bd.get('corradj'), 0), f('pavel')])
+        absa, absb = tab('absa'), tab('absb')
+        have_lo = bd['lo'] is not None
+        have_up = bd['up'] is not None
+        nspa = 9 if (have_lo and len(bd['lo']) == 3) else (
+            1 if have_lo else 0)
+        nspb = 5 if (have_up and len(bd['up']) == 3) else (
+            1 if have_up else 0)
+        if have_lo or have_up:
+            rows_a = 0
+            if have_lo and have_up:
+                plan.part(taug, _stack_rows(absa, absb))
+                rows_a = absa.shape[0]
+            else:
+                plan.part(taug, absa if have_lo else absb)
+            plan.entry('lw_key', taug, [nspa, nspb, rows_a] + spec(bd['lo'])
+                       + spec(bd['up']),
+                       nterms=8 if (nspa == 9 or nspb == 5) else 4)
+
+        selfref, forref = tab('selfref'), tab('forref')
+        if bd.get('self_lo') and selfref is not None:
+            plan.part(taug, selfref)
+            plan.entry('lw_self', taug, [i('indself'), f('selffrac'),
+                                         f('selffac')], nterms=2)
+        if (bd.get('for_lo') or bd.get('for_up')) and forref is not None:
+            mask = (term_writer.NO_MASK if bd.get('for_lo') and bd.get(
+                'for_up') else term_writer.TROP if bd.get('for_lo')
+                else term_writer.UPPER)
+            plan.part(taug, forref)
+            plan.entry('lw_for', taug, [i('indfor'), f('forfrac'),
+                                        f('forfac'), mask], nterms=2)
+
+        for region, key in (('lo', 'minors_lo'), ('up', 'minors_up')):
+            mask = term_writer.TROP if region == 'lo' else term_writer.UPPER
+            for gas, mode in bd.get(key, ()):
+                ktab = tab('k%s_m%s' % ('a' if region == 'lo' else 'b', gas))
+                if ktab is None:
+                    continue
+                plan.part(taug, ktab)
+                if mode in ('n2', 'plain'):
+                    amount = [0, f('colbrd' if mode == 'n2' else 'col' + gas),
+                              f('scaleminorn2' if mode == 'n2'
+                                else 'scaleminor'), mask, -1, -1]
+                    consts = ()
+                else:
+                    adj = ('n2o', 1.5, 0.5, 0.65) if mode == 'adjn2o' else (
+                        'co2',) + tuple(mode[1:])
+                    amount = [1, f('col' + gas), -1, mask, f('coldry'),
+                              CHI_ROW[adj[0]] - 1]
+                    consts = adj[1:]
+                plan.entry('lw_minor', taug, [i('indminor'), f('minorfrac')]
+                           + amount, consts, nterms=2)
+
+        for region, key in (('lo', 'wx_lo'), ('up', 'wx_up')):
+            for gas, tname in bd.get(key, ()):
+                xs = tab(tname)
+                if xs is None or gas not in wx_names:
+                    continue
+                plan.part(taug, xs)
+                plan.entry('lw_wx', taug, [f('wx_' + gas), (
+                    term_writer.TROP if region == 'lo'
+                    else term_writer.UPPER)], nterms=1)
+
+        plan.band(fracs, ng)
+        fraca, fracb = tab('fracrefa'), tab('fracrefb')
+        for frtab, planck_spec, n_eta, mask in (
+                (fraca, bd.get('planck_lo'), 8, term_writer.TROP
+                 if fracb is not None else term_writer.NO_MASK),
+                (fracb, bd.get('planck_up'), 4, term_writer.UPPER)):
+            if frtab is None:
+                continue
+            if frtab.ndim == 1:
+                plan.part(fracs, frtab)
+                plan.entry('frac_row', fracs, [mask], nterms=1)
+                continue
+            s1, s2, (r1, r2, lev) = planck_spec
+            refrat = float(sup['chi_mls'][r1 - 1, lev - 1]
+                           / sup['chi_mls'][r2 - 1, lev - 1])
+            plan.part(fracs, frtab.T)
+            plan.entry('frac_lin', fracs, [f('col' + s1), f('col' + s2),
+                                           n_eta, mask], [refrat], nterms=2)
+    return plan
+
+
+def taumol_lw_terms_plain(cs, wx, dtype, tables=None):
+    """The PyTorch writer of ``taumol_lw_terms``, the plain version of the
+    term-writer kernel: every band's key-species 2x2x2 interpolation (one
+    part, the merged [absa; absb] table), continua, minor gases and
+    cross-sections are terms of one band of the taug group; the band-1/2
+    pressure corrections are folded into their weights, as are the
+    trop/upper masks of the Planck fractions.  On CUDA tensors it counts
+    its two groups in ``term_writer.taumol_terms_cuda.fallbacks``."""
     trop = cs['trop']
     nz, ncol = trop.shape
     device = trop.device
+    if trop.is_cuda:
+        term_writer.taumol_terms_cuda.fallbacks += 2
     t = load_kdist() if tables is None else tables
     sup = data.load_numpy(data.LW_SUPPORT)
     jp, jt0, jt10 = cs['jp'], cs['jt0'], cs['jt10']

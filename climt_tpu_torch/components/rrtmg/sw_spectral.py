@@ -8,9 +8,11 @@ Key and Fu ice), clear and total sky for ``icld`` 0-3, McICA per-g-point
 clouds (``spcvmc_sw``), and ECMWF or direct aerosol optics.  taumol's
 interpolations, Rayleigh depths and solar sources are terms of three
 kernel-B groups (``fused_mix.Group``, the key species over the merged
-[absa; absb] table), one launch each for all bands; the delta-scaled
-two-stream solver and the adding method (``vrtqdr_sw``) are plain torch
-with Python loops over levels.  Layers bottom-up, columns trailing.
+[absa; absb] table), one launch each for all bands, whose terms one
+launch of the term-writer kernel (``term_writer``) writes on the card;
+the delta-scaled two-stream solver and the adding method (``vrtqdr_sw``)
+are plain torch with Python loops over levels.  Layers bottom-up, columns
+trailing.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from ... import data
 from ...utils.profiling import phase
-from . import fused_mix
+from . import fused_mix, term_writer
 
 NBANDS = 14
 NGPT = 112
@@ -200,14 +202,169 @@ def _last_true_index(cond, default):
     return torch.where(torch.any(cond, dim=0), idx, default)
 
 
+def _solar_mode(isolvar):
+    return 'ref' if isolvar < 0 else ('svar' if isolvar <= 2 else 'band')
+
+
 def taumol_sw_terms(cs, isolvar, svar_f, svar_s, svar_i,
                     svar_f_bnd, svar_s_bnd, svar_i_bnd, dtype):
     """The terms of taumol (:247) as three kernel-B groups, unlaunched:
     taug and taur, (nz, ncol, 112) once run, and the solar source sflux,
-    (ncol, 112).  Every band is one band of each group."""
+    (ncol, 112).  Every band is one band of each group.  The PyTorch
+    writer (``taumol_sw_terms_plain``) for CPU tensors, the term-writer
+    kernel (``taumol_sw_terms_cuda``) for CUDA tensors."""
+    args = (cs, isolvar, svar_f, svar_s, svar_i, svar_f_bnd, svar_s_bnd,
+            svar_i_bnd, dtype)
+    if cs['trop'].device.type == 'cpu':
+        return taumol_sw_terms_plain(*args)
+    return taumol_sw_terms_cuda(*args)
+
+
+def solar_factors(isolvar, svar_f, svar_s, svar_i, svar_f_bnd, svar_s_bnd,
+                  svar_i_bnd):
+    """The solar source's factors by ``sw_term_plan``'s slots: three a
+    band, the factor of its reference table (one of them) or of its
+    facbrght, snsptdrk and irradnce tables."""
+    mode = _solar_mode(isolvar)
+    out = []
+    for bi, bd in enumerate(BANDS):
+        if mode == 'ref':
+            out += [bd.get('sflux_scale', 1.0), 0.0, 0.0]
+        elif mode == 'svar':
+            out += [svar_f, svar_s, svar_i]
+        else:
+            out += [svar_f_bnd[bi], svar_s_bnd[bi], svar_i_bnd[bi]]
+    return [float(x) for x in out]
+
+
+def taumol_sw_terms_cuda(cs, isolvar, svar_f, svar_s, svar_i,
+                         svar_f_bnd, svar_s_bnd, svar_i_bnd, dtype):
+    """``taumol_sw_terms`` on the card: one launch of the term-writer
+    kernel (``term_writer.taumol_terms_cuda``) writes the three groups'
+    terms from ``sw_term_plan``'s entries."""
+    trop = cs['trop']
+    nz, ncol = trop.shape
+    mode = _solar_mode(isolvar)
+    t = data.load_numpy(data.SW_KDIST)
+    plan = term_writer.cached_plan(('sw', mode), t, dtype, trop.device,
+                                   lambda: sw_term_plan(mode))
+    groups = (fused_mix.Group('sw_taug', (nz, ncol), dtype, trop.device),
+              fused_mix.Group('sw_taur', (nz, ncol), dtype, trop.device),
+              fused_mix.Group(('sw_sflux', mode), (ncol,), dtype,
+                              trop.device))
+    return term_writer.taumol_terms_cuda(
+        plan, groups, cs, factors=solar_factors(
+            isolvar, svar_f, svar_s, svar_i, svar_f_bnd, svar_s_bnd,
+            svar_i_bnd))
+
+
+def sw_term_plan(solar_mode):
+    """The entries of ``taumol_sw_terms_plain`` in ``solar_mode`` ('ref',
+    'svar' or 'band'), recorded by the same walk over ``BANDS``
+    (``term_writer.TermPlan``): group 0 taug, 1 taur, 2 the solar source,
+    whose factors ``solar_factors`` gives by slot."""
+    taug, taur, sflux = 0, 1, 2
+    t = data.load_numpy(data.SW_KDIST)
+    plan = term_writer.TermPlan(3, columns=(sflux,))
+    f, i = plan.field, plan.int_field
+    no_mask, trop_mask, upper = (term_writer.NO_MASK, term_writer.TROP,
+                                 term_writer.UPPER)
+
+    def spec(s):
+        """(field ids of columns 1 and 2, the ratio) of a key-species
+        tuple."""
+        if s is None:
+            return [-1, -1], 0.0
+        if len(s) == 1:
+            return [f('col' + s[0]), -1], 0.0
+        return [f('col' + s[0]), f('col' + s[1])], s[2]
+
+    for bi, bd in enumerate(BANDS):
+        num, ng = bd['num'], NG[bi]
+
+        def tab(name, b=num):
+            return t.get('b%d_%s' % (b, name))
+
+        lo, lo_ratio = spec(bd['lo'])
+        up, up_ratio = spec(bd['up'])
+        plan.band(taug, ng)
+        have_lo = bd['lo'] is not None
+        have_up = bd['up'] is not None
+        if have_lo or have_up:
+            rows_a = 0
+            if have_lo and have_up:
+                plan.part(taug, np.concatenate([tab('absa'), tab('absb')],
+                                               axis=0))
+                rows_a = tab('absa').shape[0]
+            else:
+                plan.part(taug, tab('absa') if have_lo else tab('absb'))
+            nspa, nspb = NSPA[bi], NSPB[bi]
+            scale, kscale = bd.get('up_col_scale'), bd.get('kscale_lo')
+            plan.entry('sw_key', taug, [nspa, nspb, rows_a] + lo + up
+                       + [int(bool(scale)), int(bool(kscale))],
+                       [lo_ratio, up_ratio, scale or 0.0, kscale or 0.0],
+                       nterms=8 if (nspa == 9 or nspb == 5) else 4)
+
+        if bd['self_lo'] or bd['for_lo'] or bd['for_up']:
+            if bd['self_lo']:
+                plan.part(taug, tab('selfref'))
+                plan.entry('sw_self', taug, [i('indself'), f('selffrac'),
+                                             f('selffac'), f('colh2o')],
+                           nterms=2)
+            mask = (no_mask if bd['for_lo'] and bd['for_up']
+                    else trop_mask if bd['for_lo'] else upper)
+            plan.part(taug, tab('forref'))
+            plan.entry('sw_for', taug, [i('indfor'), f('forfrac'),
+                                        f('forfac'), f('colh2o'), mask],
+                       nterms=2)
+
+        for gas, table_name, regime in bd.get('extra', ()):
+            plan.part(taug, tab(table_name))
+            plan.entry('row_col', taug, [f('col' + gas), dict(
+                both=no_mask, lo=trop_mask, up=upper)[regime]], nterms=1)
+        if bd.get('o2cont'):
+            plan.part(taug, np.ones(ng))
+            plan.entry('row_o2', taug, [f('colo2')], nterms=1)
+
+        plan.band(taur, ng)
+        if bd['rayl'] in ('c', 'pg'):
+            plan.part(taur, tab('rayl'))
+            plan.entry('row_col', taur, [f('colmol'), no_mask], nterms=1)
+        else:  # band 24: eta-interpolated lower, raylb upper
+            plan.part(taur, tab('rayla').T)
+            plan.entry('lin_eta', taur, lo + [f('colmol'), trop_mask, 8],
+                       [lo_ratio], nterms=2)
+            plan.part(taur, tab('raylb'))
+            plan.entry('row_col', taur, [f('colmol'), upper], nterms=1)
+
+        where, neta = bd['sflux']
+        plan.band(sflux, ng)
+        key, ratio = (lo, lo_ratio) if where == 'lo' else (up, up_ratio)
+        plan.entry('sol_layer', sflux, [int(where == 'up'), bd['layreffr'],
+                                        int(bool(neta))] + key
+                   + [8 if where == 'lo' else 4], [ratio])
+        names = (['sfluxref'] if solar_mode == 'ref'
+                 else ['facbrght', 'snsptdrk', 'irradnce'])
+        for slot, name in enumerate(names):
+            if neta == 0:
+                plan.part(sflux, tab(name))
+                plan.entry('sol_row', sflux, [3 * bi + slot], nterms=1)
+            else:
+                plan.part(sflux, tab(name).T)
+                plan.entry('sol_lin', sflux, [3 * bi + slot], nterms=2)
+    return plan
+
+
+def taumol_sw_terms_plain(cs, isolvar, svar_f, svar_s, svar_i,
+                          svar_f_bnd, svar_s_bnd, svar_i_bnd, dtype):
+    """The PyTorch writer of ``taumol_sw_terms``, the plain version of the
+    term-writer kernel.  On CUDA tensors it counts its three groups in
+    ``term_writer.taumol_terms_cuda.fallbacks``."""
     trop = cs['trop']
     nz, ncol = trop.shape
     device = trop.device
+    if trop.is_cuda:
+        term_writer.taumol_terms_cuda.fallbacks += 3
     t = data.load_numpy(data.SW_KDIST)
     jp, jt0, jt10 = cs['jp'], cs['jt0'], cs['jt10']
     ltrop_idx = torch.clamp(torch.sum(trop, dim=0) - 1, min=0)
@@ -216,8 +373,7 @@ def taumol_sw_terms(cs, isolvar, svar_f, svar_s, svar_i,
     trop_f = trop.to(dtype)
     upper_f = 1.0 - trop_f
     colmol = cs['colmol']
-    solar_mode = 'ref' if isolvar < 0 else ('svar' if isolvar <= 2
-                                            else 'band')
+    solar_mode = _solar_mode(isolvar)
     taug_g = fused_mix.Group('sw_taug', (nz, ncol), dtype, device)
     taur_g = fused_mix.Group('sw_taur', (nz, ncol), dtype, device)
     sflux_g = fused_mix.Group(('sw_sflux', solar_mode), (ncol,), dtype,

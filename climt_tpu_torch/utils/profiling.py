@@ -32,7 +32,8 @@ def phase(name):
       inside ``climt.physics``; radiation
     - ``climt.gas_optics``: ``gas_coefs_lw`` + ``taumol_lw`` in
       ``rrtmg_lw_fluxes``, ``gas_coefs_sw`` + ``taumol_sw`` in
-      ``rrtmg_sw_fluxes`` (kernel B's launches); gas optics
+      ``rrtmg_sw_fluxes`` (the term writer's and kernel B's launches);
+      gas optics
     - ``climt.lw_sweep``: ``rtrn_lw`` in ``rrtmg_lw_fluxes`` (kernel A);
       LW flux sweep
     - ``climt.sw_solver``: ``spcvrt_sw``/``spcvmc_sw`` in

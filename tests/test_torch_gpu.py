@@ -20,10 +20,12 @@ import climt_tpu_torch as ct
 from climt_tpu_torch.components import emanuel_convection as E
 from climt_tpu_torch.components.rrtmg import fused_mix, rtrn_kernel
 from climt_tpu_torch.components.rrtmg import lw_spectral as TL
+from climt_tpu_torch.components.rrtmg import term_writer as TW
 from climt_tpu_torch.convert import carry_to_numpy
 from climt_tpu_torch.dycore.moist_gcm import build_moist_gcm
 
-from torch_helpers import (CONTENTION_CASES, contention_bands,
+from torch_helpers import (CONTENTION_CASES, LW_TABLE_CASES,
+                           contention_bands, term_writer_check,
                            port_example, port_lw, port_sw,
                            port_taumol_groups, radiation_columns,
                            ragged_bands, ragged_group, rel_err,
@@ -798,3 +800,92 @@ def test_profile_step_ties_ctypes_launches_to_their_spans(cuda):
     assert any('rtrn_lw_kernel' in name for name in by_name)
     assert profile_step.NO_SPAN not in rows
     assert sum(r[2] for r in rows.values()) == launches
+
+
+# chip_smoke.py's limit, in epsilons of the type, of the term writer's
+# power terms
+TERM_POWER_EPS = smoke_constant('TERM_POWER_EPS')
+
+
+def _assert_terms_match(report):
+    for name, rec in report.items():
+        assert rec['idx_mismatch'] == 0, (name, rec)
+        assert rec['max_ulp'] == 0, (name, rec)
+        assert rec['power_eps'] <= TERM_POWER_EPS, (name, rec)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('nz, ncol', [(28, 8192), (60, 32768)])
+def test_term_writer_matches_the_pytorch_writer(cuda, nz, ncol, dtype):
+    """The term-writer kernel at a T85 chunk and at rrtmg_l60's call, on
+    columns with and without a tropopause crossing and every gas varied,
+    against the PyTorch writer on the CPU on the same coefficients: one
+    launch a call, the multi-row indices equal, every weight equal but the
+    adjusted minor-gas columns' power terms, within TERM_POWER_EPS of
+    chip_smoke.py (the terms that differ are named in the report)."""
+    for call in ('lw', 'sw'):
+        before = (TW.taumol_terms_cuda.launches,
+                  TW.taumol_terms_cuda.fallbacks)
+        report = term_writer_check(call, dtype, nz, ncol, cuda)
+        assert (TW.taumol_terms_cuda.launches,
+                TW.taumol_terms_cuda.fallbacks) == (before[0] + 1,
+                                                    before[1])
+        _assert_terms_match(report)
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('call, case', [
+    ('lw', case) for case in LW_TABLE_CASES + ('wx_subset',)]
+    + [('sw', mode) for mode in ('svar', 'band')])
+def test_term_writer_cases_match_the_pytorch_writer(cuda, call, case,
+                                                    dtype):
+    """The kernel on LW tables without a minor-gas table and a fracref,
+    with eta Planck fractions, with tables that require grad, on a subset
+    of the cross-section gases, and in the SW solar modes svar and band,
+    at 28 x 512, against the PyTorch writer on the CPU."""
+    _assert_terms_match(term_writer_check(call, dtype, 28, 512, cuda, case))
+
+
+@pytest.mark.gpu
+def test_radiation_call_launches_the_term_writer_once(cuda):
+    """An LW and an SW call on a T85 chunk: one term-writer launch each,
+    no group written by the PyTorch writers."""
+    c = radiation_columns(nz=28, ncol=8192)
+    before = (TW.taumol_terms_cuda.launches, TW.taumol_terms_cuda.fallbacks)
+    port_lw(c, torch.float32, cuda)
+    port_sw(c, torch.float32, cuda)
+    assert (TW.taumol_terms_cuda.launches,
+            TW.taumol_terms_cuda.fallbacks) == (before[0] + 2, before[1])
+
+
+@pytest.mark.gpu
+def test_calibration_gradient_is_the_pytorch_writers(cuda, monkeypatch):
+    """The calibration loss and its gradient on the card, the terms of the
+    tables that require grad written by the term-writer kernel (one launch
+    per LW call, on the first call of each table set too), against the same
+    on the card with the PyTorch writer: kernel B's backward sees the same
+    indices and weights, but for the power terms' ulps and the order of
+    its atomics."""
+    from climt_tpu_torch.components.rrtmg import lw_surrogate
+    from climt_tpu_torch.tools import calibrate_lw_ktables as cal
+
+    tables = lw_surrogate.build_tables(lw_surrogate.load_calibrated_params())
+    family = cal.TRAIN[0]
+    inputs, flags = cal.case_inputs(*family, device='cpu')
+    tgt = cal.synthetic_targets(inputs, flags, tables)
+    theta = torch.as_tensor(lw_surrogate.default_params(), device=cuda)
+    args = ([(cal.case_inputs(*family, device=cuda)[0], flags, tgt)],
+            cal.tropical_inputs(device=cuda),
+            cal.tropical_inputs(co2_scale=2.0, device=cuda), theta)
+    before = TW.taumol_terms_cuda.launches
+    val, grad = cal.value_and_grad(theta, *args)
+    assert TW.taumol_terms_cuda.launches - before == 3
+    monkeypatch.setattr(TL, 'taumol_lw_terms_cuda', TL.taumol_lw_terms_plain)
+    before = TW.taumol_terms_cuda.fallbacks
+    val_p, grad_p = cal.value_and_grad(theta, *args)
+    assert TW.taumol_terms_cuda.fallbacks - before == 6
+    assert abs(float(val) - float(val_p)) <= 1e-12 * abs(float(val_p))
+    assert rel_err(grad, grad_p) <= 1e-10

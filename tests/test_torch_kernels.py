@@ -21,9 +21,13 @@ from climt_tpu.components.rrtmg.interp import mix_rows
 from climt_tpu.components.rrtmg.pallas_rtrn import rtrn_lw_fused
 from climt_tpu_torch.components.rrtmg import fused_mix, rtrn_kernel
 from climt_tpu_torch.components.rrtmg import lw_spectral as TL
+from climt_tpu_torch.components.rrtmg import sw_spectral as TS
+from climt_tpu_torch.components.rrtmg import term_writer
 
-from torch_helpers import (CONTENTION_CASES, contention_bands,
-                           ragged_bands, ragged_group, rel_err, to_torch)
+from torch_helpers import (CONTENTION_CASES, LW_TABLE_CASES,
+                           contention_bands, eval_term_plan, lw_table_case,
+                           ragged_bands, ragged_group, rel_err, solar_case,
+                           taumol_coefs, taumol_columns, to_torch)
 
 HEATFAC = 9.80665 * 8.64e4 / (1004.64 * 1e2)
 
@@ -280,3 +284,83 @@ def test_plain_backward_matches_jax_autodiff_of_mix_rows(case):
             assert not block[:, ng:].any()
             t += i.shape[0]
             k += 1
+
+
+# (call, dtype, case): the LW tables of torch_helpers.lw_table_case or a
+# subset of the cross-section gases; the SW solar modes of
+# torch_helpers.solar_case
+TERM_CASES = [(call, dtype, case)
+              for dtype in ('float32', 'float64')
+              for call, cases in (('lw', LW_TABLE_CASES + ('wx_subset',)),
+                                  ('sw', ('ref', 'svar', 'band')))
+              for case in cases]
+
+
+def _bits(x):
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+
+
+@pytest.mark.parametrize('call, dtype, case', TERM_CASES)
+def test_term_plan_gives_the_pytorch_writers_terms(call, dtype, case):
+    """The term plan that the term-writer kernel reads, evaluated by
+    torch_helpers.eval_term_plan (the kernel's arithmetic, entry by entry),
+    against taumol_lw_terms_plain / taumol_sw_terms_plain on columns with
+    and without a tropopause crossing and with jp short of the solar
+    reference layers: the same bands, parts and term counts, every
+    multi-row term's index equal and every weight equal bit for bit."""
+    dt = getattr(torch, dtype)
+    cs, wx, css = taumol_coefs(taumol_columns(), dt)
+    if call == 'lw':
+        tables = lw_table_case('surrogate' if case == 'wx_subset' else case)
+        if case == 'wx_subset':
+            wx = {gas: wx[gas] for gas in ('ccl4', 'cfc12')}
+        groups = TL.taumol_lw_terms_plain(cs, wx, dt, tables)
+        plan = TL.lw_term_plan(tables, tuple(sorted(wx)))
+        fields = dict(cs)
+        fields.update(('wx_' + gas, x) for gas, x in wx.items())
+        idx, w = eval_term_plan(plan, fields, chi=cs['chi'])
+    else:
+        isolvar, solar = solar_case(case)
+        groups = TS.taumol_sw_terms_plain(css, isolvar, *solar, dt)
+        plan = TS.sw_term_plan(case)
+        idx, w = eval_term_plan(plan, css, factors=TS.solar_factors(
+            isolvar, *solar))
+    assert len(groups) == len(plan.nterms)
+    kinds = set()
+    for g, group in enumerate(groups):
+        layout, ref_idx, ref_w = group.finish()
+        assert layout.signature == fused_mix._signature(plan.ngs[g],
+                                                        plan.parts[g])
+        many = torch.as_tensor([rows > 1 for _, rows in layout.terms],
+                               dtype=torch.bool)
+        assert torch.equal(idx[g][many], ref_idx[many])
+        assert torch.equal(_bits(w[g]), _bits(ref_w))
+        kinds.update(r[0] for r in plan.records if r[1] == g)
+    if call == 'lw' and case == 'eta_fracs':
+        assert term_writer.KIND['frac_lin'] in kinds
+    if call == 'lw':
+        trop = cs['trop']
+        assert bool(trop.all(0).any()) and bool((~trop).all(0).any())
+
+
+def test_term_kinds_match_the_kernel_source():
+    """term_writer.KIND and RECORD are csrc/taumol_terms.cu's."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(term_writer.__file__), '..',
+                            '..', 'csrc', 'taumol_terms.cu')).read()
+    body = re.search(r'enum Kind : int \{(.*?)\};', src, re.S).group(1)
+    found = {re.sub(r'(?<!^)([A-Z])', r'_\1', m.group(1)).lower(): int(
+        m.group(2)) for m in re.finditer(r'k(\w+) = (\d+)', body)}
+    assert found == term_writer.KIND
+    assert int(re.search(r'kRecord = (\d+)', src).group(1)) == \
+        term_writer.RECORD
+
+
+def test_term_writer_refuses_cpu_fields():
+    cs, wx, _ = taumol_coefs(taumol_columns(nz=4, ncol=6), torch.float32)
+    plan = TL.lw_term_plan(TL.load_kdist(), tuple(sorted(wx)))
+    plan.finish(torch.float32, 'cpu')
+    groups = (fused_mix.Group('test_refuses', (4, 6), torch.float32, 'cpu'),)
+    with pytest.raises(ValueError):
+        term_writer.taumol_terms_cuda(plan, groups, cs, cs['chi'])

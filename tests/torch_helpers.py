@@ -1471,3 +1471,404 @@ def card_timing(rank, world, device, meshes):
         out[mode] = rec
         del carries
     return out
+
+
+def taumol_columns(nz=28, ncol=48, seed=7):
+    """Columns for the gas optics' terms, as float64 numpy arrays, in
+    three kinds a third each: surface to 0.3 hPa (a tropopause crossing),
+    surface to 300 hPa (troposphere only: no crossing, and jp never
+    reaches the upper bands' solar reference layers) and 90 to 0.3 hPa
+    (above the tropopause only).  Every gas varies by column: CO2 0.5 to 4
+    times 355 ppm and N2O 0 to 3 times 0.32 ppm, so some adjusted minor
+    columns take the power law; CH4, CO2 floored at zero in a few
+    columns, the CFCs and CCl4."""
+    rng = np.random.RandomState(seed)
+    kind = np.arange(ncol) % 3
+    p_top = np.array([0.3, 300.0, 0.3])[kind]
+    p_bot = np.array([1013.0, 1013.0, 90.0])[kind] * (
+        1.0 + 0.01 * rng.randn(ncol))
+    frac = np.linspace(0.0, 1.0, nz + 1)[:, None]
+    plev = np.exp(np.log(p_bot) + frac * (np.log(p_top) - np.log(p_bot)))
+    play = 0.5 * (plev[:-1] + plev[1:])
+    tlay = np.maximum(300.0 - 60.0 * (1 - play / 1013.0) / 0.8, 205.0) * (
+        1.0 + 0.01 * rng.randn(nz, ncol))
+    tlev = np.concatenate([tlay[:1] + 2.0, 0.5 * (tlay[:-1] + tlay[1:]),
+                           tlay[-1:]])
+
+    def per_col(lo, hi):
+        return np.repeat(rng.uniform(lo, hi, ncol)[None], nz, 0)
+
+    co2 = 355e-6 * per_col(0.5, 4.0)
+    co2[:, :2] = 0.0
+    return dict(
+        play=play, plev=plev, tlay=tlay, tlev=tlev,
+        tsfc=290.0 + 10.0 * rng.rand(ncol),
+        h2o=0.016 * (play / 1013.0) ** 3 * per_col(0.5, 1.5),
+        o3=5e-6 * np.exp(-0.5 * ((np.log(play) - np.log(20.0)) / 1.2) ** 2),
+        co2=co2, ch4=1.7e-6 * per_col(0.0, 2.0),
+        n2o=0.32e-6 * per_col(0.0, 3.0), o2=np.full_like(play, 0.21),
+        cfc11=2.6e-10 * per_col(0.0, 2.0), cfc12=5.0e-10 * per_col(0.0, 2.0),
+        cfc22=1.0e-10 * per_col(0.0, 2.0), ccl4=1.0e-10 * per_col(0.0, 2.0),
+        emis=np.ones((16, ncol)), nz=nz, ncol=ncol)
+
+
+def taumol_coefs(c, dtype, device='cpu'):
+    """(cs, wx, css): setcoef's LW coefficients and cross-section amounts
+    and the SW coefficients of columns ``c`` (``taumol_columns``)."""
+    from climt_tpu_torch.components.rrtmg import lw_spectral as TL
+    from climt_tpu_torch.components.rrtmg import sw_spectral as TS
+    t = {k: to_torch(v, dtype, device) for k, v in c.items()
+         if isinstance(v, np.ndarray)}
+    cs, wx, _ = TL.gas_coefs_lw(
+        t['play'], t['plev'], t['tlay'], t['tlev'], t['tsfc'], t['emis'],
+        t['h2o'], t['o3'], t['co2'], t['ch4'], t['n2o'], t['o2'],
+        t['cfc11'], t['cfc12'], t['cfc22'], t['ccl4'], G, AVOG)
+    css = TS.gas_coefs_sw(t['play'], t['plev'], t['tlay'], t['h2o'],
+                          t['o3'], t['co2'], t['ch4'], t['n2o'], t['o2'],
+                          G, AVOG)
+    return cs, wx, css
+
+
+LW_TABLE_CASES = ('surrogate', 'pruned', 'eta_fracs', 'grad')
+
+
+def lw_table_case(name):
+    """LW k-tables for the term tests: the installed ones; those without
+    band 1's lower N2 table and band 3's upper Planck fractions; with
+    (ng, 9) and (ng, 5) Planck fractions in every band that has their
+    eta species (the AER layout); or built by ``lw_surrogate`` from
+    parameters that require grad."""
+    from climt_tpu_torch.components.rrtmg import lw_spectral as TL
+    from climt_tpu_torch.components.rrtmg import lw_surrogate
+    t = TL.load_kdist()
+    if name == 'surrogate':
+        return t
+    if name == 'pruned':
+        return {k: v for k, v in t.items()
+                if k not in ('b1_ka_mn2', 'b3_fracrefb')}
+    if name == 'eta_fracs':
+        rng = np.random.RandomState(11)
+        out = dict(t)
+        for bd in TL.BANDS_LW:
+            for side, neta in (('lo', 9), ('up', 5)):
+                key = 'b%d_fracref%s' % (bd['num'], 'a' if side == 'lo'
+                                         else 'b')
+                if bd.get('planck_' + side) and key in t:
+                    out[key] = rng.rand(t[key].shape[0], neta)
+        return out
+    theta = torch.as_tensor(lw_surrogate.load_calibrated_params())
+    return lw_surrogate.build_tables(theta.requires_grad_(True))
+
+
+def eval_term_plan(plan, fields, chi=None, factors=()):
+    """A term plan (``term_writer.TermPlan``) evaluated in PyTorch, entry by
+    entry, with the arithmetic of csrc/taumol_terms.cu in its order: per
+    group the (terms, *cells) index and weight pair.  A one-row part's
+    term gets no index (the kernel writes none): -1 there."""
+    from climt_tpu_torch.components.rrtmg import term_writer as TW
+    trop = fields['trop']
+    nz, ncol = trop.shape
+    dtype = fields[plan.fields[0]].dtype
+    kinds = {v: k for k, v in TW.KIND.items()}
+    idx, w = [], []
+    for g, n in enumerate(plan.nterms):
+        cells = (ncol,) if g in plan.columns else (nz, ncol)
+        idx.append(torch.full((n,) + cells, -1, dtype=torch.int32))
+        w.append(torch.zeros((n,) + cells, dtype=dtype))
+    trop_f = trop.to(dtype)
+    upper_f = 1.0 - trop_f
+    F = [fields[name] for name in plan.fields]
+    I = [fields[name] for name in plan.int_fields]
+    fac = ((F[0], F[1]), (F[2], F[3]))
+    jp, jp0, jt0, jt10 = I[:4]
+    corr = None
+    lay = js_sol = fs_sol = None
+
+    def masked(x, mask):
+        if mask == TW.TROP:
+            return torch.where(trop, x, 0.0)
+        return x if mask == TW.NO_MASK else torch.where(~trop, x, 0.0)
+
+    def scaled(x):
+        return x if corr is None else x * corr
+
+    def eta(parm, n):
+        mult = n * torch.clamp(parm, max=1.0 - 1.0e-6)
+        js = torch.trunc(mult).to(torch.int32)
+        return js, mult - js
+
+    def lin(g, t, i, frac, weight=None):
+        idx[g][t], idx[g][t + 1] = i, i + 1
+        if weight is None:
+            w[g][t], w[g][t + 1] = 1.0 - frac, frac
+        else:
+            w[g][t], w[g][t + 1] = (1.0 - frac) * weight, frac * weight
+
+    for rec in plan.records:
+        kind, g, t, p, c = (kinds[rec[0]], rec[1], rec[2], rec[3:-1],
+                            plan.consts[rec[-1]:])
+        if kind == 'lw_band':
+            pavel = F[p[1]]
+            if p[0] == 1:
+                lo = torch.where(pavel < 250.0,
+                                 1.0 - 0.15 * (250.0 - pavel) / 154.4, 1.0)
+                corr = torch.where(trop, lo, 1.0 - 0.15 * (pavel / 95.6))
+            elif p[0] == 2:
+                corr = torch.where(trop, 1.0 - 0.05 * (pavel - 100.0) / 900.0,
+                                   torch.ones_like(pavel))
+            else:
+                corr = None
+        elif kind in ('lw_key', 'sw_key'):
+            nspa, nspb, rows_a = p[:3]
+            sides = []
+            for s, n_eta, nsp in ((0, 8, nspa), (1, 4, nspb)):
+                if kind == 'lw_key':
+                    c1, c2, r0, r1 = p[3 + 4 * s:7 + 4 * s]
+                else:
+                    c1, c2 = p[3 + 2 * s:5 + 2 * s]
+                if c1 < 0:
+                    sides.append(None)
+                    continue
+                zi, zf = torch.zeros_like(jp), torch.zeros_like(F[c1])
+                if c2 < 0:
+                    sc = (F[c1], F[c1])
+                    js, fs = (zi, zi), (zf, zf)
+                else:
+                    if kind == 'lw_key':
+                        sc = (F[c1] + F[r0] * F[c2], F[c1] + F[r1] * F[c2])
+                    else:
+                        sc = (F[c1] + c[s] * F[c2],) * 2
+                    e = [eta(F[c1] / x, n_eta) for x in sc]
+                    js, fs = (e[0][0], e[1][0]), (e[0][1], e[1][1])
+                if kind == 'sw_key':
+                    if s == 1 and p[7]:
+                        sc = (sc[0] * c[2],) * 2
+                    js, fs = (js[0], js[0]), (fs[0], fs[0])
+                sides.append((sc, js, fs, nsp))
+            lo, up = sides
+            sc = []
+            for side in (0, 1):
+                if lo and up:
+                    x = torch.where(trop, lo[0][side], up[0][side])
+                elif lo:
+                    x = torch.where(trop, lo[0][side], 0.0)
+                else:
+                    x = torch.where(trop, 0.0, up[0][side])
+                if kind == 'sw_key' and p[8]:
+                    x = torch.where(trop, x * c[3], x)
+                sc.append(scaled(x) if kind == 'lw_key' else x)
+            base = [((jp0 * 5 + jt0), ((jp0 + 1) * 5 + jt10)),
+                    (((jp - 13) * 5 + jt0), ((jp - 12) * 5 + jt10))]
+            tt = t
+            for side in (0, 1):
+                for nsp_off in (0, 1):
+                    for e in (0, 1):
+                        if e and nspa != 9 and nspb != 5:
+                            continue
+                        parts = []
+                        for s, sd, full in ((0, lo, 9), (1, up, 5)):
+                            if sd is None:
+                                parts.append(None)
+                                continue
+                            scs, js, fs, nsp = sd
+                            has_eta = nsp == full
+                            fse = fs[side] if has_eta else torch.zeros_like(
+                                fac[0][0])
+                            wt = fac[side][nsp_off] * (fse if e else
+                                                       (1.0 - fse))
+                            off = e if (kind == 'sw_key' or has_eta) else 0
+                            ix = (base[s][side] * nsp + js[side]
+                                  + (nsp_off * nsp + off))
+                            parts.append((ix, wt))
+                        if lo and up:
+                            ix = torch.where(trop, parts[0][0],
+                                             rows_a + parts[1][0])
+                            wt = torch.where(trop, parts[0][1], parts[1][1])
+                        elif lo:
+                            ix, wt = parts[0][0], torch.where(
+                                trop, parts[0][1], 0.0)
+                        else:
+                            ix, wt = parts[1][0], torch.where(
+                                trop, 0.0, parts[1][1])
+                        idx[g][tt], w[g][tt] = ix, wt * sc[side]
+                        tt += 1
+        elif kind == 'lw_self':
+            lin(g, t, I[p[0]], F[p[1]],
+                scaled(torch.where(trop, F[p[2]], 0.0)))
+        elif kind == 'lw_for':
+            x = F[p[2]]
+            x = x if p[3] == TW.NO_MASK else x * (
+                trop_f if p[3] == TW.TROP else upper_f)
+            lin(g, t, I[p[0]], F[p[1]], scaled(x))
+        elif kind == 'lw_minor':
+            col = F[p[3]]
+            if p[2] == 0:
+                amount = col * F[p[4]]
+            else:
+                thresh, base, expo = c[:3]
+                chi_ref = chi[p[7]][jp0 + 1]
+                rat = col / (1.0e-20 * F[p[6]]) / chi_ref
+                adj = (base + torch.clamp(rat - base, min=1e-30) ** expo) \
+                    * chi_ref * F[p[6]] * 1.0e-20
+                amount = torch.where(rat > thresh, adj, col)
+            lin(g, t, I[p[0]], F[p[1]], scaled(masked(amount, p[5])))
+        elif kind == 'lw_wx':
+            w[g][t] = scaled(masked(F[p[0]], p[1]))
+        elif kind == 'frac_row':
+            w[g][t] = (1.0 if p[0] == TW.NO_MASK else
+                       trop_f if p[0] == TW.TROP else upper_f)
+        elif kind == 'frac_lin':
+            comb = F[p[0]] + c[0] * F[p[1]]
+            js, fs = eta(F[p[0]] / comb, p[2])
+            lin(g, t, js, fs, None if p[3] == TW.NO_MASK else
+                trop_f if p[3] == TW.TROP else upper_f)
+        elif kind == 'sw_self':
+            lin(g, t, I[p[0]], F[p[1]],
+                torch.where(trop, F[p[2]], 0.0) * F[p[3]])
+        elif kind == 'sw_for':
+            x = F[p[2]] * F[p[3]]
+            x = x if p[4] == TW.NO_MASK else x * (
+                trop_f if p[4] == TW.TROP else upper_f)
+            lin(g, t, I[p[0]], F[p[1]], x)
+        elif kind == 'row_col':
+            x = F[p[0]]
+            w[g][t] = x if p[1] == TW.NO_MASK else x * (
+                trop_f if p[1] == TW.TROP else upper_f)
+        elif kind == 'row_o2':
+            w[g][t] = 4.35e-4 * F[p[0]] / 700.0
+        elif kind == 'lin_eta':
+            js, fs = eta(F[p[0]] / (F[p[0]] + c[0] * F[p[1]]), p[4])
+            lin(g, t, js, fs, F[p[2]] * (trop_f if p[3] == TW.TROP
+                                         else upper_f))
+        elif kind == 'sol_layer':
+            tr, jj = trop.tolist(), jp.tolist()
+            L = p[1]
+            lay = []
+            for col in range(ncol):
+                last = -1
+                if p[0] == 0:
+                    ltrop = max(sum(tr[k][col] for k in range(nz)) - 1, 0)
+                    for k in range(nz - 1):
+                        if (tr[k][col] and jj[k][col] < L
+                                and jj[k + 1][col] >= L):
+                            last = k
+                    lay.append(min((last if last >= 0 else ltrop) + 1,
+                                   ltrop))
+                else:
+                    for k in range(1, nz):
+                        if (not tr[k][col] and jj[k][col] >= L
+                                and jj[k - 1][col] < L):
+                            last = k
+                    lay.append(last if last >= 0 else nz - 1)
+            lay = torch.as_tensor(lay)[None]
+            if p[2]:
+                c1 = torch.gather(F[p[3]], 0, lay)[0]
+                c2 = torch.gather(F[p[4]], 0, lay)[0]
+                js_sol, fs_sol = eta(c1 / (c1 + c[0] * c2), p[5])
+        elif kind == 'sol_row':
+            w[g][t] = float(factors[p[0]])
+        elif kind == 'sol_lin':
+            lin(g, t, js_sol, fs_sol, float(factors[p[0]]))
+        else:
+            raise ValueError(kind)
+    return idx, w
+
+
+def solar_case(mode):
+    """(isolvar, the six factors of ``solar_variability``) of an SW solar
+    mode ('ref', 'svar', 'band'); in 'band' the three tables' factors
+    are made distinct (``solar_variability`` gives them one array), so
+    that a term reading another table's factor shows."""
+    from climt_tpu_torch.components.rrtmg import sw_spectral as TS
+    isolvar = dict(ref=-1, svar=1, band=3)[mode]
+    solar = list(TS.solar_variability(isolvar, 1360.85)[:6])
+    if mode == 'band':
+        solar[3:] = [np.asarray(x) * f
+                     for x, f in zip(solar[3:], (1.0, 1.1, 1.2))]
+    return isolvar, solar
+
+
+def _term_ulps(a, b):
+    """Per element, the distance in units in the last place between two
+    float tensors of one type."""
+    it = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return (a.view(it).long() - b.view(it).long()).abs()
+
+
+def power_terms(plan):
+    """{(group, term): name} of the terms whose weight holds the power of
+    an adjusted minor-gas column (adjn2o, adjco2)."""
+    from climt_tpu_torch.components.rrtmg import term_writer as TW
+    out, band = {}, 0
+    for rec in plan.records:
+        if rec[0] == TW.KIND['lw_band']:
+            band += 1
+        if rec[0] == TW.KIND['lw_minor'] and rec[5] == 1:
+            name = 'LW band %d %s %s' % (
+                band, plan.fields[rec[6]][3:],
+                'lower' if rec[8] == TW.TROP else 'upper')
+            out[(rec[1], rec[2])] = out[(rec[1], rec[2] + 1)] = name
+    return out
+
+
+def term_writer_check(call, dtype, nz, ncol, device, case=None):
+    """The term-writer kernel (``taumol_lw_terms_cuda`` or
+    ``taumol_sw_terms_cuda``) on ``taumol_columns(nz, ncol)`` against the
+    PyTorch writer on the CPU on the same coefficients, by group name:
+    terms, multi-row indices that differ, the largest absolute difference
+    of a weight (0 only where every weight is equal), the largest ulp
+    distance of a weight outside the power terms and of one inside them
+    (``power_terms``), the largest relative difference there in epsilons
+    of the type, and the names of the power terms that differ.
+    ``case``: an LW table case (``lw_table_case``) or 'wx_subset'; an SW
+    solar mode ('ref', 'svar', 'band')."""
+    from climt_tpu_torch.components.rrtmg import lw_spectral as TL
+    from climt_tpu_torch.components.rrtmg import sw_spectral as TS
+    cs, wx, css = taumol_coefs(taumol_columns(nz, ncol), dtype, device)
+
+    def cpu(d):
+        return {k: v.cpu() if torch.is_tensor(v) else v for k, v in d.items()}
+
+    if call == 'lw':
+        case = case or 'surrogate'
+        tables = lw_table_case('surrogate' if case == 'wx_subset' else case)
+        if case == 'wx_subset':
+            wx = {gas: wx[gas] for gas in ('ccl4', 'cfc12')}
+        got = TL.taumol_lw_terms_cuda(cs, wx, dtype, tables)
+        ref = TL.taumol_lw_terms_plain(cpu(cs), cpu(wx), dtype, tables)
+        plan = TL.lw_term_plan(tables, tuple(sorted(wx)))
+        names = ('lw_taug', 'lw_fracs')
+    else:
+        case = case or 'ref'
+        isolvar, solar = solar_case(case)
+        got = TS.taumol_sw_terms_cuda(css, isolvar, *solar, dtype)
+        ref = TS.taumol_sw_terms_plain(cpu(css), isolvar, *solar, dtype)
+        plan = TS.sw_term_plan(case)
+        names = ('sw_taug', 'sw_taur', 'sw_sflux')
+    power = power_terms(plan)
+    report = {}
+    for g, (name, gg, rg) in enumerate(zip(names, got, ref)):
+        layout, ri, rw = rg.finish()
+        _, gi, gw = gg.finish()
+        many = torch.as_tensor([rows > 1 for _, rows in layout.terms])
+        gw = gw.cpu()
+        ulps = _term_ulps(gw, rw).reshape(layout.nterms, -1).amax(1)
+        rel = ((gw - rw).abs() / rw.abs().clamp(min=torch.finfo(
+            rw.dtype).tiny)).reshape(layout.nterms, -1).amax(1) / \
+            torch.finfo(rw.dtype).eps
+        is_power = torch.as_tensor([(g, t) in power
+                                    for t in range(layout.nterms)],
+                                   dtype=torch.bool)
+        report[name] = dict(
+            terms=layout.nterms,
+            idx_mismatch=int((gi.cpu()[many] != ri[many]).sum()),
+            max_abs_err=float((gw - rw).abs().max()),
+            max_ulp=int(ulps[~is_power].max()) if bool((~is_power).any())
+            else 0,
+            power_max_ulp=int(ulps[is_power].max()) if bool(is_power.any())
+            else 0,
+            power_eps=float(rel[is_power].max()) if bool(is_power.any())
+            else 0.0,
+            power_terms=sorted({power[(g, t)] for t in range(layout.nterms)
+                                if (g, t) in power and int(ulps[t]) > 0}))
+    return report
