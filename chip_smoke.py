@@ -209,10 +209,10 @@ Phases, each of which fails loudly (no exception is turned into exit 0):
      prints that it needs 2 or more cards and does not fail;
  30. (run after phase 4) the term-writer kernel (csrc/taumol_terms.cu) at
      rrtmg_l60's 60 x 32768 and at a T85 chunk, float32: each LW and SW
-     call against the PyTorch writer on the CPU (TERM_POWER_EPS), one
+     call against its plain version on the CPU (TERM_POWER_EPS), one
      launch a call, device ms beside its byte bound, host ms a call and
-     the PyTorch writer's ms; phase 6 fails unless the T85 steps launch it
-     twice a radiation chunk and the PyTorch writers write no group;
+     the plain version's ms on the card; phase 6 fails unless the T85
+     steps launch it twice a radiation chunk;
  29. (run after phase 6) the convection kernel (csrc/emanuel.cu) on the
      emanuel_convect calls of the moist GCM: at T85 float32 after 6 and
      36 steps, and at 32x16x10 float64 at the start and after 6 steps;
@@ -362,7 +362,7 @@ KTABLE_SMALL = (16, 8, 8)
 # calibration's loss and gradient on the card against the CPU; the Adam
 # steps taken on the card
 BWD_TOL = {'float32': 2e-5, 'float64': 1e-13}
-# the term-writer kernel against the PyTorch writer on the CPU: indices and
+# the term-writer kernel against its plain version on the CPU: indices and
 # weights equal but those of the adjusted minor-gas columns' power terms,
 # whose relative difference stays within this many epsilons of the type:
 # the two powers differ by up to three ulps (CUDA's pow is within two of
@@ -3404,12 +3404,12 @@ def host_ms(fn, reps, torch):
 def term_writer_phase(dev, card):
     """Phase 30: the term-writer kernel (csrc/taumol_terms.cu) alone, float32,
     at rrtmg_l60's call (60 x 32768) and at a T85 chunk (28 x 8192) of
-    torch_helpers.taumol_columns: each LW and SW call against the PyTorch
-    writer on the CPU (indices and weights equal, the power terms within
-    TERM_POWER_EPS), one launch a call, its device ms (back-to-back calls
-    under CUDA events) beside its byte bound, its host ms a call, and the
-    PyTorch writer's ms on the card.  Returns the kernel line's record at
-    the T85 chunk, LW and SW summed."""
+    torch_helpers.taumol_columns: each LW and SW call against its plain
+    version (term_writer.taumol_terms_plain) on the CPU (indices and weights
+    equal, the power terms within TERM_POWER_EPS), one launch a call, its
+    device ms (back-to-back calls under CUDA events) beside its byte bound,
+    its host ms a call, and the plain version's ms on the card.  Returns the
+    kernel line's record at the T85 chunk, LW and SW summed."""
     import torch
     from climt_tpu_torch.components.rrtmg import lw_spectral as LW
     from climt_tpu_torch.components.rrtmg import sw_spectral as SW
@@ -3423,24 +3423,21 @@ def term_writer_phase(dev, card):
         total = dict(max_abs_err=0.0, ms=0.0, host_ms=0.0, plain_ms=0.0,
                      bound_ms=0.0, library_ms=None)
         for call in ('lw', 'sw'):
-            before = (TW.taumol_terms_cuda.launches,
-                      TW.taumol_terms_cuda.fallbacks)
+            before = TW.taumol_terms_cuda.launches
             report = term_writer_check(call, f32, nz, ncol, dev)
-            launched = (TW.taumol_terms_cuda.launches - before[0],
-                        TW.taumol_terms_cuda.fallbacks - before[1])
-            if launched != (1, 0):
-                fail('term writer %s %dx%d: %d launches and %d groups of '
-                     'the PyTorch writer, not one launch' % (
-                         call, nz, ncol, launched[0], launched[1]))
+            launched = TW.taumol_terms_cuda.launches - before
+            if launched != 1:
+                fail('term writer %s %dx%d: %d launches, not one' % (
+                    call, nz, ncol, launched))
             for name, r in report.items():
                 if (r['idx_mismatch'] or r['max_ulp']
                         or r['power_eps'] > TERM_POWER_EPS):
-                    fail('term writer %s %dx%d: %s differs from the '
-                         'PyTorch writer: %s' % (call, nz, ncol, name, r))
+                    fail('term writer %s %dx%d: %s differs from its plain '
+                         'version: %s' % (call, nz, ncol, name, r))
                 total['max_abs_err'] = max(total['max_abs_err'],
                                            r['max_abs_err'])
-                phase(30, 'term writer %s %dx%d f32 %s: %d terms equal to the '
-                      'PyTorch writer on the CPU but the power terms, within '
+                phase(30, 'term writer %s %dx%d f32 %s: %d terms equal to its '
+                      'plain version on the CPU but the power terms, within '
                       '%d ulps (%.2f eps, limit %d; %s), largest weight '
                       'difference %.3g' % (
                           call, nz, ncol, name, r['terms'],
@@ -3451,20 +3448,23 @@ def term_writer_phase(dev, card):
         cs, wx, css = taumol_coefs(taumol_columns(nz, ncol), f32, dev)
         plans = dict(lw=LW.lw_term_plan(LW.load_kdist(), tuple(sorted(wx))),
                      sw=SW.sw_term_plan('ref'))
-        runs = dict(
-            lw=(lambda: LW.taumol_lw_terms_cuda(cs, wx, f32),
-                lambda: LW.taumol_lw_terms_plain(cs, wx, f32)),
-            sw=(lambda: SW.taumol_sw_terms_cuda(css, -1, *solar, f32),
-                lambda: SW.taumol_sw_terms_plain(css, -1, *solar, f32)))
-        for call, (kernel, plain) in runs.items():
-            ms = cuda_ms(kernel, 20, torch, queued=True)
-            h_ms = host_ms(kernel, 20, torch)
-            p_ms = cuda_ms(plain, 3, torch)
+        runs = dict(lw=lambda: LW.taumol_lw_terms(cs, wx, f32),
+                    sw=lambda: SW.taumol_sw_terms(css, -1, *solar, f32))
+        for call, run in runs.items():
+            ms = cuda_ms(run, 20, torch, queued=True)
+            h_ms = host_ms(run, 20, torch)
+            # the same call with its terms written by the plain version
+            kernel_route, TW.taumol_terms = (TW.taumol_terms,
+                                             TW.taumol_terms_plain)
+            try:
+                p_ms = cuda_ms(run, 3, torch)
+            finally:
+                TW.taumol_terms = kernel_route
             nbytes = term_writer_bytes(plans[call], nz, ncol, 4)
             b_ms, _ = bound(nbytes, 0)
             phase(30, 'term writer %s %dx%d f32: %.4f ms device, %.4f ms '
                   'host a call; bound %.4f ms (bytes, %.1f MB), %.0f%% of '
-                  'bound; PyTorch writer %.3f ms a call; on %s' % (
+                  'bound; plain version %.3f ms a call; on %s' % (
                       call, nz, ncol, ms, h_ms, b_ms, nbytes / 1e6,
                       100.0 * b_ms / ms, p_ms, card))
             for key, val in (('ms', ms), ('host_ms', h_ms),
@@ -3633,7 +3633,7 @@ def main():
     fused_mix.mix_groups_cuda.launches = 0
     rtrn_kernel.rtrn_lw_cuda.launches = 0
     E.emanuel_convect_cuda.launches = 0
-    TW.taumol_terms_cuda.launches = TW.taumol_terms_cuda.fallbacks = 0
+    TW.taumol_terms_cuda.launches = 0
     step_s = []
     diag = None
     for _ in range(T85_STEPS):
@@ -3647,12 +3647,10 @@ def main():
                 'terms': TW.taumol_terms_cuda.launches}
     refreshes = sum(1 for k in range(T85_STEPS) if k % T85['rad_every'] == 0)
     chunks = 256 * 128 // T85['rad_col_chunk']
-    if (launches['terms'] != 2 * chunks * refreshes
-            or TW.taumol_terms_cuda.fallbacks):
+    if launches['terms'] != 2 * chunks * refreshes:
         fail('T85: the term writer launched %d times in %d radiation '
-             'refreshes of %d chunks (not 2 a chunk), the PyTorch writers '
-             'wrote %d groups' % (launches['terms'], refreshes, chunks,
-                                  TW.taumol_terms_cuda.fallbacks))
+             'refreshes of %d chunks (not 2 a chunk)' % (
+                 launches['terms'], refreshes, chunks))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     T_grid = dycore.sht.synthesize(carry[1]['T'])
     for key, val in [('T', T_grid)] + list(diag.items()):
@@ -3682,13 +3680,11 @@ def main():
         T85_STEPS, card, ' '.join('%.4f' % s for s in step_s)))
     phase(6, 'T85: %.4f s/step, %.4g gridpoint-steps/s; radiation steps '
           '%s s, others %.4f s; peak memory %.2f GB; launches A=%d B=%d '
-          'convection=%d term writer=%d (PyTorch writer groups %d); T '
-          'in [%.1f, %.1f] K; on %s' % (
+          'convection=%d term writer=%d; T in [%.1f, %.1f] K; on %s' % (
               mean_s, gps, ' '.join('%.4f' % s for s in rad_steps),
               sum(other) / len(other), peak_gb, launches['A'],
               launches['B'], launches['convection'], launches['terms'],
-              TW.taumol_terms_cuda.fallbacks, float(T_grid.min()),
-              float(T_grid.max()), card))
+              float(T_grid.min()), float(T_grid.max()), card))
 
     # breakdown of one radiation step (outside the counted run)
     prev, now, grids, aux, k = carry

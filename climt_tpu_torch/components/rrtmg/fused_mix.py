@@ -71,8 +71,9 @@ the sums stay in registers; each warp tile's slice of ``gout`` is read
 coalesced and transposed through shared memory.  The grid is (band,
 run of 512 cells), bands fastest, so the blocks of every band on one run
 go out together and read its ``gout`` from L2.  The weights never carry
-a graph (the taumol code writes them with ``out=``), and a weight that
-requires grad is refused on the card.  A layout packed from tables that
+a graph (taumol's term writers refuse fields that require grad, setcoef's
+Planck group writes with ``out=``), and a weight that requires grad is
+refused on the card.  A layout packed from tables that
 require grad is never cached: each call packs afresh, so one step's graph
 is never handed to another.  On the CPU the plain version is
 differentiated by autograd itself.
@@ -336,11 +337,11 @@ def mix_groups(layout, idx, w):
 class Group:
     """The terms of one output, written in place for one launch.
 
-    A caller opens each band with ``band(ng)``, each part of it with
-    ``part(table)``, and writes the part's terms through ``slot()`` (an
-    index and a weight view to fill with ``out=``), ``lin`` or ``row``;
-    or it declares every band and part at once with ``declare`` and a
-    kernel writes the terms (``term_writer``).  ``run()`` launches.  The
+    taumol's groups declare every band and part at once with ``declare``
+    and ``term_writer.taumol_terms`` writes their terms; setcoef's Planck
+    group opens its band with ``band(ng)``, its part with ``part(table)``
+    and writes the part's terms through ``lin`` (or ``slot()``, an index
+    and a weight view to fill with ``out=``).  ``run()`` launches.  The
     packed layout is cached under ``key``, with ``source``, the object the
     caller takes its tables from (the LW k-table dict; None for fixed
     tables): on the first call, or when the cached layout was packed from
@@ -375,7 +376,7 @@ class Group:
 
     def declare(self, ngs, parts):
         """Every band and part at once, the parts' terms written elsewhere
-        (by the term-writer kernel, ``term_writer.taumol_terms_cuda``):
+        (by ``term_writer.taumol_terms``):
         ``ngs`` the bands' widths, ``parts`` (band, table, nterms) in term
         order.  ``finish()`` then allocates the (terms, *cells) pair
         unwritten."""
@@ -417,14 +418,6 @@ class Group:
         else:
             torch.mul(frac, weight, out=w_hi)
             torch.mul(1.0 - frac, weight, out=w_lo)
-
-    def row(self, weight):
-        """A one-row part's term: the kernel reads no index for it."""
-        w = self.slot()[1]
-        if isinstance(weight, torch.Tensor):
-            w.copy_(weight)
-        else:
-            w.fill_(weight)
 
     def finish(self):
         """(layout, idx, w) of the written terms, packing the tables on

@@ -9,14 +9,14 @@ inflag/iceflag/liqflag of ``cldprop_lw``, McICA per-g-point clouds
 interpolation of taumol (and setcoef's Planck functions) is a term of a
 kernel-B group (``fused_mix.Group``): a direct gather over the merged
 [absa; absb] table, the JAX package's f64 path, with one launch for all
-bands of taug and one for the Planck fractions.  On the card one launch
-of the term-writer kernel (``term_writer``) writes both groups' terms,
-which the PyTorch writer writes term by term on the CPU.  The flux
-integration goes through kernel A (``rtrn_kernel.rtrn_lw_fused``) exactly
-where the JAX package takes its Pallas kernel (lw_spectral.py:772-773):
-float32, analytic transmittance, no idrv, band clouds; every other
-configuration runs the general sweep here in plain PyTorch, as JAX runs it
-in XLA.
+bands of taug and one for the Planck fractions.  Both groups' terms come
+from one walk of the band table (``lw_term_plan``), which one launch of
+the term-writer kernel (``term_writer``) evaluates on the card and its
+plain version on the CPU.  The flux integration goes through kernel A
+(``rtrn_kernel.rtrn_lw_fused``) exactly where the JAX package takes its
+Pallas kernel (lw_spectral.py:772-773): float32, analytic transmittance,
+no idrv, band clouds; every other configuration runs the general sweep
+here in plain PyTorch, as JAX runs it in XLA.
 
 Layout as in the JAX module: layers bottom-up, columns trailing, g-points
 innermost, taug (nz, ncol, 140).  The gas k-tables are chosen as the JAX
@@ -320,46 +320,6 @@ def setcoef_lw(pavel, tavel, tz, tbound, semiss, coldry, wkl, wbroad,
     return out
 
 
-def _eta(specparm, n_eta):
-    specmult = n_eta * torch.clamp(specparm, max=ONEMINUS)
-    js0 = _trunc_int(specmult)
-    return js0, specmult - js0
-
-
-def _key_spec(spec, cs, suffix=''):
-    """(speccomb, specparm) for a key-species tuple (:357)."""
-    if spec is None:
-        return None, None
-    c1 = cs['col' + spec[0]]
-    if len(spec) == 1:
-        return c1, None
-    speccomb = c1 + cs['rat_' + spec[2] + suffix] * cs['col' + spec[1]]
-    return speccomb, c1 / speccomb
-
-
-def _adjusted_column(gas, mode, cs):
-    """Empirically adjusted minor-gas column (:369)."""
-    if mode == 'n2':
-        return cs['colbrd'] * cs['scaleminorn2']
-    col = cs['col' + gas]
-    if mode == 'plain':
-        return col * cs['scaleminor']
-    chi, jp0 = cs['chi'], cs['jp0']
-    if mode == 'adjn2o':
-        chi_ref = chi[CHI_ROW['n2o'] - 1][jp0 + 1]
-        rat = col / (1.0e-20 * cs['coldry']) / chi_ref
-        adjfac = 0.5 + torch.clamp(rat - 0.5, min=1e-30) ** 0.65
-        adj = adjfac * chi_ref * cs['coldry'] * 1.0e-20
-        return torch.where(rat > 1.5, adj, col)
-    tag, thresh, base, expo = mode
-    assert tag == 'adjco2'
-    chi_ref = chi[CHI_ROW['co2'] - 1][jp0 + 1]
-    rat = col / (1.0e-20 * cs['coldry']) / chi_ref
-    adjfac = base + torch.clamp(rat - base, min=1e-30) ** expo
-    adj = adjfac * chi_ref * cs['coldry'] * 1.0e-20
-    return torch.where(rat > thresh, adj, col)
-
-
 def _stack_rows(*tables):
     """Tables joined row-wise: numpy with numpy, and with ``torch.cat``
     (which autograd follows) when any of them is a tensor."""
@@ -375,18 +335,12 @@ def taumol_lw_terms(cs, wx, dtype, tables=None):
     taug and the Planck fractions, each (nz, ncol, 140) once run, from
     ``tables`` (a dict in ``load_aer_tables``' layout of numpy arrays or
     of tensors, which may require grad: the groups' outputs then carry
-    the gradient back to them; None: ``load_kdist()``).  The PyTorch
-    writer (``taumol_lw_terms_plain``) for CPU tensors, the term-writer
-    kernel (``taumol_lw_terms_cuda``) for CUDA tensors."""
-    if cs['trop'].device.type == 'cpu':
-        return taumol_lw_terms_plain(cs, wx, dtype, tables)
-    return taumol_lw_terms_cuda(cs, wx, dtype, tables)
-
-
-def taumol_lw_terms_cuda(cs, wx, dtype, tables=None):
-    """``taumol_lw_terms`` on the card: one launch of the term-writer
-    kernel (``term_writer.taumol_terms_cuda``) writes both groups' terms
-    from ``lw_term_plan``'s entries."""
+    the gradient back to them; None: ``load_kdist()``).  Every band's
+    key-species 2x2x2 interpolation (one part, the merged [absa; absb]
+    table), continua, minor gases and cross-sections are terms of one band
+    of the taug group; the band-1/2 pressure corrections are folded into
+    their weights, as are the trop/upper masks of the Planck fractions.
+    ``term_writer.taumol_terms`` writes them from ``lw_term_plan``."""
     trop = cs['trop']
     nz, ncol = trop.shape
     t = load_kdist() if tables is None else tables
@@ -399,14 +353,14 @@ def taumol_lw_terms_cuda(cs, wx, dtype, tables=None):
                               source=t))
     fields = dict(cs)
     fields.update(('wx_' + gas, x) for gas, x in wx.items())
-    return term_writer.taumol_terms_cuda(plan, groups, fields, cs['chi'])
+    return term_writer.taumol_terms(plan, groups, fields, cs['chi'])
 
 
 def lw_term_plan(t, wx_names):
-    """The entries of ``taumol_lw_terms_plain`` for the tables ``t`` and
-    the cross-section gases ``wx_names``, recorded by the same walk over
-    ``BANDS_LW`` (``term_writer.TermPlan``): group 0 taug, group 1 the
-    Planck fractions."""
+    """The term plan of ``taumol_lw_terms`` for the tables ``t`` and the
+    cross-section gases ``wx_names``: the walk over ``BANDS_LW`` that
+    records each band's terms as entries (``term_writer.TermPlan``),
+    group 0 taug, group 1 the Planck fractions."""
     taug, fracs = 0, 1
     sup = data.load_numpy(data.LW_SUPPORT)
     plan = term_writer.TermPlan(2)
@@ -512,199 +466,6 @@ def lw_term_plan(t, wx_names):
             plan.entry('frac_lin', fracs, [f('col' + s1), f('col' + s2),
                                            n_eta, mask], [refrat], nterms=2)
     return plan
-
-
-def taumol_lw_terms_plain(cs, wx, dtype, tables=None):
-    """The PyTorch writer of ``taumol_lw_terms``, the plain version of the
-    term-writer kernel: every band's key-species 2x2x2 interpolation (one
-    part, the merged [absa; absb] table), continua, minor gases and
-    cross-sections are terms of one band of the taug group; the band-1/2
-    pressure corrections are folded into their weights, as are the
-    trop/upper masks of the Planck fractions.  On CUDA tensors it counts
-    its two groups in ``term_writer.taumol_terms_cuda.fallbacks``."""
-    trop = cs['trop']
-    nz, ncol = trop.shape
-    device = trop.device
-    if trop.is_cuda:
-        term_writer.taumol_terms_cuda.fallbacks += 2
-    t = load_kdist() if tables is None else tables
-    sup = data.load_numpy(data.LW_SUPPORT)
-    jp, jt0, jt10 = cs['jp'], cs['jt0'], cs['jt10']
-    pavel = cs['pavel']
-    zero_i = torch.zeros_like(jp)
-    zero_f = torch.zeros(trop.shape, dtype=dtype, device=device)
-    trop_f = trop.to(dtype)
-    upper_f = 1.0 - trop_f
-    taug_g = fused_mix.Group(('lw_taug', tuple(sorted(wx))), (nz, ncol),
-                             dtype, device, source=t)
-    fracs_g = fused_mix.Group('lw_fracs', (nz, ncol), dtype, device,
-                              source=t)
-
-    for bi, bd in enumerate(BANDS_LW):
-        num, ng = bd['num'], NG[bi]
-
-        def tab(name, b=num):
-            return t.get('b%d_%s' % (b, name))
-
-        # pressure correction of the whole band (taugb1/taugb2), folded
-        # into every term's weight
-        corr = None
-        if bd.get('corradj') == 'b1':
-            corr_lo = torch.where(pavel < 250.0,
-                                  1.0 - 0.15 * (250.0 - pavel) / 154.4, 1.0)
-            corr = torch.where(trop, corr_lo, 1.0 - 0.15 * (pavel / 95.6))
-        elif bd.get('corradj') == 'b2':
-            corr = torch.where(trop, 1.0 - 0.05 * (pavel - 100.0) / 900.0,
-                               torch.ones_like(pavel))
-
-        def scaled(x, corr=corr):
-            return x if corr is None else x * corr
-
-        taug_g.band(ng)
-        absa, absb = tab('absa'), tab('absb')
-        have_lo = bd['lo'] is not None
-        have_up = bd['up'] is not None
-        nspa = 9 if (have_lo and len(bd['lo']) == 3) else (
-            1 if have_lo else 0)
-        nspb = 5 if (have_up and len(bd['up']) == 3) else (
-            1 if have_up else 0)
-        speccomb_l, specparm_l = _key_spec(bd['lo'], cs)
-        speccomb_l1, specparm_l1 = _key_spec(bd['lo'], cs, '_1')
-        speccomb_u, specparm_u = _key_spec(bd['up'], cs)
-        speccomb_u1, specparm_u1 = _key_spec(bd['up'], cs, '_1')
-
-        if have_lo or have_up:
-            if have_lo:
-                if specparm_l is not None:
-                    jsl, fsl = _eta(specparm_l, 8)
-                    jsl1, fsl1 = _eta(specparm_l1, 8)
-                else:
-                    jsl = jsl1 = zero_i
-                    fsl = fsl1 = zero_f
-                ind0a = (cs['jp0'] * 5 + jt0) * nspa + jsl
-                ind1a = ((cs['jp0'] + 1) * 5 + jt10) * nspa + jsl1
-            if have_up:
-                if specparm_u is not None:
-                    jsu, fsu = _eta(specparm_u, 4)
-                    jsu1, fsu1 = _eta(specparm_u1, 4)
-                else:
-                    jsu = jsu1 = zero_i
-                    fsu = fsu1 = zero_f
-                ind0b = ((jp - 13) * 5 + jt0) * nspb + jsu
-                ind1b = ((jp - 12) * 5 + jt10) * nspb + jsu1
-
-            if have_lo and have_up:
-                taug_g.part(_stack_rows(absa, absb))
-                rows_a = absa.shape[0]
-                sc0 = torch.where(trop, speccomb_l, speccomb_u)
-                sc1 = torch.where(trop, speccomb_l1, speccomb_u1)
-            elif have_lo:
-                taug_g.part(absa)
-                sc0 = torch.where(trop, speccomb_l, 0.0)
-                sc1 = torch.where(trop, speccomb_l1, 0.0)
-            else:
-                taug_g.part(absb)
-                sc0 = torch.where(trop, 0.0, speccomb_u)
-                sc1 = torch.where(trop, 0.0, speccomb_u1)
-            sc0, sc1 = scaled(sc0), scaled(sc1)
-
-            for side, (f0name, f1name) in (
-                    ('i0', ('fac00', 'fac10')), ('i1', ('fac01', 'fac11'))):
-                sc = sc0 if side == 'i0' else sc1
-                for fac_name, nsp_off in ((f0name, 0), (f1name, 1)):
-                    fac = cs[fac_name]
-                    for eta_off in (0, 1):
-                        if nspa != 9 and nspb != 5 and eta_off:
-                            continue        # eta term absent on both sides
-                        if have_lo:
-                            fse = ((fsl if side == 'i0' else fsl1)
-                                   if nspa == 9 else zero_f)
-                            wl = fac * (fse if eta_off else (1.0 - fse))
-                            il = ((ind0a if side == 'i0' else ind1a)
-                                  + (nsp_off * nspa
-                                     + (eta_off if nspa == 9 else 0)))
-                        if have_up:
-                            fse = ((fsu if side == 'i0' else fsu1)
-                                   if nspb == 5 else zero_f)
-                            wu = fac * (fse if eta_off else (1.0 - fse))
-                            iu = ((ind0b if side == 'i0' else ind1b)
-                                  + (nsp_off * nspb
-                                     + (eta_off if nspb == 5 else 0)))
-                        idx, w = taug_g.slot()
-                        if have_lo and have_up:
-                            torch.where(trop, il, rows_a + iu, out=idx)
-                            wt = torch.where(trop, wl, wu)
-                        elif have_lo:
-                            idx.copy_(il)
-                            wt = torch.where(trop, wl, 0.0)
-                        else:
-                            idx.copy_(iu)
-                            wt = torch.where(trop, 0.0, wu)
-                        torch.mul(wt, sc, out=w)
-
-        # water-vapour self/foreign continuum
-        selfref, forref = tab('selfref'), tab('forref')
-        if bd.get('self_lo') and selfref is not None:
-            taug_g.part(selfref)
-            taug_g.lin(cs['indself'], cs['selffrac'],
-                       scaled(torch.where(trop, cs['selffac'], 0.0)))
-        if (bd.get('for_lo') or bd.get('for_up')) and forref is not None:
-            if bd.get('for_lo') and bd.get('for_up'):
-                forfac = cs['forfac']
-            else:
-                forfac = cs['forfac'] * (trop_f if bd.get('for_lo')
-                                         else upper_f)
-            taug_g.part(forref)
-            taug_g.lin(cs['indfor'], cs['forfrac'], scaled(forfac))
-
-        # minor absorbers
-        for region, key in (('lo', 'minors_lo'), ('up', 'minors_up')):
-            for gas, mode in bd.get(key, ()):
-                ktab = tab('k%s_m%s' % ('a' if region == 'lo' else 'b', gas))
-                if ktab is None:
-                    continue
-                amount = _adjusted_column(gas, mode, cs)
-                mask = trop if region == 'lo' else ~trop
-                taug_g.part(ktab)
-                taug_g.lin(cs['indminor'], cs['minorfrac'],
-                           scaled(torch.where(mask, amount, 0.0)))
-
-        # CFC/CCL4 cross-sections: one-row tables
-        for region, key in (('lo', 'wx_lo'), ('up', 'wx_up')):
-            for gas, tname in bd.get(key, ()):
-                xs = tab(tname)
-                if xs is None or gas not in wx:
-                    continue
-                mask = trop if region == 'lo' else ~trop
-                taug_g.part(xs)
-                taug_g.row(scaled(torch.where(mask, wx[gas], 0.0)))
-
-        # Planck fractions: where(trop, f_lo, f_up) as masked terms
-        fracs_g.band(ng)
-        fraca, fracb = tab('fracrefa'), tab('fracrefb')
-
-        def frac_terms(frtab, planck_spec, n_eta, weight):
-            if frtab.ndim == 1:
-                fracs_g.part(frtab)
-                fracs_g.row(1.0 if weight is None else weight)
-                return
-            s1, s2, (r1, r2, lev) = planck_spec
-            refrat = float(sup['chi_mls'][r1 - 1, lev - 1]
-                           / sup['chi_mls'][r2 - 1, lev - 1])
-            comb = cs['col' + s1] + refrat * cs['col' + s2]
-            parm = torch.clamp(cs['col' + s1] / comb, max=ONEMINUS)
-            mult = n_eta * parm
-            jpl = _trunc_int(mult)
-            fracs_g.part(frtab.T)
-            fracs_g.lin(jpl, mult - jpl, weight)
-
-        if fraca is not None:
-            frac_terms(fraca, bd.get('planck_lo'), 8,
-                       trop_f if fracb is not None else None)
-        if fracb is not None:
-            frac_terms(fracb, bd.get('planck_up'), 4, upper_f)
-
-    return taug_g, fracs_g
 
 
 def taumol_lw(cs, wx, dtype, tables=None):

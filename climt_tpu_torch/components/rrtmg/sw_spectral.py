@@ -179,45 +179,8 @@ def setcoef_sw(pavel, tavel, coldry, wkl):
         forfac=forfac, forfrac=forfrac, indfor=indfor, **cols)
 
 
-def _eta(specparm, n_eta):
-    specmult = n_eta * torch.clamp(specparm, max=ONEMINUS)
-    js0 = _trunc_int(specmult)
-    return js0, specmult - js0
-
-
-def _key_spec(spec, cs):
-    if spec is None:
-        return None, None
-    c1 = cs['col' + spec[0]]
-    if len(spec) == 1:
-        return c1, None
-    speccomb = c1 + spec[2] * cs['col' + spec[1]]
-    return speccomb, c1 / speccomb
-
-
-def _last_true_index(cond, default):
-    """Per-column index of the last True along axis 0, else default."""
-    nz = cond.shape[0]
-    idx = nz - 1 - torch.argmax(torch.flip(cond, [0]).to(torch.uint8), dim=0)
-    return torch.where(torch.any(cond, dim=0), idx, default)
-
-
 def _solar_mode(isolvar):
     return 'ref' if isolvar < 0 else ('svar' if isolvar <= 2 else 'band')
-
-
-def taumol_sw_terms(cs, isolvar, svar_f, svar_s, svar_i,
-                    svar_f_bnd, svar_s_bnd, svar_i_bnd, dtype):
-    """The terms of taumol (:247) as three kernel-B groups, unlaunched:
-    taug and taur, (nz, ncol, 112) once run, and the solar source sflux,
-    (ncol, 112).  Every band is one band of each group.  The PyTorch
-    writer (``taumol_sw_terms_plain``) for CPU tensors, the term-writer
-    kernel (``taumol_sw_terms_cuda``) for CUDA tensors."""
-    args = (cs, isolvar, svar_f, svar_s, svar_i, svar_f_bnd, svar_s_bnd,
-            svar_i_bnd, dtype)
-    if cs['trop'].device.type == 'cpu':
-        return taumol_sw_terms_plain(*args)
-    return taumol_sw_terms_cuda(*args)
 
 
 def solar_factors(isolvar, svar_f, svar_s, svar_i, svar_f_bnd, svar_s_bnd,
@@ -237,11 +200,12 @@ def solar_factors(isolvar, svar_f, svar_s, svar_i, svar_f_bnd, svar_s_bnd,
     return [float(x) for x in out]
 
 
-def taumol_sw_terms_cuda(cs, isolvar, svar_f, svar_s, svar_i,
-                         svar_f_bnd, svar_s_bnd, svar_i_bnd, dtype):
-    """``taumol_sw_terms`` on the card: one launch of the term-writer
-    kernel (``term_writer.taumol_terms_cuda``) writes the three groups'
-    terms from ``sw_term_plan``'s entries."""
+def taumol_sw_terms(cs, isolvar, svar_f, svar_s, svar_i,
+                    svar_f_bnd, svar_s_bnd, svar_i_bnd, dtype):
+    """The terms of taumol (:247) as three kernel-B groups, unlaunched:
+    taug and taur, (nz, ncol, 112) once run, and the solar source sflux,
+    (ncol, 112).  Every band is one band of each group.
+    ``term_writer.taumol_terms`` writes them from ``sw_term_plan``."""
     trop = cs['trop']
     nz, ncol = trop.shape
     mode = _solar_mode(isolvar)
@@ -252,17 +216,17 @@ def taumol_sw_terms_cuda(cs, isolvar, svar_f, svar_s, svar_i,
               fused_mix.Group('sw_taur', (nz, ncol), dtype, trop.device),
               fused_mix.Group(('sw_sflux', mode), (ncol,), dtype,
                               trop.device))
-    return term_writer.taumol_terms_cuda(
+    return term_writer.taumol_terms(
         plan, groups, cs, factors=solar_factors(
             isolvar, svar_f, svar_s, svar_i, svar_f_bnd, svar_s_bnd,
             svar_i_bnd))
 
 
 def sw_term_plan(solar_mode):
-    """The entries of ``taumol_sw_terms_plain`` in ``solar_mode`` ('ref',
-    'svar' or 'band'), recorded by the same walk over ``BANDS``
-    (``term_writer.TermPlan``): group 0 taug, 1 taur, 2 the solar source,
-    whose factors ``solar_factors`` gives by slot."""
+    """The term plan of ``taumol_sw_terms`` in ``solar_mode`` ('ref',
+    'svar' or 'band'): the walk over ``BANDS`` that records each band's
+    terms as entries (``term_writer.TermPlan``), group 0 taug, 1 taur, 2
+    the solar source, whose factors ``solar_factors`` gives by slot."""
     taug, taur, sflux = 0, 1, 2
     t = data.load_numpy(data.SW_KDIST)
     plan = term_writer.TermPlan(3, columns=(sflux,))
@@ -353,184 +317,6 @@ def sw_term_plan(solar_mode):
                 plan.part(sflux, tab(name).T)
                 plan.entry('sol_lin', sflux, [3 * bi + slot], nterms=2)
     return plan
-
-
-def taumol_sw_terms_plain(cs, isolvar, svar_f, svar_s, svar_i,
-                          svar_f_bnd, svar_s_bnd, svar_i_bnd, dtype):
-    """The PyTorch writer of ``taumol_sw_terms``, the plain version of the
-    term-writer kernel.  On CUDA tensors it counts its three groups in
-    ``term_writer.taumol_terms_cuda.fallbacks``."""
-    trop = cs['trop']
-    nz, ncol = trop.shape
-    device = trop.device
-    if trop.is_cuda:
-        term_writer.taumol_terms_cuda.fallbacks += 3
-    t = data.load_numpy(data.SW_KDIST)
-    jp, jt0, jt10 = cs['jp'], cs['jt0'], cs['jt10']
-    ltrop_idx = torch.clamp(torch.sum(trop, dim=0) - 1, min=0)
-    zero_i = torch.zeros_like(jp)
-    zero_f = torch.zeros(trop.shape, dtype=dtype, device=device)
-    trop_f = trop.to(dtype)
-    upper_f = 1.0 - trop_f
-    colmol = cs['colmol']
-    solar_mode = _solar_mode(isolvar)
-    taug_g = fused_mix.Group('sw_taug', (nz, ncol), dtype, device)
-    taur_g = fused_mix.Group('sw_taur', (nz, ncol), dtype, device)
-    sflux_g = fused_mix.Group(('sw_sflux', solar_mode), (ncol,), dtype,
-                              device)
-
-    for bi, bd in enumerate(BANDS):
-        num, ng = bd['num'], NG[bi]
-        nspa, nspb = NSPA[bi], NSPB[bi]
-
-        def tab(name, b=num):
-            return t.get('b%d_%s' % (b, name))
-
-        speccomb_l, specparm_l = _key_spec(bd['lo'], cs)
-        speccomb_u, specparm_u = _key_spec(bd['up'], cs)
-        if speccomb_u is not None and bd.get('up_col_scale'):
-            speccomb_u = speccomb_u * bd['up_col_scale']
-        js0_l = fs_l = js0_u = fs_u = None
-        if specparm_l is not None:
-            js0_l, fs_l = _eta(specparm_l, 8)
-        if specparm_u is not None:
-            js0_u, fs_u = _eta(specparm_u, 4)
-
-        taug_g.band(ng)
-        absa, absb = tab('absa'), tab('absb')
-        have_lo = bd['lo'] is not None
-        have_up = bd['up'] is not None
-        if have_lo or have_up:
-            if have_lo:
-                jsl = js0_l if js0_l is not None else zero_i
-                fsl = fs_l if fs_l is not None else zero_f
-                ind0a = (cs['jp0'] * 5 + jt0) * nspa + jsl
-                ind1a = ((cs['jp0'] + 1) * 5 + jt10) * nspa + jsl
-            if have_up:
-                jsu = js0_u if js0_u is not None else zero_i
-                fsu = fs_u if fs_u is not None else zero_f
-                ind0b = ((jp - 13) * 5 + jt0) * nspb + jsu
-                ind1b = ((jp - 12) * 5 + jt10) * nspb + jsu
-
-            if have_lo and have_up:
-                taug_g.part(np.concatenate([absa, absb], axis=0))
-                rows_a = absa.shape[0]
-                speccomb = torch.where(trop, speccomb_l, speccomb_u)
-            elif have_lo:
-                taug_g.part(absa)
-                speccomb = torch.where(trop, speccomb_l, 0.0)
-            else:
-                taug_g.part(absb)
-                speccomb = torch.where(trop, 0.0, speccomb_u)
-            kscale = bd.get('kscale_lo')
-            if kscale:
-                # (a where of two Python floats would be float32)
-                speccomb = torch.where(trop, speccomb * kscale, speccomb)
-
-            for ind_sel, f0, f1 in (
-                    ('i0', 'fac00', 'fac10'), ('i1', 'fac01', 'fac11')):
-                for fac_name, nsp_off in ((f0, 0), (f1, 1)):
-                    for eta_off in (0, 1):
-                        if eta_off and nspa != 9 and nspb != 5:
-                            continue    # eta term absent on both sides
-                        fac = cs[fac_name]
-                        if have_lo:
-                            wl = fac * (fsl if eta_off else (1.0 - fsl))
-                            il = ((ind0a if ind_sel == 'i0' else ind1a)
-                                  + (nsp_off * nspa + eta_off))
-                        if have_up:
-                            wu = fac * (fsu if eta_off else (1.0 - fsu))
-                            iu = ((ind0b if ind_sel == 'i0' else ind1b)
-                                  + (nsp_off * nspb + eta_off))
-                        idx, w = taug_g.slot()
-                        if have_lo and have_up:
-                            torch.where(trop, il, rows_a + iu, out=idx)
-                            wt = torch.where(trop, wl, wu)
-                        elif have_lo:
-                            idx.copy_(il)
-                            wt = torch.where(trop, wl, 0.0)
-                        else:
-                            idx.copy_(iu)
-                            wt = torch.where(trop, 0.0, wu)
-                        torch.mul(wt, speccomb, out=w)
-
-        # water-vapour self/foreign continuum
-        if bd['self_lo'] or bd['for_lo'] or bd['for_up']:
-            colh2o = cs['colh2o']
-            if bd['self_lo']:
-                taug_g.part(tab('selfref'))
-                taug_g.lin(cs['indself'], cs['selffrac'],
-                           torch.where(trop, cs['selffac'], 0.0) * colh2o)
-            forfac = cs['forfac'] * colh2o
-            if not (bd['for_lo'] and bd['for_up']):
-                forfac = forfac * (trop_f if bd['for_lo'] else upper_f)
-            taug_g.part(tab('forref'))
-            taug_g.lin(cs['indfor'], cs['forfrac'], forfac)
-
-        # minor absorbers: one-row tables
-        for gas, table_name, regime in bd.get('extra', ()):
-            col = cs['col' + gas]
-            taug_g.part(tab(table_name))
-            if regime == 'both':
-                taug_g.row(col)
-            else:
-                taug_g.row(col * (trop_f if regime == 'lo' else upper_f))
-        if bd.get('o2cont'):
-            taug_g.part(np.ones(ng))
-            taug_g.row(4.35e-4 * cs['colo2'] / (350.0 * 2.0))
-
-        # Rayleigh
-        taur_g.band(ng)
-        if bd['rayl'] in ('c', 'pg'):
-            taur_g.part(tab('rayl'))
-            taur_g.row(colmol)
-        else:  # band 24: eta-interpolated lower, raylb upper
-            taur_g.part(tab('rayla').T)
-            taur_g.lin(js0_l, fs_l, colmol * trop_f)
-            taur_g.part(tab('raylb'))
-            taur_g.row(colmol * upper_f)
-
-        # solar source at the reference layer
-        where, neta = bd['sflux']
-        layreffr = bd['layreffr']
-        if where == 'lo':
-            cond = trop & (jp < layreffr)
-            cond = cond & (torch.roll(jp, -1, dims=0) >= layreffr)
-            cond[-1] = False
-            lay = torch.minimum(_last_true_index(cond, ltrop_idx) + 1,
-                                ltrop_idx)
-        else:
-            cond = (~trop) & (jp >= layreffr)
-            condp = torch.cat([torch.zeros((1, ncol), dtype=torch.bool,
-                                           device=device),
-                               jp[:-1] < layreffr], dim=0)
-            lay = _last_true_index(cond & condp, nz - 1)
-
-        sflux_g.band(ng)
-        if neta:
-            js_sol = torch.gather(js0_l if where == 'lo' else js0_u, 0,
-                                  lay[None, :])[0]
-            fs_sol = torch.gather(fs_l if where == 'lo' else fs_u, 0,
-                                  lay[None, :])[0]
-        if solar_mode == 'ref':
-            sources = [('sfluxref', bd.get('sflux_scale', 1.0))]
-        elif solar_mode == 'svar':
-            sources = [('facbrght', svar_f), ('snsptdrk', svar_s),
-                       ('irradnce', svar_i)]
-        else:
-            sources = [('facbrght', svar_f_bnd[bi]),
-                       ('snsptdrk', svar_s_bnd[bi]),
-                       ('irradnce', svar_i_bnd[bi])]
-        for name, factor in sources:
-            ref = tab(name)
-            if neta == 0:
-                sflux_g.part(ref)
-                sflux_g.row(float(factor))
-            else:
-                sflux_g.part(ref.T)
-                sflux_g.lin(js_sol, fs_sol, float(factor))
-
-    return taug_g, taur_g, sflux_g
 
 
 def taumol_sw(cs, isolvar, svar_f, svar_s, svar_i,

@@ -5,14 +5,14 @@
 //
 // It replaces no TPU kernel: the JAX package writes these terms with XLA,
 // which fuses their elementwise arithmetic (climt_tpu/components/rrtmg/
-// lw_spectral.py:396, sw_spectral.py:247); the port's PyTorch writers
-// (taumol_lw_terms_plain, taumol_sw_terms_plain) dispatch every operation
-// alone, about 1,900 launches an LW call and 1,500 an SW call.
+// lw_spectral.py:396, sw_spectral.py:247); in PyTorch's elementwise
+// operations, each dispatched alone, they take about 1,900 launches an LW
+// call and 1,500 an SW call.
 //
 // What to write comes from a term plan (components/rrtmg/term_writer.py):
-// a list of entries, each one step of the PyTorch writer's walk over the
-// band table, with the ids of the (nz, ncol) fields it reads, its int
-// parameters and its constants.  Entries of the cell groups run in one
+// a list of entries, each one step of the walk over the band table, with
+// the ids of the (nz, ncol) fields it reads, its int parameters and its
+// constants.  Entries of the cell groups run in one
 // thread per cell, those of the solar source (one cell per column) in one
 // thread per column, whose blocks come first in the grid: their loops over
 // the levels take longest.
@@ -20,10 +20,10 @@
 // Bound: bytes.  Each term's weight (4 or 8 bytes) and, for a table of more
 // than one row, its index (4 bytes) are stored once per cell, coalesced
 // along cells; each field is read from device memory once (the entries
-// read it again from L1/L2).  The arithmetic is the PyTorch writer's,
-// operation by operation and in its order; this file is built with
-// -fmad=false (_build.SOURCE_FLAGS) so that no product and sum fuse, and
-// divides where PyTorch on the CPU divides.  The float32 power of the
+// read it again from L1/L2).  The arithmetic is the plain version's
+// (term_writer.taumol_terms_plain), operation by operation and in its
+// order; this file is built with -fmad=false (_build.SOURCE_FLAGS) so that
+// no product and sum fuse, and divides where PyTorch on the CPU divides.  The float32 power of the
 // adjusted minor-gas columns is the float64 pow of its arguments, rounded.
 #include <cuda_runtime.h>
 #include <math.h>

@@ -20,10 +20,9 @@ For each traced step it prints the wall time, the summed kernel time, the
 device busy share (kernel time over wall time: one stream, so kernels do
 not overlap), the number of kernel launches, the collectives (calls and
 bytes of the all_to_all transposes, the latitude halo, the all_reduce
-and all_gather calls), the term writer's launches and the term groups
-the PyTorch writers wrote on the card (``term_writer.taumol_terms_cuda``
-``.launches``, ``.fallbacks``) and the kernels that take the most device
-time;
+and all_gather calls), the term writer's launches
+(``term_writer.taumol_terms_cuda.launches``) and the kernels that take the
+most device time;
 then one row per layer: the innermost program span (``climt.*``, see
 ``utils.profiling.phase``) over each instant of the host's work, its
 host self ms, and the kernel launches and device ms of the operations
@@ -223,17 +222,15 @@ def main(argv=None):
         torch.cuda.synchronize()
         for label in labels:
             reset_collectives()
-            terms = (taumol_terms_cuda.launches, taumol_terms_cuda.fallbacks)
+            terms = taumol_terms_cuda.launches
             carry, wall, prof = traced_step(step_fn, carry)
             busy, launches, by_name = kernel_summary(prof)
             print('%s, layout %s, on %s: wall %.4f s, kernel time %.4f s, '
                   'device busy %.1f%%, %d kernel launches, collectives '
-                  '(calls, bytes) %s, term writer launches %d (groups the '
-                  'PyTorch writers wrote %d)' % (
+                  '(calls, bytes) %s, term writer launches %d' % (
                       label, args.layout, card, wall, busy,
                       100.0 * busy / wall, launches, collectives(),
-                      taumol_terms_cuda.launches - terms[0],
-                      taumol_terms_cuda.fallbacks - terms[1]))
+                      taumol_terms_cuda.launches - terms))
             for name, (ms, n) in sorted(by_name.items(),
                                         key=lambda kv: -kv[1][0])[:15]:
                 print('    %9.3f ms %6d x  %s' % (ms, n, name[:100]))

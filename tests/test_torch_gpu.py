@@ -817,20 +817,18 @@ def _assert_terms_match(report):
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('nz, ncol', [(28, 8192), (60, 32768)])
-def test_term_writer_matches_the_pytorch_writer(cuda, nz, ncol, dtype):
+def test_term_writer_matches_its_plain_version(cuda, nz, ncol, dtype):
     """The term-writer kernel at a T85 chunk and at rrtmg_l60's call, on
     columns with and without a tropopause crossing and every gas varied,
-    against the PyTorch writer on the CPU on the same coefficients: one
-    launch a call, the multi-row indices equal, every weight equal but the
-    adjusted minor-gas columns' power terms, within TERM_POWER_EPS of
-    chip_smoke.py (the terms that differ are named in the report)."""
+    against its plain version (term_writer.taumol_terms_plain) on the CPU
+    on the same coefficients: one launch a call, the multi-row indices
+    equal, every weight equal but the adjusted minor-gas columns' power
+    terms, within TERM_POWER_EPS of chip_smoke.py (the terms that differ
+    are named in the report)."""
     for call in ('lw', 'sw'):
-        before = (TW.taumol_terms_cuda.launches,
-                  TW.taumol_terms_cuda.fallbacks)
+        before = TW.taumol_terms_cuda.launches
         report = term_writer_check(call, dtype, nz, ncol, cuda)
-        assert (TW.taumol_terms_cuda.launches,
-                TW.taumol_terms_cuda.fallbacks) == (before[0] + 1,
-                                                    before[1])
+        assert TW.taumol_terms_cuda.launches == before + 1
         _assert_terms_match(report)
         torch.cuda.empty_cache()
 
@@ -840,35 +838,33 @@ def test_term_writer_matches_the_pytorch_writer(cuda, nz, ncol, dtype):
 @pytest.mark.parametrize('call, case', [
     ('lw', case) for case in LW_TABLE_CASES + ('wx_subset',)]
     + [('sw', mode) for mode in ('svar', 'band')])
-def test_term_writer_cases_match_the_pytorch_writer(cuda, call, case,
-                                                    dtype):
+def test_term_writer_cases_match_its_plain_version(cuda, call, case, dtype):
     """The kernel on LW tables without a minor-gas table and a fracref,
     with eta Planck fractions, with tables that require grad, on a subset
     of the cross-section gases, and in the SW solar modes svar and band,
-    at 28 x 512, against the PyTorch writer on the CPU."""
+    at 28 x 512, against its plain version on the CPU."""
     _assert_terms_match(term_writer_check(call, dtype, 28, 512, cuda, case))
 
 
 @pytest.mark.gpu
 def test_radiation_call_launches_the_term_writer_once(cuda):
-    """An LW and an SW call on a T85 chunk: one term-writer launch each,
-    no group written by the PyTorch writers."""
+    """An LW and an SW call on a T85 chunk: one term-writer launch each."""
     c = radiation_columns(nz=28, ncol=8192)
-    before = (TW.taumol_terms_cuda.launches, TW.taumol_terms_cuda.fallbacks)
+    before = TW.taumol_terms_cuda.launches
     port_lw(c, torch.float32, cuda)
     port_sw(c, torch.float32, cuda)
-    assert (TW.taumol_terms_cuda.launches,
-            TW.taumol_terms_cuda.fallbacks) == (before[0] + 2, before[1])
+    assert TW.taumol_terms_cuda.launches == before + 2
 
 
 @pytest.mark.gpu
-def test_calibration_gradient_is_the_pytorch_writers(cuda, monkeypatch):
+def test_calibration_gradient_is_the_plain_term_writers(cuda, monkeypatch):
     """The calibration loss and its gradient on the card, the terms of the
     tables that require grad written by the term-writer kernel (one launch
     per LW call, on the first call of each table set too), against the same
-    on the card with the PyTorch writer: kernel B's backward sees the same
-    indices and weights, but for the power terms' ulps and the order of
-    its atomics."""
+    on the card with the terms written by its plain version
+    (term_writer.taumol_terms_plain on CUDA tensors, no launch): kernel B's
+    backward sees the same indices and weights, but for the power terms'
+    ulps and the order of its atomics."""
     from climt_tpu_torch.components.rrtmg import lw_surrogate
     from climt_tpu_torch.tools import calibrate_lw_ktables as cal
 
@@ -883,9 +879,9 @@ def test_calibration_gradient_is_the_pytorch_writers(cuda, monkeypatch):
     before = TW.taumol_terms_cuda.launches
     val, grad = cal.value_and_grad(theta, *args)
     assert TW.taumol_terms_cuda.launches - before == 3
-    monkeypatch.setattr(TL, 'taumol_lw_terms_cuda', TL.taumol_lw_terms_plain)
-    before = TW.taumol_terms_cuda.fallbacks
+    monkeypatch.setattr(TW, 'taumol_terms', TW.taumol_terms_plain)
+    before = TW.taumol_terms_cuda.launches
     val_p, grad_p = cal.value_and_grad(theta, *args)
-    assert TW.taumol_terms_cuda.fallbacks - before == 6
+    assert TW.taumol_terms_cuda.launches == before
     assert abs(float(val) - float(val_p)) <= 1e-12 * abs(float(val_p))
     assert rel_err(grad, grad_p) <= 1e-10

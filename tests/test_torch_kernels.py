@@ -5,8 +5,9 @@ Kernel B (fused_mix) is held against ``interp.mix_rows``, the function it
 replaces on the main path, and against the Pallas ``fused_mix_rows`` run
 in interpret mode.  Kernel A (rtrn_kernel) is held against ``rtrn_lw``'s
 XLA path at float64 and the Pallas ``rtrn_lw_fused`` in interpret mode at
-float32.  The CUDA kernels themselves are compared with these plain
-versions on a card by tests/test_torch_gpu.py.
+float32.  The term writer's plain version is held to the JAX taumol by
+tests/test_torch_radiation.py.  The CUDA kernels themselves are compared
+with these plain versions on a card by tests/test_torch_gpu.py.
 """
 
 import numpy as np
@@ -21,12 +22,10 @@ from climt_tpu.components.rrtmg.interp import mix_rows
 from climt_tpu.components.rrtmg.pallas_rtrn import rtrn_lw_fused
 from climt_tpu_torch.components.rrtmg import fused_mix, rtrn_kernel
 from climt_tpu_torch.components.rrtmg import lw_spectral as TL
-from climt_tpu_torch.components.rrtmg import sw_spectral as TS
 from climt_tpu_torch.components.rrtmg import term_writer
 
-from torch_helpers import (CONTENTION_CASES, LW_TABLE_CASES,
-                           contention_bands, eval_term_plan, lw_table_case,
-                           ragged_bands, ragged_group, rel_err, solar_case,
+from torch_helpers import (CONTENTION_CASES, contention_bands,
+                           ragged_bands, ragged_group, rel_err,
                            taumol_coefs, taumol_columns, to_torch)
 
 HEATFAC = 9.80665 * 8.64e4 / (1004.64 * 1e2)
@@ -284,63 +283,6 @@ def test_plain_backward_matches_jax_autodiff_of_mix_rows(case):
             assert not block[:, ng:].any()
             t += i.shape[0]
             k += 1
-
-
-# (call, dtype, case): the LW tables of torch_helpers.lw_table_case or a
-# subset of the cross-section gases; the SW solar modes of
-# torch_helpers.solar_case
-TERM_CASES = [(call, dtype, case)
-              for dtype in ('float32', 'float64')
-              for call, cases in (('lw', LW_TABLE_CASES + ('wx_subset',)),
-                                  ('sw', ('ref', 'svar', 'band')))
-              for case in cases]
-
-
-def _bits(x):
-    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
-
-
-@pytest.mark.parametrize('call, dtype, case', TERM_CASES)
-def test_term_plan_gives_the_pytorch_writers_terms(call, dtype, case):
-    """The term plan that the term-writer kernel reads, evaluated by
-    torch_helpers.eval_term_plan (the kernel's arithmetic, entry by entry),
-    against taumol_lw_terms_plain / taumol_sw_terms_plain on columns with
-    and without a tropopause crossing and with jp short of the solar
-    reference layers: the same bands, parts and term counts, every
-    multi-row term's index equal and every weight equal bit for bit."""
-    dt = getattr(torch, dtype)
-    cs, wx, css = taumol_coefs(taumol_columns(), dt)
-    if call == 'lw':
-        tables = lw_table_case('surrogate' if case == 'wx_subset' else case)
-        if case == 'wx_subset':
-            wx = {gas: wx[gas] for gas in ('ccl4', 'cfc12')}
-        groups = TL.taumol_lw_terms_plain(cs, wx, dt, tables)
-        plan = TL.lw_term_plan(tables, tuple(sorted(wx)))
-        fields = dict(cs)
-        fields.update(('wx_' + gas, x) for gas, x in wx.items())
-        idx, w = eval_term_plan(plan, fields, chi=cs['chi'])
-    else:
-        isolvar, solar = solar_case(case)
-        groups = TS.taumol_sw_terms_plain(css, isolvar, *solar, dt)
-        plan = TS.sw_term_plan(case)
-        idx, w = eval_term_plan(plan, css, factors=TS.solar_factors(
-            isolvar, *solar))
-    assert len(groups) == len(plan.nterms)
-    kinds = set()
-    for g, group in enumerate(groups):
-        layout, ref_idx, ref_w = group.finish()
-        assert layout.signature == fused_mix._signature(plan.ngs[g],
-                                                        plan.parts[g])
-        many = torch.as_tensor([rows > 1 for _, rows in layout.terms],
-                               dtype=torch.bool)
-        assert torch.equal(idx[g][many], ref_idx[many])
-        assert torch.equal(_bits(w[g]), _bits(ref_w))
-        kinds.update(r[0] for r in plan.records if r[1] == g)
-    if call == 'lw' and case == 'eta_fracs':
-        assert term_writer.KIND['frac_lin'] in kinds
-    if call == 'lw':
-        trop = cs['trop']
-        assert bool(trop.all(0).any()) and bool((~trop).all(0).any())
 
 
 def test_term_kinds_match_the_kernel_source():

@@ -4,6 +4,9 @@ on the physical columns of tests/test_radiation_fastpath.py.
 The port computes every taumol interpolation as a direct gather (the
 JAX f64 path), so at float64 the two agree to roundoff; at float32 the
 port is held to the JAX package's own fast-path bounds against f64.
+taumol's terms, written by the term writer's plain version
+(``term_writer.taumol_terms_plain``), are held to the JAX taumol on
+``taumol_columns`` too, with each LW table case and SW solar mode.
 """
 
 import jax.numpy as jnp
@@ -11,8 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import (jax_lw, jax_sw, jax_taumol, port_lw, port_sw,
+from climt_tpu_torch.components.rrtmg import lw_spectral as TL
+from climt_tpu_torch.components.rrtmg import sw_spectral as TS
+from climt_tpu_torch.components.rrtmg import term_writer
+
+from torch_helpers import (LW_TABLE_CASES, jax_lw, jax_sw, jax_taumol,
+                           lw_table_case, port_lw, port_sw,
                            port_taumol_groups, radiation_columns, rel_err,
+                           solar_case, taumol_coefs, taumol_columns,
                            varying_ps_columns)
 
 
@@ -102,6 +111,92 @@ def test_taumol_groups_match_jax_f64(which):
         out = group.run()
         assert out.dtype == torch.float64, name
         assert rel_err(out, ref[name]) < 1e-10, name
+
+
+# (call, dtype, case): the LW tables of torch_helpers.lw_table_case or a
+# subset of the cross-section gases; the SW solar modes of
+# torch_helpers.solar_case
+TERM_CASES = [(call, dtype, case)
+              for dtype in ('float32', 'float64')
+              for call, cases in (('lw', LW_TABLE_CASES + ('wx_subset',)),
+                                  ('sw', ('ref', 'svar', 'band')))
+              for case in cases]
+
+
+# taumol_columns of the term tests: 28 levels and the 64 columns of
+# varying_ps_columns, so that the JAX operations compiled for
+# test_taumol_groups_match_jax_f64 serve them too
+TERM_COLUMNS = dict(nz=28, ncol=64)
+# float32 groups against the JAX package's float64 path, relative to the
+# group's max: the float64 path itself, fed the term columns rounded to
+# float32, moves LW taug by 7.42e-6 and SW taug by 2.0e-7 of max; the
+# port's float32 groups read at most 4.48e-6 (LW taug) and 4.9e-7 (SW
+# taug); 1e-5, 84 float32 epsilons, lies just above the float64 path's 7.42e-6
+TERM_F32_TOL = 1e-5
+
+
+@pytest.fixture(scope='module')
+def jax_terms():
+    """The JAX taumol_lw / taumol_sw groups at float64 on the term columns,
+    computed once per (call, case) and shared by both dtypes."""
+    c = taumol_columns(**TERM_COLUMNS)
+    refs = {}
+
+    def ref(call, case):
+        if (call, case) not in refs:
+            if call == 'lw':
+                tables = lw_table_case('surrogate' if case == 'wx_subset'
+                                       else case)
+                tables = {k: v.detach().numpy() if torch.is_tensor(v) else v
+                          for k, v in tables.items()}
+                refs[call, case] = jax_taumol(
+                    c, tables, sw=False, wx_names=('ccl4', 'cfc12')
+                    if case == 'wx_subset' else None)
+            else:
+                refs[call, case] = {
+                    k: v for k, v in jax_taumol(
+                        c, solar=solar_case(case)).items()
+                    if k.startswith('sw_')}
+        return refs[call, case]
+    return ref
+
+
+@pytest.mark.parametrize('call, dtype, case', TERM_CASES)
+def test_taumol_terms_match_jax_f64(jax_terms, call, dtype, case):
+    """taumol_lw_terms / taumol_sw_terms on the CPU (the term plan written
+    by term_writer.taumol_terms_plain, summed by kernel B's plain version)
+    against the JAX taumol_lw (lw_spectral.py:396) and taumol_sw
+    (sw_spectral.py:247) at float64 on columns with and without a
+    tropopause crossing, with jp short of the solar reference layers and
+    every gas varied, with each LW table case and SW solar mode of the
+    card tests: the same gathers, summed in another order, so float64
+    within 1e-10 of max; float32 within TERM_F32_TOL."""
+    dt = getattr(torch, dtype)
+    cs, wx, css = taumol_coefs(taumol_columns(**TERM_COLUMNS), dt)
+    if call == 'lw':
+        tables = lw_table_case('surrogate' if case == 'wx_subset' else case)
+        if case == 'wx_subset':
+            wx = {gas: wx[gas] for gas in ('ccl4', 'cfc12')}
+        groups = TL.taumol_lw_terms(cs, wx, dt, tables)
+        plan = TL.lw_term_plan(tables, tuple(sorted(wx)))
+        names = ('lw_taug', 'lw_fracs')
+    else:
+        isolvar, solar = solar_case(case)
+        groups = TS.taumol_sw_terms(css, isolvar, *solar, dt)
+        plan = TS.sw_term_plan(case)
+        names = ('sw_taug', 'sw_taur', 'sw_sflux')
+    ref = jax_terms(call, case)
+    assert sorted(ref) == sorted(names)
+    for name, group in zip(names, groups):
+        out = group.run()
+        assert out.dtype == dt, name
+        assert rel_err(out, ref[name]) < (
+            1e-10 if dtype == 'float64' else TERM_F32_TOL), name
+    kinds = {r[0] for r in plan.records}
+    if call == 'lw' and case == 'eta_fracs':
+        assert term_writer.KIND['frac_lin'] in kinds
+    trop = cs['trop']
+    assert bool(trop.all(0).any()) and bool((~trop).all(0).any())
 
 
 @pytest.mark.parametrize('direction', ['upward', 'downward'])

@@ -473,23 +473,29 @@ def port_taumol_groups(c, dtype, device='cpu', tables=None):
                      'sw_sflux'), groups))
 
 
-def jax_taumol(c, tables=None, sw=True):
+def jax_taumol(c, tables=None, sw=True, wx_names=None, solar=None):
     """JAX taumol_lw (taug, fracs) and, with ``sw``, taumol_sw (taug,
     taur, sflux) at float64 on columns ``c``, set up as the JAX
     rrtmg_lw_fluxes and rrtmg_sw_fluxes set them up, by port group name;
-    the LW ones from the k-tables ``tables`` (None: the installed ones)."""
+    the LW ones from the k-tables ``tables`` (None: the installed ones)
+    with the cross-section gases ``wx_names`` (None: all four), the SW
+    ones in the solar mode ``solar`` (an (isolvar, six factors) pair of
+    ``solar_case``; None: the reference spectrum).  CH4, N2O, the CFCs and
+    CCl4 are zero where ``c`` holds none."""
     import jax.numpy as jnp
     from climt_tpu.components.rrtmg import lw_spectral as JL
     from climt_tpu.components.rrtmg import sw_spectral as JS
     j = {k: jnp.asarray(v) for k, v in c.items()
          if isinstance(v, np.ndarray)}
-    z = j['zero']
-    vmr = dict(h2o=j['h2o'], co2=j['co2'], o3=j['o3'], n2o=z, co=z, ch4=z,
-               o2=j['o2'])
+    z = jnp.zeros_like(j['play'])
+    gas = {g: j.get(g, z) for g in ('ch4', 'n2o', 'cfc11', 'cfc12', 'cfc22',
+                                    'ccl4')}
+    vmr = dict(h2o=j['h2o'], co2=j['co2'], o3=j['o3'], n2o=gas['n2o'], co=z,
+               ch4=gas['ch4'], o2=j['o2'])
     coldry, wkl, wbroad, _ = JL.inatm_lw(j['play'], j['plev'], j['tlay'],
                                          vmr, G, AVOG)
-    wx = {name: coldry * z * 1.0e-20
-          for name in ('ccl4', 'cfc11', 'cfc12', 'cfc22')}
+    wx = {name: coldry * gas[name] * 1.0e-20
+          for name in (wx_names or ('ccl4', 'cfc11', 'cfc12', 'cfc22'))}
     cs = JL.setcoef_lw(j['play'], j['tlay'], j['tlev'], j['tsfc'],
                        j['emis'], coldry, wkl, wbroad)
     cs['pavel'] = j['play']
@@ -501,11 +507,11 @@ def jax_taumol(c, tables=None, sw=True):
     amm = (1.0 - h2o) * JS.AMD + h2o * JS.AMW
     coldry = pdp * 1.0e3 * AVOG / (1.0e2 * G * amm * (1.0 + h2o))
     wkl = {g: v * coldry for g, v in (
-        ('h2o', h2o), ('co2', j['co2']), ('o3', j['o3']), ('n2o', z),
-        ('ch4', z), ('o2', j['o2']))}
+        ('h2o', h2o), ('co2', j['co2']), ('o3', j['o3']), ('n2o', gas['n2o']),
+        ('ch4', gas['ch4']), ('o2', j['o2']))}
     css = JS.setcoef_sw(j['play'], j['tlay'], coldry, wkl)
-    sw = JS.taumol_sw(css, -1, *JS.solar_variability(-1, 0.0)[:6],
-                      jnp.float64)
+    isolvar, factors = solar or (-1, JS.solar_variability(-1, 0.0)[:6])
+    sw = JS.taumol_sw(css, isolvar, *factors, jnp.float64)
     return dict(zip(('lw_taug', 'lw_fracs', 'sw_taug', 'sw_taur',
                      'sw_sflux'), lw + sw))
 
@@ -1560,220 +1566,6 @@ def lw_table_case(name):
     return lw_surrogate.build_tables(theta.requires_grad_(True))
 
 
-def eval_term_plan(plan, fields, chi=None, factors=()):
-    """A term plan (``term_writer.TermPlan``) evaluated in PyTorch, entry by
-    entry, with the arithmetic of csrc/taumol_terms.cu in its order: per
-    group the (terms, *cells) index and weight pair.  A one-row part's
-    term gets no index (the kernel writes none): -1 there."""
-    from climt_tpu_torch.components.rrtmg import term_writer as TW
-    trop = fields['trop']
-    nz, ncol = trop.shape
-    dtype = fields[plan.fields[0]].dtype
-    kinds = {v: k for k, v in TW.KIND.items()}
-    idx, w = [], []
-    for g, n in enumerate(plan.nterms):
-        cells = (ncol,) if g in plan.columns else (nz, ncol)
-        idx.append(torch.full((n,) + cells, -1, dtype=torch.int32))
-        w.append(torch.zeros((n,) + cells, dtype=dtype))
-    trop_f = trop.to(dtype)
-    upper_f = 1.0 - trop_f
-    F = [fields[name] for name in plan.fields]
-    I = [fields[name] for name in plan.int_fields]
-    fac = ((F[0], F[1]), (F[2], F[3]))
-    jp, jp0, jt0, jt10 = I[:4]
-    corr = None
-    lay = js_sol = fs_sol = None
-
-    def masked(x, mask):
-        if mask == TW.TROP:
-            return torch.where(trop, x, 0.0)
-        return x if mask == TW.NO_MASK else torch.where(~trop, x, 0.0)
-
-    def scaled(x):
-        return x if corr is None else x * corr
-
-    def eta(parm, n):
-        mult = n * torch.clamp(parm, max=1.0 - 1.0e-6)
-        js = torch.trunc(mult).to(torch.int32)
-        return js, mult - js
-
-    def lin(g, t, i, frac, weight=None):
-        idx[g][t], idx[g][t + 1] = i, i + 1
-        if weight is None:
-            w[g][t], w[g][t + 1] = 1.0 - frac, frac
-        else:
-            w[g][t], w[g][t + 1] = (1.0 - frac) * weight, frac * weight
-
-    for rec in plan.records:
-        kind, g, t, p, c = (kinds[rec[0]], rec[1], rec[2], rec[3:-1],
-                            plan.consts[rec[-1]:])
-        if kind == 'lw_band':
-            pavel = F[p[1]]
-            if p[0] == 1:
-                lo = torch.where(pavel < 250.0,
-                                 1.0 - 0.15 * (250.0 - pavel) / 154.4, 1.0)
-                corr = torch.where(trop, lo, 1.0 - 0.15 * (pavel / 95.6))
-            elif p[0] == 2:
-                corr = torch.where(trop, 1.0 - 0.05 * (pavel - 100.0) / 900.0,
-                                   torch.ones_like(pavel))
-            else:
-                corr = None
-        elif kind in ('lw_key', 'sw_key'):
-            nspa, nspb, rows_a = p[:3]
-            sides = []
-            for s, n_eta, nsp in ((0, 8, nspa), (1, 4, nspb)):
-                if kind == 'lw_key':
-                    c1, c2, r0, r1 = p[3 + 4 * s:7 + 4 * s]
-                else:
-                    c1, c2 = p[3 + 2 * s:5 + 2 * s]
-                if c1 < 0:
-                    sides.append(None)
-                    continue
-                zi, zf = torch.zeros_like(jp), torch.zeros_like(F[c1])
-                if c2 < 0:
-                    sc = (F[c1], F[c1])
-                    js, fs = (zi, zi), (zf, zf)
-                else:
-                    if kind == 'lw_key':
-                        sc = (F[c1] + F[r0] * F[c2], F[c1] + F[r1] * F[c2])
-                    else:
-                        sc = (F[c1] + c[s] * F[c2],) * 2
-                    e = [eta(F[c1] / x, n_eta) for x in sc]
-                    js, fs = (e[0][0], e[1][0]), (e[0][1], e[1][1])
-                if kind == 'sw_key':
-                    if s == 1 and p[7]:
-                        sc = (sc[0] * c[2],) * 2
-                    js, fs = (js[0], js[0]), (fs[0], fs[0])
-                sides.append((sc, js, fs, nsp))
-            lo, up = sides
-            sc = []
-            for side in (0, 1):
-                if lo and up:
-                    x = torch.where(trop, lo[0][side], up[0][side])
-                elif lo:
-                    x = torch.where(trop, lo[0][side], 0.0)
-                else:
-                    x = torch.where(trop, 0.0, up[0][side])
-                if kind == 'sw_key' and p[8]:
-                    x = torch.where(trop, x * c[3], x)
-                sc.append(scaled(x) if kind == 'lw_key' else x)
-            base = [((jp0 * 5 + jt0), ((jp0 + 1) * 5 + jt10)),
-                    (((jp - 13) * 5 + jt0), ((jp - 12) * 5 + jt10))]
-            tt = t
-            for side in (0, 1):
-                for nsp_off in (0, 1):
-                    for e in (0, 1):
-                        if e and nspa != 9 and nspb != 5:
-                            continue
-                        parts = []
-                        for s, sd, full in ((0, lo, 9), (1, up, 5)):
-                            if sd is None:
-                                parts.append(None)
-                                continue
-                            scs, js, fs, nsp = sd
-                            has_eta = nsp == full
-                            fse = fs[side] if has_eta else torch.zeros_like(
-                                fac[0][0])
-                            wt = fac[side][nsp_off] * (fse if e else
-                                                       (1.0 - fse))
-                            off = e if (kind == 'sw_key' or has_eta) else 0
-                            ix = (base[s][side] * nsp + js[side]
-                                  + (nsp_off * nsp + off))
-                            parts.append((ix, wt))
-                        if lo and up:
-                            ix = torch.where(trop, parts[0][0],
-                                             rows_a + parts[1][0])
-                            wt = torch.where(trop, parts[0][1], parts[1][1])
-                        elif lo:
-                            ix, wt = parts[0][0], torch.where(
-                                trop, parts[0][1], 0.0)
-                        else:
-                            ix, wt = parts[1][0], torch.where(
-                                trop, 0.0, parts[1][1])
-                        idx[g][tt], w[g][tt] = ix, wt * sc[side]
-                        tt += 1
-        elif kind == 'lw_self':
-            lin(g, t, I[p[0]], F[p[1]],
-                scaled(torch.where(trop, F[p[2]], 0.0)))
-        elif kind == 'lw_for':
-            x = F[p[2]]
-            x = x if p[3] == TW.NO_MASK else x * (
-                trop_f if p[3] == TW.TROP else upper_f)
-            lin(g, t, I[p[0]], F[p[1]], scaled(x))
-        elif kind == 'lw_minor':
-            col = F[p[3]]
-            if p[2] == 0:
-                amount = col * F[p[4]]
-            else:
-                thresh, base, expo = c[:3]
-                chi_ref = chi[p[7]][jp0 + 1]
-                rat = col / (1.0e-20 * F[p[6]]) / chi_ref
-                adj = (base + torch.clamp(rat - base, min=1e-30) ** expo) \
-                    * chi_ref * F[p[6]] * 1.0e-20
-                amount = torch.where(rat > thresh, adj, col)
-            lin(g, t, I[p[0]], F[p[1]], scaled(masked(amount, p[5])))
-        elif kind == 'lw_wx':
-            w[g][t] = scaled(masked(F[p[0]], p[1]))
-        elif kind == 'frac_row':
-            w[g][t] = (1.0 if p[0] == TW.NO_MASK else
-                       trop_f if p[0] == TW.TROP else upper_f)
-        elif kind == 'frac_lin':
-            comb = F[p[0]] + c[0] * F[p[1]]
-            js, fs = eta(F[p[0]] / comb, p[2])
-            lin(g, t, js, fs, None if p[3] == TW.NO_MASK else
-                trop_f if p[3] == TW.TROP else upper_f)
-        elif kind == 'sw_self':
-            lin(g, t, I[p[0]], F[p[1]],
-                torch.where(trop, F[p[2]], 0.0) * F[p[3]])
-        elif kind == 'sw_for':
-            x = F[p[2]] * F[p[3]]
-            x = x if p[4] == TW.NO_MASK else x * (
-                trop_f if p[4] == TW.TROP else upper_f)
-            lin(g, t, I[p[0]], F[p[1]], x)
-        elif kind == 'row_col':
-            x = F[p[0]]
-            w[g][t] = x if p[1] == TW.NO_MASK else x * (
-                trop_f if p[1] == TW.TROP else upper_f)
-        elif kind == 'row_o2':
-            w[g][t] = 4.35e-4 * F[p[0]] / 700.0
-        elif kind == 'lin_eta':
-            js, fs = eta(F[p[0]] / (F[p[0]] + c[0] * F[p[1]]), p[4])
-            lin(g, t, js, fs, F[p[2]] * (trop_f if p[3] == TW.TROP
-                                         else upper_f))
-        elif kind == 'sol_layer':
-            tr, jj = trop.tolist(), jp.tolist()
-            L = p[1]
-            lay = []
-            for col in range(ncol):
-                last = -1
-                if p[0] == 0:
-                    ltrop = max(sum(tr[k][col] for k in range(nz)) - 1, 0)
-                    for k in range(nz - 1):
-                        if (tr[k][col] and jj[k][col] < L
-                                and jj[k + 1][col] >= L):
-                            last = k
-                    lay.append(min((last if last >= 0 else ltrop) + 1,
-                                   ltrop))
-                else:
-                    for k in range(1, nz):
-                        if (not tr[k][col] and jj[k][col] >= L
-                                and jj[k - 1][col] < L):
-                            last = k
-                    lay.append(last if last >= 0 else nz - 1)
-            lay = torch.as_tensor(lay)[None]
-            if p[2]:
-                c1 = torch.gather(F[p[3]], 0, lay)[0]
-                c2 = torch.gather(F[p[4]], 0, lay)[0]
-                js_sol, fs_sol = eta(c1 / (c1 + c[0] * c2), p[5])
-        elif kind == 'sol_row':
-            w[g][t] = float(factors[p[0]])
-        elif kind == 'sol_lin':
-            lin(g, t, js_sol, fs_sol, float(factors[p[0]]))
-        else:
-            raise ValueError(kind)
-    return idx, w
-
-
 def solar_case(mode):
     """(isolvar, the six factors of ``solar_variability``) of an SW solar
     mode ('ref', 'svar', 'band'); in 'band' the three tables' factors
@@ -1812,9 +1604,10 @@ def power_terms(plan):
 
 
 def term_writer_check(call, dtype, nz, ncol, device, case=None):
-    """The term-writer kernel (``taumol_lw_terms_cuda`` or
-    ``taumol_sw_terms_cuda``) on ``taumol_columns(nz, ncol)`` against the
-    PyTorch writer on the CPU on the same coefficients, by group name:
+    """The term-writer kernel (``taumol_lw_terms`` or ``taumol_sw_terms``
+    on the card) on ``taumol_columns(nz, ncol)`` against its plain version
+    (``term_writer.taumol_terms_plain``, the same call on the CPU) on the
+    same coefficients, by group name:
     terms, multi-row indices that differ, the largest absolute difference
     of a weight (0 only where every weight is equal), the largest ulp
     distance of a weight outside the power terms and of one inside them
@@ -1834,15 +1627,15 @@ def term_writer_check(call, dtype, nz, ncol, device, case=None):
         tables = lw_table_case('surrogate' if case == 'wx_subset' else case)
         if case == 'wx_subset':
             wx = {gas: wx[gas] for gas in ('ccl4', 'cfc12')}
-        got = TL.taumol_lw_terms_cuda(cs, wx, dtype, tables)
-        ref = TL.taumol_lw_terms_plain(cpu(cs), cpu(wx), dtype, tables)
+        got = TL.taumol_lw_terms(cs, wx, dtype, tables)
+        ref = TL.taumol_lw_terms(cpu(cs), cpu(wx), dtype, tables)
         plan = TL.lw_term_plan(tables, tuple(sorted(wx)))
         names = ('lw_taug', 'lw_fracs')
     else:
         case = case or 'ref'
         isolvar, solar = solar_case(case)
-        got = TS.taumol_sw_terms_cuda(css, isolvar, *solar, dtype)
-        ref = TS.taumol_sw_terms_plain(cpu(css), isolvar, *solar, dtype)
+        got = TS.taumol_sw_terms(css, isolvar, *solar, dtype)
+        ref = TS.taumol_sw_terms(cpu(css), isolvar, *solar, dtype)
         plan = TS.sw_term_plan(case)
         names = ('sw_taug', 'sw_taur', 'sw_sflux')
     power = power_terms(plan)
